@@ -1,0 +1,147 @@
+"""Command-line entry point (main.rs): scene file -> render -> sRGB -> BMP.
+
+Same positional argument and flags as ``raytrace_tpu.cli``, plus
+``--device``.  On ``--device cuda`` every lane goes through the CUDA
+megakernel, and a machine without a usable GPU is an error, never a
+silent CPU render.
+
+    python -m raytrace_tpu_torch.cli examples/cornell_indirect.txt \\
+        -o out.bmp --spp 16 --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+
+import numpy as np
+
+# flags of the JAX CLI whose feature is not in the port yet
+_UNPORTED = {
+    "shard": "--shard is not ported yet (ROADMAP item 13)",
+    "shard_objects": "--shard-objects is not ported yet (ROADMAP item 13)",
+    "f64": "--f64 is not ported yet (ROADMAP item 12)",
+    "profile": "--profile is not ported yet (ROADMAP item 5)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="raytrace_tpu_torch",
+        description="raytracer on PyTorch with CUDA kernels")
+    p.add_argument("scene", nargs="?", default="test_scene.txt",
+                   help="scene DSL file (default: test_scene.txt, main.rs:16)")
+    p.add_argument("-o", "--output", default="out.bmp",
+                   help="output BMP path (default: out.bmp, main.rs:34)")
+    p.add_argument("--spp", type=int, default=None,
+                   help="override the scene's antialias sample count")
+    p.add_argument("--width", type=int, default=None,
+                   help="override render width")
+    p.add_argument("--height", type=int, default=None,
+                   help="override render height")
+    p.add_argument("--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--f64", action="store_true",
+                   help="render in float64 (not ported yet)")
+    p.add_argument("--max-lanes", type=int, default=1 << 22,
+                   help="lane budget per launch (memory knob)")
+    p.add_argument("--shard", action="store_true",
+                   help="shard pixels over devices (not ported yet)")
+    p.add_argument("--shard-objects", action="store_true",
+                   help="ring-shard the scene's objects (not ported yet)")
+    p.add_argument("--checkpoint", default=None,
+                   help="npz path for resumable rendering state")
+    p.add_argument("--profile", default=None,
+                   help="write a profiler trace (not ported yet)")
+    p.add_argument("--log-json", default=None,
+                   help="append structured log events to this JSONL file")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device to render on (default: cuda)")
+    p.add_argument("-q", "--quiet", action="store_true")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag, msg in _UNPORTED.items():
+        if getattr(args, flag):
+            print(f"error: {msg}", file=sys.stderr)
+            return 2
+
+    import torch
+
+    from raytrace_tpu_torch import color as colorlib
+    from raytrace_tpu_torch.io.bmp import write_bmp
+    from raytrace_tpu_torch.io.native import write_bmp_native
+    from raytrace_tpu_torch.render import megakernel
+    from raytrace_tpu_torch.render.integrator import render_image
+    from raytrace_tpu_torch.scene.builder import load_scene_file
+    from raytrace_tpu_torch.scene.dsl import SceneSyntaxError
+    from raytrace_tpu_torch.utils.logging import RenderLog
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda, but PyTorch sees no CUDA device",
+              file=sys.stderr)
+        return 1
+    device = torch.device(args.device)
+    log = RenderLog(json_path=args.log_json, quiet=args.quiet)
+
+    try:
+        with log.phase("load_scene", path=args.scene):
+            scene = load_scene_file(args.scene, device=device)
+    except (OSError, SceneSyntaxError) as e:
+        print(f"error: {e}", file=sys.stderr)  # main.rs:18,28 shape
+        return 1
+
+    spec = scene.spec
+    overrides = {k: v for k, v in (("width", args.width),
+                                   ("height", args.height)) if v is not None}
+    if overrides:
+        spec = dataclasses.replace(spec, **overrides)
+        scene = dataclasses.replace(scene, spec=spec)
+    reason = megakernel.unsupported_reason(scene.data, spec)
+    if reason is not None:
+        print(f"error: {reason}", file=sys.stderr)
+        return 1
+
+    spp = args.spp if args.spp is not None else max(spec.antialias, 1)
+    log.event("scene", objects=spec.n_objects, lights=spec.n_lights,
+              size=f"{spec.width}x{spec.height}", spp=spp,
+              branching=spec.children_per_ray, device=str(device),
+              device_name=(torch.cuda.get_device_name(device)
+                           if device.type == "cuda" else "cpu"))
+    n_primary = spec.width * spec.height * spp * spec.cam_samples
+
+    def progress(frac):
+        if not args.quiet:
+            print(f"\r[raytrace_tpu_torch] render {100 * frac:5.1f}%",
+                  end="", file=sys.stderr, flush=True)
+
+    launches0 = megakernel.LAUNCHES
+    t0 = time.perf_counter()
+    img = render_image(scene, seed=args.seed, spp=spp,
+                       max_lanes=args.max_lanes, progress=progress,
+                       checkpoint=args.checkpoint)
+    dt = time.perf_counter() - t0
+    if not args.quiet:
+        print("", file=sys.stderr)
+    # one ray = one closest-hit round; a primary sample runs max_depth+2
+    log.event("render_done", seconds=round(dt, 3),
+              primary_samples=n_primary,
+              samples_per_sec=round(n_primary / dt),
+              rays_per_sec=round(n_primary * (spec.max_depth + 2) / dt),
+              kernel_launches=megakernel.LAUNCHES - launches0,
+              nonfinite=int(np.count_nonzero(~np.isfinite(img))),
+              mean_radiance=float(np.nanmean(img)))
+
+    with log.phase("encode_write", path=args.output):
+        clipped = np.clip(img, 0.0, None).astype(np.float32)
+        if not write_bmp_native(args.output, clipped):
+            srgb = colorlib.to_srgb(torch.from_numpy(clipped)).numpy()
+            write_bmp(args.output, srgb)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

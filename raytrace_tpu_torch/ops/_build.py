@@ -1,0 +1,86 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, loaded with ctypes.  The
+build runs at first use, never at import; its output is named by a hash
+of the sources and flags, lands in ``raytrace_tpu_torch/build/`` and is
+reused while the sources are unchanged.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+# no fast math: the kernels keep IEEE sqrt, division, sinf and cosf
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# compiler output (ptxas register and spill report) of each fresh build
+build_logs: dict[str, str] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise KernelBuildError(
+            f"kernel build failed: nvcc not found under {home}/bin or on PATH")
+    return found
+
+
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` builds to, named by a hash of every
+    source in ``csrc/`` and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _compile(name: str, so: str) -> None:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise KernelBuildError(
+            f"kernel build failed ({' '.join(cmd)}):\n{r.stderr}")
+    build_logs[name] = r.stdout + r.stderr
+    os.replace(tmp, so)  # atomic: concurrent builders never see a partial file
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            so = library_path(name)
+            if not os.path.exists(so):
+                _compile(name, so)
+            lib = _libs[name] = ctypes.CDLL(so)
+        return lib
+
+
+def loaded() -> list[str]:
+    """Names of the kernel libraries loaded in this process."""
+    return sorted(_libs)

@@ -1,0 +1,99 @@
+"""The port's CLI on the CPU: a valid BMP whose sRGB bytes match the JAX
+package's render, the errors of flags not ported yet, and the copied
+logging module."""
+
+import dataclasses
+import io
+import json
+import struct
+import subprocess
+import sys
+from contextlib import redirect_stderr
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from raytrace_tpu import color as jax_color
+from raytrace_tpu.render.integrator import render_image as jax_render
+from raytrace_tpu.scene.builder import load_scene_file as jax_load
+from raytrace_tpu.utils.logging import RenderLog as JaxLog
+from raytrace_tpu_torch.io.bmp import read_bmp
+from raytrace_tpu_torch.utils.logging import RenderLog
+
+from conftest import REPO_ROOT, repo_path
+
+CORNELL = str(repo_path("examples", "cornell_indirect.txt"))
+
+
+def _run(args):
+    return subprocess.run(
+        [sys.executable, "-m", "raytrace_tpu_torch.cli", *args],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
+
+
+def test_cli_cpu_bmp_matches_jax(tmp_path):
+    out, log = tmp_path / "out.bmp", tmp_path / "log.jsonl"
+    r = _run([CORNELL, "-o", str(out), "--width", "8", "--height", "8",
+              "--spp", "2", "--seed", "4", "--device", "cpu", "-q",
+              "--log-json", str(log)])
+    assert r.returncode == 0, r.stderr
+    blob = out.read_bytes()
+    assert blob[:2] == b"BM" and blob[0x46:0x4A] == b"BGRs"
+    assert struct.unpack("<I", blob[10:14])[0] == 122
+    assert struct.unpack("<ii", blob[18:26]) == (8, 8)
+    assert len(blob) == 122 + 24 * 8
+    done = [json.loads(x) for x in log.read_text().splitlines()
+            if '"render_done"' in x][-1]
+    assert done["nonfinite"] == 0 and done["kernel_launches"] == 0
+
+    js = jax_load(CORNELL, dtype=jnp.float32)
+    js = dataclasses.replace(js, spec=dataclasses.replace(js.spec, width=8,
+                                                          height=8))
+    img = jax_render(js, seed=4, spp=2)
+    want = np.asarray(jax_color.to_srgb(jnp.asarray(
+        np.clip(img, 0.0, None).astype(np.float32))))
+    got = read_bmp(str(out)).astype(int)
+    diff = np.abs(got - want.astype(int))
+    assert (diff == 0).mean() >= 0.99, (diff == 0).mean()
+    assert diff.max() <= 2
+
+
+@pytest.mark.parametrize("flag,item", [(["--shard"], 13),
+                                       (["--shard-objects"], 13),
+                                       (["--f64"], 12),
+                                       (["--profile", "trace"], 5)])
+def test_cli_unported_flags(tmp_path, flag, item):
+    r = _run([CORNELL, "-o", str(tmp_path / "x.bmp"), "--device", "cpu",
+              *flag])
+    assert r.returncode == 2
+    assert f"not ported yet (ROADMAP item {item})" in r.stderr
+    assert not (tmp_path / "x.bmp").exists()
+
+
+def test_cli_errors(tmp_path):
+    r = _run(["/nonexistent/scene.txt", "-o", str(tmp_path / "x.bmp"),
+              "--device", "cpu"])
+    assert r.returncode == 1 and "error:" in r.stderr
+    r = _run([str(repo_path("examples", "materials_showcase.txt")), "-o",
+              str(tmp_path / "x.bmp"), "--device", "cpu"])
+    assert r.returncode == 1 and "ROADMAP item 9" in r.stderr
+
+
+def test_logging_copy_prints_the_same(tmp_path):
+    outs = []
+    for cls, path in ((RenderLog, tmp_path / "a.jsonl"),
+                      (JaxLog, tmp_path / "b.jsonl")):
+        buf = io.StringIO()
+        with redirect_stderr(buf):
+            log = cls(json_path=str(path))
+            log.event("scene", objects=7, size="8x8")
+            with log.phase("encode", path="x.bmp"):
+                pass
+        recs = [json.loads(x) for x in path.read_text().splitlines()]
+        for rec in recs:
+            rec.pop("t")
+            rec.pop("seconds", None)
+        lines = [x.split(" seconds=")[0] for x in buf.getvalue().splitlines()]
+        outs.append((lines, recs))
+    assert outs[0] == outs[1]

@@ -1,0 +1,131 @@
+"""Integrator parity of the PyTorch port: sample_pixels and render_image
+against the JAX package, checkpoint resume, and launch retry."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytrace_tpu.render import integrator as jax_int
+from raytrace_tpu.scene.builder import load_scene_file as jax_load
+from raytrace_tpu_torch.render import integrator
+from raytrace_tpu_torch.scene.builder import load_scene_file as torch_load
+
+from conftest import repo_path
+from test_torch_megakernel import assert_radiance_close
+
+CORNELL = str(repo_path("examples", "cornell_indirect.txt"))
+
+
+def _scenes(w, h):
+    js = jax_load(CORNELL, dtype=jnp.float32)
+    ts = torch_load(CORNELL, device="cpu")
+    js = dataclasses.replace(js, spec=dataclasses.replace(js.spec, width=w,
+                                                          height=h))
+    ts = dataclasses.replace(ts, spec=dataclasses.replace(ts.spec, width=w,
+                                                          height=h))
+    return js, ts
+
+
+def test_sample_pixels_matches_jax():
+    js, ts = _scenes(16, 16)
+    pix = np.arange(256)
+    px, py, sids = pix % 16, pix // 16, np.arange(2)
+    want = jax_int.sample_pixels(js.data, js.spec,
+                                 *(jnp.asarray(a, jnp.uint32)
+                                   for a in (px, py, sids)), 5)
+    got = integrator.sample_pixels(ts.data, ts.spec,
+                                   *(torch.from_numpy(a) for a in
+                                     (px, py, sids)), 5)
+    assert got.shape == (256, 3) and got.dtype == torch.float32
+    assert_radiance_close(got.double().numpy().T,
+                          np.asarray(want, np.float64).T)
+
+
+def test_primary_rays_match_jax():
+    js, ts = _scenes(512, 512)
+    rs = np.random.RandomState(11)
+    ids = [rs.randint(0, 512, 4096), rs.randint(0, 512, 4096),
+           rs.randint(0, 256, 4096), np.zeros(4096, np.int64)]
+    jro, jrd, jk1, jk2 = jax_int.primary_rays(
+        js.data, js.spec, *(jnp.asarray(a, jnp.uint32) for a in ids), 3)
+    tro, trd, tk1, tk2 = integrator.primary_rays(
+        ts.data, ts.spec, *(torch.from_numpy(a) for a in ids), 3)
+    for got, want in ((tk1, jk1), (tk2, jk2)):
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.int64))
+    for got, want in zip((*tro, *trd), (*jro, *jrd)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-7)
+
+
+def test_render_image_matches_jax():
+    js, ts = _scenes(8, 8)
+    want = jax_int.render_image(js, seed=2, spp=4)
+    got = integrator.render_image(ts, seed=2, spp=4)
+    assert got.shape == (8, 8, 3) and got.dtype == np.float64
+    assert_radiance_close(got.reshape(-1, 3).T, want.reshape(-1, 3).T)
+
+
+def test_checkpoint_resume(tmp_path):
+    _, ts = _scenes(8, 8)
+    ck = str(tmp_path / "state.npz")
+    full = integrator.render_image(ts, seed=1, spp=4)
+
+    class Stop(Exception):
+        pass
+
+    def stop_in_second(frac):
+        # progress runs before each group's checkpoint write
+        if frac >= 0.5:
+            raise Stop
+
+    # one sample per group: killed in the second, resumed after the first
+    with pytest.raises(Stop):
+        integrator._image_loop(ts, seed=1, spp=4, max_lanes=64,
+                               progress=stop_in_second, checkpoint=ck,
+                               chunk_group=1)
+    with np.load(ck) as state:
+        assert int(state["s_done"]) == 1
+    resumed = integrator._image_loop(ts, seed=1, spp=4, max_lanes=64,
+                                     progress=None, checkpoint=ck,
+                                     chunk_group=1)
+    np.testing.assert_allclose(resumed, full, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="different render config"):
+        integrator.render_image(ts, seed=9, spp=4, checkpoint=ck)
+
+
+def test_s_p_launch_fills_the_budget():
+    _, ts = _scenes(8, 8)
+    assert integrator._s_p_launch(ts.spec, 16, 1 << 22) == (16, 64)
+    assert integrator._s_p_launch(ts.spec, 16, 256) == (4, 64)
+    assert integrator._s_p_launch(ts.spec, 16, 32) == (1, 32)
+
+
+def test_retry_launch_transient_vs_permanent(monkeypatch):
+    monkeypatch.setattr(integrator.time, "sleep", lambda s: None)
+    calls = []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 2:
+            raise RuntimeError("transient device hiccup")
+        return torch.ones(2)
+
+    assert integrator._retry_launch(flaky).tolist() == [1.0, 1.0]
+    assert len(calls) == 2
+
+    for err in (torch.OutOfMemoryError("CUDA out of memory"),
+                NotImplementedError("not ported"),
+                RuntimeError("megakernel launch failed: invalid argument")):
+        calls.clear()
+
+        def permanent(err=err):
+            calls.append(1)
+            raise err
+
+        with pytest.raises(type(err)):
+            integrator._retry_launch(permanent)
+        assert len(calls) == 1

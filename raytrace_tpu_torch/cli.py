@@ -1,12 +1,12 @@
 """Command-line entry point (main.rs): scene file -> render -> sRGB -> BMP.
 
 Same positional argument and flags as ``raytrace_tpu.cli``, plus
-``--device``.  On ``--device cuda`` every lane goes through the CUDA
-megakernel, and a machine without a usable GPU is an error, never a
-silent CPU render.
+``--device``.  On ``--device cuda`` every lane goes through a CUDA
+megakernel (the linear one or the tree one), and a machine without a
+usable GPU is an error, never a silent CPU render.
 
-    python -m raytrace_tpu_torch.cli examples/cornell_indirect.txt \\
-        -o out.bmp --spp 16 --device cuda
+    python -m raytrace_tpu_torch.cli examples/materials_showcase.txt \\
+        -o out.bmp --device cuda
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ def main(argv=None) -> int:
             print(f"\r[raytrace_tpu_torch] render {100 * frac:5.1f}%",
                   end="", file=sys.stderr, flush=True)
 
-    launches0 = megakernel.LAUNCHES
+    launches0 = sum(megakernel.LAUNCHES.values())
     t0 = time.perf_counter()
     img = render_image(scene, seed=args.seed, spp=spp,
                        max_lanes=args.max_lanes, progress=progress,
@@ -131,7 +131,7 @@ def main(argv=None) -> int:
               primary_samples=n_primary,
               samples_per_sec=round(n_primary / dt),
               rays_per_sec=round(n_primary * (spec.max_depth + 2) / dt),
-              kernel_launches=megakernel.LAUNCHES - launches0,
+              kernel_launches=sum(megakernel.LAUNCHES.values()) - launches0,
               nonfinite=int(np.count_nonzero(~np.isfinite(img))),
               mean_radiance=float(np.nanmean(img)))
 

@@ -1,0 +1,484 @@
+// Device code shared by the render kernels (megakernel_linear.cu and
+// megakernel_tree.cu): the scene buffer's layout, the counter-based RNG,
+// the primary ray, closest hit, the shadow any-hit query, light sampling
+// and the shading of one node.  One thread handles one lane.
+//
+// The arithmetic follows the plain PyTorch version operation by operation
+// (raytrace_tpu_torch/render/integrator.py, models/materials.py,
+// models/lights.py, models/cameras.py, ops/intersect.py); the RNG words are
+// bit-identical (uint32 wraparound).  Floats may differ by the rounding of
+// contracted multiply-adds and by the last ulp of sqrtf/rsqrtf/sinf/cosf/
+// powf.  The comparison that decides whether light refracts (sin^2 < 1)
+// is computed without contraction, so it rounds as the plain version does.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace rt {
+
+// ---- scene buffer layout; raytrace_tpu_torch/render/megakernel.py packs it
+constexpr int HDR = 24;        // header floats
+constexpr int H_CAM_POS = 0;   // 3
+constexpr int H_CAM_M = 3;     // 9, row-major
+constexpr int H_BG = 12;       // 3
+constexpr int H_HALFW = 15;
+constexpr int H_HALFH = 16;
+constexpr int H_SCALE = 17;
+constexpr int H_MIN_SIG = 18;
+constexpr int H_FOCUS = 19;    // depth-of-field focal distance
+constexpr int H_APERTURE = 20;
+constexpr int H_IM_DIST = 21; // 22, 23: pad
+// floats per light, after the header: 13 used and 3 of pad, so that every
+// object row starts 16-byte aligned and its columns load as 128-bit LDS
+constexpr int LROW = 16;
+constexpr int L_TYPE = 0;      // 0 point, 1 directional, 2 area
+constexpr int L_P = 1;         // 3
+constexpr int L_E1 = 4;        // 3
+constexpr int L_E2 = 7;        // 3
+constexpr int L_COLOR = 10;    // 3; 13-15 pad
+constexpr int ROW = 24;        // floats per object, after the lights
+constexpr int R_P = 0;         // sphere center / plane point, 3
+constexpr int R_Q = 3;         // sphere radius in [0] / plane normal, 3
+constexpr int R_DIFF = 6;      // 3
+constexpr int R_SPEC = 9;      // 3
+constexpr int R_AMB = 12;      // 3
+constexpr int R_EXP = 15;
+constexpr int R_IOR = 16;
+constexpr int R_MS = 17;       // MC samples as float
+constexpr int R_FRE = 18;      // 1 = Fresnel
+constexpr int R_TRA = 19;      // 1 = Transparent
+constexpr int R_IND = 20;      // 1 = IndirectPhong
+constexpr int R_SPH = 21;      // 1 = sphere, 0 = plane
+
+constexpr int LIGHT_DIRECTIONAL = 1;
+constexpr int LIGHT_AREA = 2;
+
+constexpr int THREADS = 128;
+
+// ---- RNG (ops/rng.py)
+constexpr uint32_t GAMMA = 0x9E3779B9u;
+constexpr uint32_t PURPOSE_AA_X = 0u;
+constexpr uint32_t PURPOSE_AA_Y = 1u;
+constexpr uint32_t PURPOSE_LENS_THETA = 2u;
+constexpr uint32_t PURPOSE_LENS_R = 3u;
+constexpr uint32_t PURPOSE_LIGHT_U = 64u;
+constexpr uint32_t PURPOSE_LIGHT_V = 65u;
+constexpr uint32_t PURPOSE_INDIRECT_R1 = 1u << 16;
+constexpr uint32_t PURPOSE_INDIRECT_R2 = (1u << 16) + 1u;
+constexpr float OFFSET = (float)1e-5;               // secondary-ray origin offset
+constexpr float TWO_PI = (float)6.283185307179586;  // float(2 pi)
+constexpr float INV_PI = (float)0.3183098861837907; // float(1 / pi)
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// ops/rng.py::hash_words with a seed word s
+template <int N>
+__device__ __forceinline__ uint32_t hash_words(uint32_t s, const uint32_t (&w)[N]) {
+  uint32_t h = s ^ 0x243F6A88u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) h = mix32(h + w[i] + GAMMA * (2u * i + 1u));
+  return mix32(h);
+}
+
+template <int N>
+__device__ __forceinline__ void make_keys(uint32_t seed, const uint32_t (&w)[N],
+                                          uint32_t& k1, uint32_t& k2) {
+  k1 = hash_words(seed ^ 0x243F6A88u, w);
+  k2 = hash_words(seed ^ 0x85A308D3u, w);
+}
+
+// ops/rng.py::draw, float32: 24 random bits scaled by 2**-24
+__device__ __forceinline__ float draw(uint32_t k1, uint32_t k2, uint32_t purpose) {
+  uint32_t bits = mix32(k1 ^ mix32(k2 + GAMMA * (purpose + 1u)));
+  return (float)(int)(bits >> 8) * 5.9604644775390625e-8f;
+}
+
+// ops/rng.py::derive: the stream of child slot `slot`
+__device__ __forceinline__ void derive(uint32_t& k1, uint32_t& k2, uint32_t slot) {
+  const uint32_t s = slot + 1u;
+  k1 = mix32(k1 + GAMMA * s);
+  k2 = mix32(k2 ^ (0xBB67AE85u * s));
+}
+
+// ---- per-lane path state: one chain link, or one DFS stack entry
+// (integrator.tree_loop_entry's 13 components)
+struct Node {
+  float ox, oy, oz, dx, dy, dz;  // ray
+  float sig;                     // significance
+  float tx, ty, tz;              // throughput
+  uint32_t k1, k2;               // RNG stream
+  bool live;
+};
+
+// the scene as staged in shared memory, and the static slot layout
+struct Scene {
+  const float* s;
+  int n_obj, n_light, max_depth;
+  int has_reflect, has_refract, n_indirect;
+
+  __device__ __forceinline__ const float* light(int i) const { return s + HDR + LROW * i; }
+  __device__ __forceinline__ const float* row(int o) const {
+    return s + HDR + LROW * n_light + ROW * o;
+  }
+  __device__ __forceinline__ int slots() const { return has_reflect + has_refract + n_indirect; }
+};
+
+// copies the packed scene into shared memory; every thread of the block calls it
+__device__ __forceinline__ void stage_scene(const float* __restrict__ scene, float* s,
+                                            int n_obj, int n_light) {
+  const int n = HDR + LROW * n_light + ROW * n_obj;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) s[j] = scene[j];
+  __syncthreads();
+}
+
+__host__ __forceinline__ size_t scene_bytes(int n_obj, int n_light) {
+  return sizeof(float) * (HDR + LROW * (size_t)n_light + ROW * (size_t)n_obj);
+}
+
+// ---- primary ray (integrator.primary_rays, cameras.project); `dof` for
+// the depth-of-field camera
+__device__ __forceinline__ Node primary_ray(const float* s, uint32_t px, uint32_t py,
+                                            uint32_t a_id, uint32_t c_id, uint32_t seed,
+                                            bool dof) {
+  uint32_t jk1, jk2;
+  const uint32_t w3[3] = {px, py, a_id};
+  make_keys(seed, w3, jk1, jk2);
+  const float u = draw(jk1, jk2, PURPOSE_AA_X);
+  const float v = draw(jk1, jk2, PURPOSE_AA_Y);
+  const float pos_x = (((float)(int)px + u) - s[H_HALFW]) * s[H_SCALE];
+  const float pos_y = (((float)(int)py + v) - s[H_HALFH]) * s[H_SCALE];
+  Node e;
+  const uint32_t w4[4] = {px, py, a_id, c_id};
+  make_keys(seed, w4, e.k1, e.k2);
+
+  const float* m = s + H_CAM_M;
+  float dx = m[0] * pos_x + m[1] * pos_y + m[2];
+  float dy = m[3] * pos_x + m[4] * pos_y + m[5];
+  float dz = m[6] * pos_x + m[7] * pos_y + m[8];
+  float ox = s[H_CAM_POS], oy = s[H_CAM_POS + 1], oz = s[H_CAM_POS + 2];
+  if (dof) {
+    // camera.rs:110-121: d un-normalized, lens point uniform on a disc
+    const float fr = s[H_FOCUS] / s[H_IM_DIST];
+    const float fx = ox + dx * fr, fy = oy + dy * fr, fz = oz + dz * fr;
+    const float theta = draw(e.k1, e.k2, PURPOSE_LENS_THETA) * TWO_PI;
+    const float r = sqrtf(draw(e.k1, e.k2, PURPOSE_LENS_R)) * s[H_APERTURE];
+    const float lx = cosf(theta) * r, ly = sinf(theta) * r;
+    ox = (ox + dx) + (m[0] * lx + m[1] * ly + m[2] * 0.0f);
+    oy = (oy + dy) + (m[3] * lx + m[4] * ly + m[5] * 0.0f);
+    oz = (oz + dz) + (m[6] * lx + m[7] * ly + m[8] * 0.0f);
+    dx = fx - ox;
+    dy = fy - oy;
+    dz = fz - oz;
+  }
+  const float dinv = rsqrtf(dx * dx + dy * dy + dz * dz);
+  e.ox = ox;
+  e.oy = oy;
+  e.oz = oz;
+  e.dx = dx * dinv;
+  e.dy = dy * dinv;
+  e.dz = dz * dinv;
+  e.sig = 1.0f;
+  e.tx = e.ty = e.tz = 1.0f;
+  e.live = true;
+  return e;
+}
+
+// ---- intersection (ops/intersect.py::_object_t): t and validity of one object
+__device__ __forceinline__ bool object_t(const float* r, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float a, float inv2a,
+                                         float& t) {
+  if (r[R_SPH] > 0.5f) {
+    const float ocx = ox - r[R_P], ocy = oy - r[R_P + 1], ocz = oz - r[R_P + 2];
+    const float b = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
+    const float rad = r[R_Q];
+    const float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad;
+    const float disc = b * b - 4.0f * a * cc;
+    const bool has = disc > 0.0f;
+    const float sq = sqrtf(has ? disc : 1.0f);
+    const float t1 = (-b - sq) * inv2a;
+    const float t2 = (-b + sq) * inv2a;
+    t = t1 > 0.0f ? t1 : t2;
+    return has && t > 0.0f;
+  }
+  const float qx = r[R_Q], qy = r[R_Q + 1], qz = r[R_Q + 2];
+  const float p_dot_n = r[R_P] * qx + r[R_P + 1] * qy + r[R_P + 2] * qz;
+  const float denom = dx * qx + dy * qy + dz * qz;
+  const float numer = p_dot_n - (ox * qx + oy * qy + oz * qz);
+  const bool ok = denom != 0.0f;
+  t = numer / (ok ? denom : 1.0f);
+  return ok && t > 0.0f;
+}
+
+__device__ __forceinline__ float safe_inv2a(float a) { return 0.5f / (a > 0.0f ? a : 1.0f); }
+
+// closest hit: running minimum, the first minimum in scene order wins; a
+// miss leaves `best` at the first live object (the reference's miss row)
+__device__ __forceinline__ bool closest_hit(const Scene& sc, float ox, float oy, float oz,
+                                            float dx, float dy, float dz, float& t_best,
+                                            int& best) {
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float inv2a = safe_inv2a(a);
+  t_best = INFINITY;
+  best = 0;
+  bool hit = false;
+  for (int o = 0; o < sc.n_obj; ++o) {
+    float t;
+    const bool valid = object_t(sc.row(o), ox, oy, oz, dx, dy, dz, a, inv2a, t);
+    const float ti = valid ? t : INFINITY;
+    if (ti < t_best) {
+      t_best = ti;
+      best = o;
+    }
+    hit = hit || valid;
+  }
+  return hit;
+}
+
+// ops/intersect.py::occluded_v: any hit, within range when the light has
+// one (t*t < sq_range, computed uncontracted)
+__device__ __forceinline__ bool occluded(const Scene& sc, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float sq_range,
+                                         bool has_range) {
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float inv2a = safe_inv2a(a);
+  for (int o = 0; o < sc.n_obj; ++o) {
+    float t;
+    if (object_t(sc.row(o), ox, oy, oz, dx, dy, dz, a, inv2a, t)
+        && (!has_range || __fmul_rn(t, t) < sq_range))
+      return true;
+  }
+  return false;
+}
+
+// ---- shading of one node (integrator.tree_loop_node without the routing):
+// closest hit, local radiance times throughput into (cx, cy, cz), and
+// emit(slot, child) for every live child slot in slot order (reflect,
+// refract, indirect).  The node's entry must be live.  LIT = false is the
+// linear kernel's lean instance: it leaves out the code of lights, Fresnel
+// factors and reflect/refract slots, takes the significance as 1, and
+// takes at most one indirect slot.  That is exact for a linear
+// scene without lights and without those slots: no material is then
+// Transparent (builder.build_scene), the Fresnel factor scales only
+// specular light and the reflect child, the only children, indirect ones,
+// keep their parent's significance, which starts at 1, and a linear scene
+// has at most one slot.  It keeps the IndirectPhong-only chain short.
+template <bool LIT, class Emit>
+__device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int depth,
+                                           float& cx, float& cy, float& cz, Emit&& emit) {
+  float t_best;
+  int best;
+  if (!closest_hit(sc, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best)) {
+    cx = e.tx * sc.s[H_BG];  // background; a miss spawns nothing
+    cy = e.ty * sc.s[H_BG + 1];
+    cz = e.tz * sc.s[H_BG + 2];
+    return;
+  }
+  const float* r = sc.row(best);  // the one load of the winner's row
+  if (depth > sc.max_depth) {  // ambient only, no recursion (raytrace.rs:33)
+    cx = e.tx * r[R_AMB];
+    cy = e.ty * r[R_AMB + 1];
+    cz = e.tz * r[R_AMB + 2];
+    return;
+  }
+  const float sig = LIT ? e.sig : 1.0f;
+
+  // hit record: point, normal, snap onto the surface
+  float ptx = e.ox + e.dx * t_best, pty = e.oy + e.dy * t_best, ptz = e.oz + e.dz * t_best;
+  const float relx = ptx - r[R_P], rely = pty - r[R_P + 1], relz = ptz - r[R_P + 2];
+  const float nrm2 = relx * relx + rely * rely + relz * relz;
+  const float inv = rsqrtf(nrm2 > 0.0f ? nrm2 : 1.0f);
+  float nx, ny, nz;
+  if (r[R_SPH] > 0.5f) {
+    nx = relx * inv;
+    ny = rely * inv;
+    nz = relz * inv;
+    const float k = r[R_Q] * inv;
+    ptx = (ptx - relx) + relx * k;
+    pty = (pty - rely) + rely * k;
+    ptz = (ptz - relz) + relz * k;
+  } else {
+    nx = r[R_Q];
+    ny = r[R_Q + 1];
+    nz = r[R_Q + 2];
+    const float nn = nx * nx + ny * ny + nz * nz;
+    const float dist = ((ptx * nx + pty * ny + ptz * nz)
+                        - (r[R_P] * nx + r[R_P + 1] * ny + r[R_P + 2] * nz))
+                       / (nn > 0.0f ? nn : 1.0f);
+    const float sc_ = nn > 0.0f ? dist : 0.0f;
+    ptx = ptx - nx * sc_;
+    pty = pty - ny * sc_;
+    ptz = ptz - nz * sc_;
+  }
+
+  // the normal flipped toward the viewer
+  const float nd = nx * e.dx + ny * e.dy + nz * e.dz;
+  const float nfx = nd > 0.0f ? -nx : nx;
+  const float nfy = nd > 0.0f ? -ny : ny;
+  const float nfz = nd > 0.0f ? -nz : nz;
+  const bool is_fre = LIT && r[R_FRE] > 0.5f, is_tra = LIT && r[R_TRA] > 0.5f;
+  const bool is_ind = r[R_IND] > 0.5f;
+
+  // fresnel and refraction (materials.shade); other materials take the
+  // factor 1, which multiplies exactly
+  float fres = 1.0f;
+  bool refract_ok = false;
+  float rfx = 0.0f, rfy = 0.0f, rfz = 0.0f;
+  if (LIT && (is_fre || is_tra)) {
+    const float ior = r[R_IOR];
+    float r0 = (ior - 1.0f) / (ior + 1.0f);
+    r0 = r0 * r0;
+    const float ior_safe = ior != 0.0f ? ior : 1.0f;
+    const float n_ratio = nd > 0.0f ? ior : 1.0f / ior_safe;
+    const float sin2 = __fmul_rn(__fmul_rn(n_ratio, n_ratio), __fsub_rn(1.0f, __fmul_rn(nd, nd)));
+    refract_ok = sin2 < 1.0f && ior != 0.0f;
+    const float cos_t = refract_ok ? sqrtf(fmaxf(1.0f - sin2, 0.0f)) : 0.0f;
+    const float n_r = refract_ok ? n_ratio : 0.0f;
+    const float anr = n_r * fabsf(nd) + cos_t;
+    rfx = e.dx * n_r - nfx * anr;
+    rfy = e.dy * n_r - nfy * anr;
+    rfz = e.dz * n_r - nfz * anr;
+    const float omcos_transp =
+        nd > 0.0f ? (refract_ok ? 1.0f - (nfx * rfx + nfy * rfy + nfz * rfz) : 0.0f)
+                  : 1.0f - fabsf(nd);
+    const float omcos = is_fre ? 1.0f - fabsf(nd) : omcos_transp;
+    const float omcos2 = omcos * omcos;
+    const float schlick = fminf(r0 + (1.0f - r0) * omcos2 * omcos2 * omcos, 1.0f);
+    fres = (is_tra && !refract_ok) ? 1.0f : schlick;
+  }
+
+  // significance gates
+  const float diff_sig = r[R_DIFF] + r[R_DIFF + 1] + r[R_DIFF + 2];
+  const float spec_sig = r[R_SPEC] + r[R_SPEC + 1] + r[R_SPEC + 2];
+  const float min_sig = sc.s[H_MIN_SIG];
+  const bool diffuse_gate = diff_sig * sig > min_sig && !is_tra;
+  const bool spec_gate = (spec_sig * fres) * sig > min_sig;
+
+  float emx = r[R_AMB], emy = r[R_AMB + 1], emz = r[R_AMB + 2];
+  // direct lighting; a light whose both terms are gated off adds exact zeros
+  for (int li = 0; LIT && li < sc.n_light && (diffuse_gate || spec_gate); ++li) {
+    const float* L = sc.light(li);
+    const int type = (int)L[L_TYPE];
+    float lx, ly, lz, sq = 0.0f;
+    bool has_range = true;
+    if (type == LIGHT_DIRECTIONAL) {
+      lx = 0.0f - L[L_E1];
+      ly = 0.0f - L[L_E1 + 1];
+      lz = 0.0f - L[L_E1 + 2];
+      has_range = false;
+    } else {
+      float px = L[L_P], py = L[L_P + 1], pz = L[L_P + 2];
+      if (type == LIGHT_AREA) {
+        const float u = draw(e.k1, e.k2, PURPOSE_LIGHT_U + 2u * li);
+        const float v = draw(e.k1, e.k2, PURPOSE_LIGHT_V + 2u * li);
+        px = px + L[L_E1] * u + L[L_E2] * v;
+        py = py + L[L_E1 + 1] * u + L[L_E2 + 1] * v;
+        pz = pz + L[L_E1 + 2] * u + L[L_E2 + 2] * v;
+      }
+      const float rx = px - ptx, ry = py - pty, rz = pz - ptz;
+      sq = __fadd_rn(__fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry)), __fmul_rn(rz, rz));
+      const float il = 1.0f / sqrtf(sq > 0.0f ? sq : 1.0f);
+      lx = rx * il;
+      ly = ry * il;
+      lz = rz * il;
+    }
+    if (occluded(sc, ptx + lx * OFFSET, pty + ly * OFFSET, ptz + lz * OFFSET, lx, ly, lz, sq,
+                 has_range))
+      continue;
+    const float* lc = L + L_COLOR;
+    if (diffuse_gate) {
+      const float lam = fmaxf(lx * nfx + ly * nfy + lz * nfz, 0.0f) * INV_PI;
+      emx = emx + r[R_DIFF] * lc[0] * lam;
+      emy = emy + r[R_DIFF + 1] * lc[1] * lam;
+      emz = emz + r[R_DIFF + 2] * lc[2] * lam;
+    }
+    if (spec_gate) {
+      // half vector, normalized with a zero guard
+      const float hx = lx - e.dx, hy = ly - e.dy, hz = lz - e.dz;
+      const float h2 = hx * hx + hy * hy + hz * hz;
+      const float hi = h2 > 0.0f ? rsqrtf(h2) : 0.0f;
+      const float nh = nfx * (hx * hi) + nfy * (hy * hi) + nfz * (hz * hi);
+      const float ws = powf(fmaxf(nh, 0.0f), r[R_EXP]) * fres;
+      emx = emx + r[R_SPEC] * lc[0] * ws;
+      emy = emy + r[R_SPEC + 1] * lc[1] * ws;
+      emz = emz + r[R_SPEC + 2] * lc[2] * ws;
+    }
+  }
+  cx = e.tx * emx;
+  cy = e.ty * emy;
+  cz = e.tz * emz;
+
+  // child slots, numbered reflect, refract, indirect
+  int slot = 0;
+  if (LIT && sc.has_reflect) {
+    if (spec_gate && !is_ind) {
+      const float rdn = 2.0f * (e.dx * nfx + e.dy * nfy + e.dz * nfz);
+      const float rx = e.dx - nfx * rdn, ry = e.dy - nfy * rdn, rz = e.dz - nfz * rdn;
+      emit(slot, ptx + rx * OFFSET, pty + ry * OFFSET, ptz + rz * OFFSET, rx, ry, rz,
+           sig * spec_sig * fres, r[R_SPEC] * fres, r[R_SPEC + 1] * fres, r[R_SPEC + 2] * fres);
+    }
+    ++slot;
+  }
+  if (LIT && sc.has_refract) {
+    if (is_tra && fres < 1.0f && refract_ok) {
+      const float omf = fminf(1.0f - fres, 1.0f);
+      const float n2 = rfx * rfx + rfy * rfy + rfz * rfz;
+      const float ri = n2 > 0.0f ? rsqrtf(n2) : 0.0f;
+      const float rx = rfx * ri, ry = rfy * ri, rz = rfz * ri;
+      emit(slot, ptx + rx * OFFSET, pty + ry * OFFSET, ptz + rz * OFFSET, rx, ry, rz,
+           omf * sig, omf, omf, omf);
+    }
+    ++slot;
+  }
+  const float msamples = r[R_MS];
+  if (is_ind && diffuse_gate) {
+    for (int k = 0; k < (LIT ? sc.n_indirect : min(sc.n_indirect, 1)); ++k) {
+      if ((float)k < msamples) {
+        const float r1 = draw(e.k1, e.k2, PURPOSE_INDIRECT_R1 + 2u * k) * 2.0f - 1.0f;
+        const float phi = draw(e.k1, e.k2, PURPOSE_INDIRECT_R2 + 2u * k) * TWO_PI;
+        const float sw = 1.0f - r1 * r1;
+        float ddx = sw * cosf(phi), ddy = r1, ddz = sw * sinf(phi);
+        if (!(ddx * nfx + ddy * nfy + ddz * nfz >= 0.0f)) {
+          ddx = -ddx;
+          ddy = -ddy;
+          ddz = -ddz;
+        }
+        const float fac = msamples * 0.5f;
+        const float w = (nfx * ddx + nfy * ddy + nfz * ddz) / (fac > 0.0f ? fac : 1.0f);
+        emit(slot + k, ptx + ddx * OFFSET, pty + ddy * OFFSET, ptz + ddz * OFFSET, ddx, ddy, ddz,
+             sig, r[R_DIFF] * w, r[R_DIFF + 1] * w, r[R_DIFF + 2] * w);
+      }
+    }
+  }
+}
+
+// the child entry a live slot spawns: throughput times the slot's weight,
+// the stream derived from the slot
+__device__ __forceinline__ Node child_node(const Node& e, int slot, float ox, float oy, float oz,
+                                           float dx, float dy, float dz, float sig, float wx,
+                                           float wy, float wz) {
+  Node c;
+  c.ox = ox;
+  c.oy = oy;
+  c.oz = oz;
+  c.dx = dx;
+  c.dy = dy;
+  c.dz = dz;
+  c.sig = sig;
+  c.tx = e.tx * wx;
+  c.ty = e.ty * wy;
+  c.tz = e.tz * wz;
+  c.k1 = e.k1;
+  c.k2 = e.k2;
+  derive(c.k1, c.k2, (uint32_t)slot);
+  c.live = true;
+  return c;
+}
+
+}  // namespace rt

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, loaded with ctypes.  The
-build runs at first use, never at import; its output is named by a hash
-of the sources and flags, lands in ``raytrace_tpu_torch/build/`` and is
-reused while the sources are unchanged.
+Each ``csrc/<name>.cu`` (with the headers beside it) is compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
+interface, loaded with ctypes.  The build runs at first use, never at
+import; its output is named by a hash of the sources and flags, lands in
+``raytrace_tpu_torch/build/`` and is reused while the sources are
+unchanged.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+# one lock per kernel, so that kernels build in parallel threads
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register and spill report) of each fresh build
 build_logs: dict[str, str] = {}
@@ -71,7 +74,9 @@ def _compile(name: str, so: str) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             so = library_path(name)

@@ -1,9 +1,11 @@
-"""Batched closest-hit queries (shapes.rs:43-112, scene.rs:244-250).
+"""Batched closest-hit and shadow queries (shapes.rs:43-112,
+scene.rs:244-250, raytrace.rs:43-50).
 
 PyTorch counterpart of the small-scene regime of
 :mod:`raytrace_tpu.ops.intersect`: a running minimum over the (at most
 ``LARGE_SCENE_THRESHOLD``) live objects in scene order, then one indexed
-load of the winner's row from the per-object table.
+load of the winner's row from the per-object table; shadow rays ask
+only whether any object is hit in range.
 
 Semantics kept exactly:
 
@@ -175,3 +177,24 @@ def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3) -> HitRec:
         ior=col(COL_IOR), msamples=col(COL_SAMPLES),
         is_fresnel=col(COL_FRESNEL) > 0.5, is_transp=col(COL_TRANSP) > 0.5,
         is_indirect=col(COL_INDIRECT) > 0.5)
+
+
+def occluded_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, sq_range,
+               has_range: bool) -> torch.Tensor:
+    """Shadow query (raytrace.rs:43-50): does any live object hit the ray,
+    within range when the light has one (``t*t < sq_range``)?  Any-hit,
+    so no running minimum is needed."""
+    live = spec.live_objects()
+    if len(live) > LARGE_SCENE_THRESHOLD:
+        raise NotImplementedError(
+            f"scenes with more than {LARGE_SCENE_THRESHOLD} objects are not "
+            f"ported yet (ROADMAP item 10)")
+    a = dot(rd, rd)
+    inv2a = safe_inv2a(a)
+    blocked = torch.zeros(ro.x.shape, dtype=torch.bool, device=ro.x.device)
+    for i in live:
+        t_i, v_i = _object_t(data, spec, i, ro, rd, a, inv2a)
+        if has_range:
+            v_i = v_i & (t_i * t_i < sq_range)
+        blocked = blocked | v_i
+    return blocked

@@ -1,13 +1,14 @@
-"""Linear-chain integrator and the image loop (raytrace.rs:261-276,
+"""Radiance integrators and the image loop (raytrace.rs:261-276,
 main.rs:39-59).
 
-PyTorch counterpart of the linear regime of
-:mod:`raytrace_tpu.render.integrator`.  A primary sample's path is a chain
-of ``max_depth + 2`` closest-hit + shade rounds (depths 0..max_depth
-shade fully and spawn, depth max_depth+1 is ambient/background only),
-with per-lane throughput and liveness masks.  :func:`radiance_linear_v`
-is the plain PyTorch version of the CUDA megakernel
-(:mod:`raytrace_tpu_torch.render.megakernel`), and the CPU path.
+PyTorch counterpart of :mod:`raytrace_tpu.render.integrator`.  A linear
+scene's path is a chain of ``max_depth + 2`` closest-hit + shade rounds
+(depths 0..max_depth shade fully and spawn, depth max_depth+1 is
+ambient/background only), with per-lane throughput and liveness masks:
+:func:`radiance_linear_v`.  A fan-out scene's paths form a tree per
+lane, walked depth first: :func:`radiance_tree_loop_v`.  They are the
+plain PyTorch versions of the two CUDA kernels behind
+:mod:`raytrace_tpu_torch.render.megakernel`, and the CPU path.
 
 The image loop accumulates on the device in plain Python loops,
 checkpoints the float64 host accumulator after every sample chunk, and
@@ -35,11 +36,12 @@ from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
 
 def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
                       k1, k2) -> V3:
-    """Radiance of chains that never fan out (``children_per_ray <= 1``).
-    Elementwise over whatever lane shape ``ro.x`` has."""
+    """Radiance of chains that never fan out (``children_per_ray <= 1``:
+    one indirect slot, or the reflect slot of pure mirror-Phong scenes),
+    with per-lane significance and throughput.  Elementwise over whatever
+    lane shape ``ro.x`` has."""
     if spec.children_per_ray > 1:
-        raise NotImplementedError(
-            "fan-out scenes are not ported yet (ROADMAP item 9)")
+        raise ValueError("fan-out scenes take radiance_tree_loop_v")
     sig = torch.ones_like(ro.x)
     live = torch.ones(ro.x.shape, dtype=torch.bool, device=ro.x.device)
     tp = vec.full_like(sig, 1.0)
@@ -59,6 +61,169 @@ def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
         ro, rd, sig, live = c.ro, c.rd, c.sig, c.live
         tp = vec.where(live, tp.mul(c.weight), zero)
         k1, k2 = rng.derive(k1, k2, c.slot)
+    return acc
+
+
+def _route_children(children, m: int, tp: V3, k1, k2):
+    """b child slots -> m virtual children, routed per lane.
+
+    The child gates are material-exclusive (``SceneSpec.max_live_children``),
+    so at most m of a lane's b slots are live; the j-th live slot goes to
+    virtual child j, by an exclusive running count of live slots.  RNG
+    keys are derived from the ORIGINAL slot index before routing, so
+    every child keeps its stream identity.  Returns m tuples
+    ``(ro, rd, sig, tp, live, k1, k2)``, ``tp`` already multiplied by the
+    child's weight; a virtual child no slot went to is all zeros."""
+    b = len(children)
+    keys = [rng.derive(k1, k2, c.slot) for c in children]
+    tps = [tp.mul(c.weight) for c in children]
+
+    run = torch.zeros(children[0].live.shape, dtype=torch.int64,
+                      device=children[0].live.device)
+    prefix = []
+    for c in children:
+        prefix.append(run)
+        run = run + c.live.to(torch.int64)
+
+    virt = []
+    for j in range(m):
+        take = [children[s].live & (prefix[s] == j) for s in range(b)]
+
+        def sel(getter):
+            out = torch.zeros_like(getter(0))
+            for s in range(1, b):
+                out = torch.where(take[s], getter(s), out)
+            return torch.where(take[0], getter(0), out)
+
+        def selv(getter):
+            return V3(sel(lambda s: getter(s).x), sel(lambda s: getter(s).y),
+                      sel(lambda s: getter(s).z))
+
+        live = take[0]
+        for s in range(1, b):
+            live = live | take[s]
+        virt.append((selv(lambda s: children[s].ro),
+                     selv(lambda s: children[s].rd),
+                     sel(lambda s: children[s].sig),
+                     selv(lambda s: tps[s]),
+                     live,
+                     sel(lambda s: keys[s][0]),
+                     sel(lambda s: keys[s][1])))
+    return virt
+
+
+def tree_nodes(spec: SceneSpec) -> int:
+    """Closest-hit rounds per lane of the DFS (its node count):
+    ``sum_{d=0}^{max_depth+1} m^d``."""
+    return tree_loop_stack(spec)[2]
+
+
+def _dfs_schedule(m: int, levels: int) -> list[int]:
+    """Preorder schedule of the uniform m-ary virtual-child tree: the
+    depth of each visit.  The tree's shape is the same for every lane
+    (liveness is masked, never structural), so the stack pointer and each
+    visit's depth are known before the walk; the peak stack is
+    :func:`tree_loop_stack`'s."""
+    depths = []
+
+    def walk(d):
+        depths.append(d)
+        if d + 1 < levels:
+            for _ in range(m):
+                walk(d + 1)
+
+    walk(0)
+    return depths
+
+
+def tree_loop_stack(spec: SceneSpec):
+    """(m, levels, node count, stack capacity) of the DFS, in closed
+    form: a uniform m-ary preorder pops 1 and pushes m at each interior
+    node, so the peak along the leftmost spine is
+    ``1 + (levels - 1) * (m - 1)``; the node count is the geometric sum."""
+    m = max(min(spec.max_live_children, spec.children_per_ray), 1)
+    levels = spec.max_depth + 2
+    n_nodes = levels if m == 1 else (m ** levels - 1) // (m - 1)
+    cap = 1 + (levels - 1) * (m - 1)
+    return m, levels, n_nodes, cap
+
+
+def tree_loop_entry(ro: V3, rd: V3, sig, tp: V3, live01, k1, k2, dtype):
+    """One DFS stack entry as a 13-component tuple: rox..z, rdx..z, sig,
+    tpx..z, live (0/1 in the compute dtype), k1, k2."""
+    return (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, sig, tp.x, tp.y, tp.z,
+            live01.to(dtype), k1, k2)
+
+
+def tree_loop_node(data: SceneData, spec: SceneSpec, m: int, entry,
+                   depth: int):
+    """One DFS node visit: closest hit, shade, route the child slots to m
+    virtual children.  ``entry`` is a popped 13-tuple
+    (:func:`tree_loop_entry`).  Returns ``(contrib: V3, virt)``, where
+    ``virt`` holds the packed child entries (none at a leaf; a dead child
+    has live = 0 and zero throughput)."""
+    dtype = entry[0].dtype
+    ro = V3(entry[0], entry[1], entry[2])
+    rd = V3(entry[3], entry[4], entry[5])
+    sig = entry[6]
+    tp = V3(entry[7], entry[8], entry[9])
+    live = entry[10] > 0.5
+    k1, k2 = entry[11], entry[12]
+
+    hit = closest_hit(data, spec, ro, rd)
+    emit, children = shade(data, spec, ro, rd, hit, sig, live, k1, k2, depth)
+    bg = background_color_v(data, spec, rd)
+    local = vec.where(hit.hit, emit, bg)
+    zero = vec.full_like(sig, 0.0)
+    contrib = vec.where(live, tp.mul(local), zero)
+
+    if len(children) > m:
+        virt = _route_children(children, m, tp, k1, k2)
+    else:
+        virt = [(c.ro, c.rd, c.sig, tp.mul(c.weight), c.live)
+                + rng.derive(k1, k2, c.slot) for c in children]
+    packed = []
+    for cro, crd, csig, ctp, clive, ck1, ck2 in virt:
+        ctp = vec.where(clive, ctp, zero)
+        packed.append(tree_loop_entry(cro, crd, csig, ctp,
+                                      torch.where(clive, 1.0, 0.0), ck1, ck2,
+                                      dtype))
+    return contrib, packed
+
+
+def radiance_tree_loop_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
+                         k1, k2) -> V3:
+    """Radiance of fan-out scenes as a depth-first walk of each lane's
+    virtual child tree (the recursion of ``ray_color``,
+    raytrace.rs:261-267), the plain version of the CUDA tree kernel.
+
+    Each node does one closest hit and one shade on the same lane shape
+    and routes its b child slots to ``m`` virtual children
+    (:func:`tree_loop_node`).  The walk is a preorder visit over the
+    static schedule (:func:`_dfs_schedule`) with one running sum; pending
+    siblings wait on an explicit stack of entries, child j pushed at
+    ``sp + (m-1-j)`` so that the children pop in order.  Since the tree's
+    shape is the same for every lane, the stack pointer and each visit's
+    depth are Python ints.  Every node is visited for every lane; a dead
+    entry contributes exactly zero."""
+    dtype = ro.x.dtype
+    m, levels, _, cap = tree_loop_stack(spec)
+    depths = _dfs_schedule(m, levels)
+    one = torch.ones_like(ro.x)
+    stack = [None] * cap
+    stack[0] = tree_loop_entry(ro, rd, one, V3(one, one, one), one, k1, k2,
+                               dtype)
+    acc = vec.full_like(ro.x, 0.0)
+    sp = 1
+    for depth in depths:
+        sp -= 1
+        contrib, virt = tree_loop_node(data, spec, m, stack[sp], depth)
+        acc = acc + contrib
+        if depth < levels - 1:
+            # child j lands at sp + (m-1-j): popped in preorder
+            for j, entry in enumerate(virt):
+                stack[sp + (m - 1 - j)] = entry
+            sp += m
     return acc
 
 
@@ -95,14 +260,19 @@ def sample_pixels(data: SceneData, spec: SceneSpec, px, py, sample_ids,
     y counts from the bottom row.  Every lane goes through
     :func:`raytrace_tpu_torch.render.megakernel.radiance_lanes`."""
     p, s = px.shape[0], sample_ids.shape[0]
-    c = spec.cam_samples
-    # lane axis = (pixel, aa_sample, cam_sample), flattened
-    pix = px.repeat_interleave(s * c)
-    piy = py.repeat_interleave(s * c)
-    aa = sample_ids.repeat_interleave(c).repeat(p)
-    cam = torch.arange(c, dtype=torch.int64, device=px.device).repeat(p * s)
-    rad = megakernel.radiance_lanes(data, spec, pix, piy, aa, cam, seed)
-    return vec.pack(V3(*(r.reshape(p, s * c).mean(dim=1) for r in rad)))
+    lanes = lane_ids(px, py, sample_ids, spec.cam_samples)
+    rad = megakernel.radiance_lanes(data, spec, *lanes, seed)
+    return vec.pack(V3(*(r.reshape(p, -1).mean(dim=1) for r in rad)))
+
+
+def lane_ids(px, py, sample_ids, cam_samples: int):
+    """The (pixel x, pixel y, aa sample, lens sample) identities of one
+    launch of :func:`sample_pixels`: the lane axis is (pixel, aa sample,
+    lens sample), flattened."""
+    p, s, c = px.shape[0], sample_ids.shape[0], cam_samples
+    return (px.repeat_interleave(s * c), py.repeat_interleave(s * c),
+            sample_ids.repeat_interleave(c).repeat(p),
+            torch.arange(c, dtype=torch.int64, device=px.device).repeat(p * s))
 
 
 def _render_chunks(data: SceneData, spec: SceneSpec, px, py, s0: int,
@@ -132,6 +302,27 @@ def _s_p_launch(spec: SceneSpec, aa: int, max_lanes: int):
     if n_pix <= lane_budget:
         return min(aa, max(lane_budget // n_pix, 1)), n_pix
     return 1, lane_budget
+
+
+def _wavefront_widest(spec: SceneSpec) -> int:
+    """Widest wavefront level of the JAX package's lane-compacted
+    wavefront, in lanes per primary sample: each level expands to b
+    slots, then compaction shrinks it to m live lanes."""
+    b = max(spec.children_per_ray, 1)
+    m = max(spec.max_live_children, 1)
+    if m >= b:
+        return b ** (spec.max_depth + 1)
+    return b * m ** spec.max_depth
+
+
+def _group_cap(spec: SceneSpec, s_launch: int, chunk_group: int) -> int:
+    """Sample chunks per launch group, bounded by a work budget so that
+    one group never runs for minutes: fan-out scenes do up to
+    :func:`_wavefront_widest` times the work per lane of a linear chain,
+    so they take smaller groups."""
+    work_per_chunk = (spec.width * spec.height * s_launch * spec.cam_samples
+                      * _wavefront_widest(spec))
+    return max(min(chunk_group, (1 << 28) // max(work_per_chunk, 1)), 1)
 
 
 # deterministic failures a retry cannot fix (an OOM retry thrashes the
@@ -203,10 +394,7 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
             image = ck["image"]
             s_done = int(ck["s_done"])
 
-    # a group's work is bounded so one launch group never runs for
-    # minutes (the linear chain never widens the lane axis)
-    work_per_chunk = h * w * s_launch * spec.cam_samples
-    g_cap = max(min(chunk_group, (1 << 28) // max(work_per_chunk, 1)), 1)
+    g_cap = _group_cap(spec, s_launch, chunk_group)
     pix = torch.arange(h * w, dtype=torch.int64, device=data.device)
     px, py = pix % w, pix // w
     s0 = s_done

@@ -1,11 +1,13 @@
-"""The render megakernel: per-lane radiance through one CUDA kernel.
+"""The render megakernels: per-lane radiance through one CUDA kernel.
 
-PyTorch counterpart of :mod:`raytrace_tpu.render.megakernel` in its small
-linear regime.  :func:`radiance_lanes` takes per-lane integer identities
-(pixel x, pixel y, antialias sample, lens sample) and returns their
-radiance: on CUDA tensors it launches the hand-written kernel
-``csrc/megakernel_linear.cu`` (one thread per lane, the whole chain in
-registers) or raises; on CPU tensors it runs the plain PyTorch version,
+PyTorch counterpart of :mod:`raytrace_tpu.render.megakernel` for scenes of
+at most 64 objects in float32 with a solid background.
+:func:`radiance_lanes` takes per-lane integer identities (pixel x, pixel
+y, antialias sample, lens sample) and returns their radiance.  On CUDA
+tensors it launches a hand-written kernel or raises: linear scenes
+(``children_per_ray <= 1``) go to ``csrc/megakernel_linear.cu``, fan-out
+scenes to ``csrc/megakernel_tree.cu``, one thread per lane each.  On CPU
+tensors it runs their plain PyTorch version,
 :func:`radiance_lanes_reference`.  Scenes outside :func:`usable` raise
 ``NotImplementedError`` naming the ROADMAP item on every device.
 """
@@ -17,43 +19,51 @@ import dataclasses
 
 import torch
 
-from raytrace_tpu_torch.models.materials import unported_feature
 from raytrace_tpu_torch.ops import _build
-from raytrace_tpu_torch.ops.intersect import (
-    COL_AMBIENT, COL_DIFFUSE, COL_INDIRECT, COL_P, COL_Q, COL_SAMPLES,
-    COL_SPHERE, LARGE_SCENE_THRESHOLD, object_table)
+from raytrace_tpu_torch.ops.intersect import LARGE_SCENE_THRESHOLD, object_table
 from raytrace_tpu_torch.ops.vec import V3
-from raytrace_tpu_torch.scene.schema import (BG_SOLID, CAM_SIMPLE_PERSPECTIVE,
+from raytrace_tpu_torch.scene.schema import (BG_SOLID, CAM_DEPTH_OF_FIELD,
                                              SceneData, SceneSpec)
 
-KERNEL = "megakernel_linear"
+KERNEL_LINEAR = "megakernel_linear"
+KERNEL_TREE = "megakernel_tree"
+KERNELS = (KERNEL_LINEAR, KERNEL_TREE)
 
-# kernel launches in this process (chip_smoke.py resets and reads it to
-# show that a run went through the kernel)
-LAUNCHES = 0
+# kernel launches in this process, per kernel (chip_smoke.py resets and
+# reads them to show that a run went through the kernels)
+LAUNCHES = {k: 0 for k in KERNELS}
 
-# object_table() columns of the kernel's 16-float object row, in the
-# order csrc/megakernel_linear.cu reads them (R_P .. R_IND), plus a pad
-_ROW_COLS = [COL_P, COL_P + 1, COL_P + 2, COL_Q, COL_Q + 1, COL_Q + 2,
-             COL_DIFFUSE, COL_DIFFUSE + 1, COL_DIFFUSE + 2,
-             COL_AMBIENT, COL_AMBIENT + 1, COL_AMBIENT + 2,
-             COL_SAMPLES, COL_SPHERE, COL_INDIRECT]
+# the largest DFS stack csrc/megakernel_tree.cu takes (its largest CAP)
+MAX_TREE_STACK = 64
+
+# floats per object row in the scene buffer: object_table()'s 22 columns
+# and a pad (csrc/render_common.cuh, ROW)
+_ROW = 24
+
+
+def kernel_for(spec: SceneSpec) -> str:
+    """The kernel that renders this scene."""
+    return KERNEL_LINEAR if spec.children_per_ray <= 1 else KERNEL_TREE
 
 
 def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
     """Why this scene is outside the ported slice, or None."""
+    from raytrace_tpu_torch.render.integrator import tree_loop_stack
+
     if data.dtype != torch.float32:
         return "float64 rendering is not ported yet (ROADMAP item 12)"
     if len(spec.live_objects()) > LARGE_SCENE_THRESHOLD:
         return (f"scenes with more than {LARGE_SCENE_THRESHOLD} objects are "
                 f"not ported yet (ROADMAP item 10)")
-    if spec.children_per_ray > 1:
-        return "fan-out scenes are not ported yet (ROADMAP item 9)"
     if spec.bg_type != BG_SOLID:
         return "skybox backgrounds are not ported yet (ROADMAP item 11)"
-    if spec.cam_type != CAM_SIMPLE_PERSPECTIVE:
-        return "the depth-of-field camera is not ported yet (ROADMAP item 8)"
-    return unported_feature(spec)
+    if kernel_for(spec) == KERNEL_TREE:
+        m, levels, _, cap = tree_loop_stack(spec)
+        if cap > MAX_TREE_STACK:
+            return (f"fan-out trees whose DFS stack exceeds {MAX_TREE_STACK} "
+                    f"entries (m={m}, {levels} levels: {cap}) are not ported "
+                    f"(ROADMAP item 9)")
+    return None
 
 
 def usable(data: SceneData, spec: SceneSpec) -> bool:
@@ -88,38 +98,76 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
 
 def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
                              cam, seed: int) -> V3:
-    """The plain PyTorch version of the kernel, on any device."""
+    """The plain PyTorch version of the kernels, on any device: the
+    linear chain or the DFS, as :func:`kernel_for` picks the kernel."""
     from raytrace_tpu_torch.render.integrator import (primary_rays,
-                                                      radiance_linear_v)
+                                                      radiance_linear_v,
+                                                      radiance_tree_loop_v)
 
     ro, rd, k1, k2 = primary_rays(data, spec, pix, piy, aa, cam, seed)
-    return radiance_linear_v(data, spec, ro, rd, k1, k2)
+    fn = (radiance_linear_v if kernel_for(spec) == KERNEL_LINEAR
+          else radiance_tree_loop_v)
+    return fn(data, spec, ro, rd, k1, k2)
 
 
 def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
-    """The kernel's float32 scene buffer on the scene's device: a 19-float
-    header (camera position, row-major camera matrix, background color,
-    half width, half height, NDC scale, minimum significance), then one
-    16-float row per live object in scene order."""
+    """The kernels' float32 scene buffer on the scene's device
+    (csrc/render_common.cuh): a 24-float header (camera position,
+    row-major camera matrix, background color, half width, half height,
+    NDC scale, minimum significance, focal distance, aperture, image
+    distance, two pads), then 16 floats per light (type, position, first
+    and second edge, color, three pads), then one 24-float row per live
+    object in scene order (the columns of ``object_table``, pad)."""
     halfw, halfh = spec.width / 2.0, spec.height / 2.0
-    consts = torch.tensor([halfw, halfh, max(1.0 / halfw, 1.0 / halfh),
-                           spec.min_significance], dtype=torch.float64)
-    live = spec.live_objects()
-    rows = object_table(data, spec)[live][:, _ROW_COLS]
-    rows = torch.cat([rows, torch.zeros_like(rows[:, :1])], dim=1)
-    return torch.cat([
-        data.cam_position, data.cam_matrix.reshape(9), data.bg_color,
-        consts.to(device=data.device, dtype=torch.float32),
-        rows.reshape(-1)]).to(torch.float32).contiguous()
+    # every number taken from the spec, in one host-to-device copy
+    host = torch.tensor([halfw, halfh, max(1.0 / halfw, 1.0 / halfh),
+                         spec.min_significance, 0.0, 0.0, *spec.light_type],
+                        dtype=torch.float64).to(device=data.device,
+                                                dtype=data.dtype)
+    n_l = spec.n_lights
+    lights = torch.cat([host[6:, None], data.light_p[:n_l],
+                        data.light_e1[:n_l], data.light_e2[:n_l],
+                        data.light_color[:n_l],
+                        torch.zeros_like(data.light_p[:n_l])], dim=1)
+    rows = object_table(data, spec)[spec.live_objects()]
+    rows = torch.cat([rows, torch.zeros_like(rows[:, :_ROW - rows.shape[1]])],
+                     dim=1)
+    parts = [data.cam_position, data.cam_matrix.reshape(9), data.bg_color,
+             host[:4], data.cam_focus.reshape(1), data.cam_aperture.reshape(1),
+             data.cam_im_dist.reshape(1), host[4:6], lights.reshape(-1),
+             rows.reshape(-1)]
+    return torch.cat(parts).to(torch.float32).contiguous()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    lib.rt_megakernel_linear.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    lib.rt_megakernel_linear.restype = ctypes.c_int
+# the last scene buffer packed: (scene tensors, their version counters,
+# spec, buffer); reused while the same tensors, unmodified, come with an
+# equal spec, as they do in every launch of one render
+_packed: tuple | None = None
+
+
+def _scene_buffer(data: SceneData, spec: SceneSpec) -> torch.Tensor:
+    global _packed
+    leaves = tuple(getattr(data, f.name) for f in dataclasses.fields(data))
+    versions = tuple(t._version for t in leaves)
+    last = _packed
+    if (last is not None and all(a is b for a, b in zip(last[0], leaves))
+            and last[1] == versions and last[2] == spec):
+        return last[3]
+    buf = pack_scene(data, spec)
+    _packed = (leaves, versions, spec, buf)
+    return buf
+
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, f"rt_{name}")
+    extra = [ctypes.c_int] if name == KERNEL_TREE else []
+    fn.argtypes = _ARGTYPES + extra + [ctypes.c_uint32, ctypes.c_void_p,
+                                       ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
     return lib
@@ -127,27 +175,32 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             seed: int) -> V3:
-    global LAUNCHES
+    from raytrace_tpu_torch.render.integrator import tree_loop_stack
+
     device = pix.device
     n = pix.shape[0]
     out = torch.empty((3, n), dtype=torch.float32, device=device)
     if n == 0:
         return V3(out[0], out[1], out[2])
-    lib = _lib()
+    name = kernel_for(spec)
+    lib = _lib(name)
     # 32-bit lane words, which the kernel reads as uint32_t
     ids = [t.contiguous() if t.dtype == torch.int32
            else (t.to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
            for t in (pix, piy, aa, cam)]
-    scene = pack_scene(data, spec)
-    levels = spec.max_depth + 2 if spec.n_indirect else 1
+    scene = _scene_buffer(data, spec)
+    args = [*(t.data_ptr() for t in ids), scene.data_ptr(),
+            len(spec.live_objects()), spec.n_lights, spec.max_depth,
+            int(spec.has_reflect), int(spec.has_refract), spec.n_indirect,
+            int(spec.cam_type == CAM_DEPTH_OF_FIELD)]
+    if name == KERNEL_TREE:
+        args.append(tree_loop_stack(spec)[0])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.rt_megakernel_linear(
-            *(t.data_ptr() for t in ids), scene.data_ptr(),
-            len(spec.live_objects()), levels, int(seed) & 0xFFFFFFFF,
-            out.data_ptr(), n, stream)
+        rc = getattr(lib, f"rt_{name}")(*args, int(seed) & 0xFFFFFFFF,
+                                        out.data_ptr(), n, stream)
     if rc != 0:
-        raise RuntimeError(f"megakernel launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rt_error_string(rc).decode()}")
-    LAUNCHES += 1
+    LAUNCHES[name] += 1
     return V3(out[0], out[1], out[2])

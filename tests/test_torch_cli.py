@@ -75,9 +75,38 @@ def test_cli_errors(tmp_path):
     r = _run(["/nonexistent/scene.txt", "-o", str(tmp_path / "x.bmp"),
               "--device", "cpu"])
     assert r.returncode == 1 and "error:" in r.stderr
+    # a scene past the small-scene regime is still refused
+    spheres = " ".join(
+        f"{{ bounds: Sphere {{ center: ({i}, 0, -9) radius: 0.4 }} "
+        f"material: IndirectPhongMaterial {{ diffuse: rgb(0.5,0.5,0.5) "
+        f"specular: rgb(0,0,0) exponent: 1 ambient: rgb(0,0,0) samples: 1 }} }}"
+        for i in range(65))
+    big = tmp_path / "big.txt"
+    big.write_text(
+        f"{{ objects: [ {spheres} ] lights: [] camera: SimplePerspectiveCamera "
+        f"new((0,0,0), (0,0,-1), (0,1,0), 1) background: SolidColorBackground "
+        f"{{ color: rgb(0,0,0) }} options: {{ width: 4 height: 4 antialias: 1 }} }}")
+    r = _run([str(big), "-o", str(tmp_path / "x.bmp"), "--device", "cpu"])
+    assert r.returncode == 1 and "ROADMAP item 10" in r.stderr
+    assert not (tmp_path / "x.bmp").exists()
+
+
+def test_cli_cpu_renders_showcase(tmp_path):
+    """The showcase (all four materials, three light types, depth of
+    field, a 63-node tree per lane) through the CLI on the CPU at a small
+    size: a well-formed BMP of finite, lit pixels."""
+    out, log = tmp_path / "show.bmp", tmp_path / "log.jsonl"
     r = _run([str(repo_path("examples", "materials_showcase.txt")), "-o",
-              str(tmp_path / "x.bmp"), "--device", "cpu"])
-    assert r.returncode == 1 and "ROADMAP item 9" in r.stderr
+              str(out), "--width", "16", "--height", "10", "--spp", "2",
+              "--device", "cpu", "-q", "--log-json", str(log)])
+    assert r.returncode == 0, r.stderr
+    blob = out.read_bytes()
+    assert blob[:2] == b"BM" and struct.unpack("<ii", blob[18:26]) == (16, 10)
+    assert len(blob) == 122 + 48 * 10
+    done = [json.loads(x) for x in log.read_text().splitlines()
+            if '"render_done"' in x][-1]
+    assert done["nonfinite"] == 0 and done["mean_radiance"] > 0
+    assert done["kernel_launches"] == 0 and done["primary_samples"] == 1280
 
 
 def test_logging_copy_prints_the_same(tmp_path):

@@ -44,6 +44,21 @@ def test_sample_pixels_matches_jax():
                           np.asarray(want, np.float64).T)
 
 
+def test_lane_ids_match_jax_layout():
+    """One launch's lanes: (pixel, aa sample, lens sample), flattened with
+    the lens sample fastest, as the JAX package's sample_pixels lays them
+    out (np.repeat / np.tile)."""
+    rs = np.random.RandomState(4)
+    px, py, sids = (rs.randint(0, 64, 5), rs.randint(0, 64, 5),
+                    rs.randint(0, 64, 3))
+    got = integrator.lane_ids(*(torch.from_numpy(a) for a in (px, py, sids)),
+                              4)
+    want = (np.repeat(px, 12), np.repeat(py, 12),
+            np.tile(np.repeat(sids, 4), 5), np.tile(np.arange(4), 15))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 def test_primary_rays_match_jax():
     js, ts = _scenes(512, 512)
     rs = np.random.RandomState(11)
@@ -129,3 +144,38 @@ def test_retry_launch_transient_vs_permanent(monkeypatch):
         with pytest.raises(type(err)):
             integrator._retry_launch(permanent)
         assert len(calls) == 1
+
+
+@pytest.mark.parametrize("scene", ["cornell_indirect.txt",
+                                   "materials_showcase.txt"])
+def test_group_bound_scales_with_wavefront_widest(scene, monkeypatch):
+    """_image_loop bounds a launch group's work as the JAX package does:
+    lanes times _wavefront_widest, the fan-out of the widest level."""
+    path = str(repo_path("examples", scene))
+    js = jax_load(path, dtype=jnp.float32)
+    ts = torch_load(path, device="cpu")
+    assert integrator._wavefront_widest(ts.spec) == jax_int._wavefront_widest(
+        js.spec)
+    spec = dataclasses.replace(ts.spec, width=512, height=512, cam_samples=1)
+    calls = []
+    monkeypatch.setattr(
+        integrator, "_render_chunks",
+        lambda data, spec, px, py, s0, sl, g, seed, p_launch: (
+            calls.append((sl, g)) or torch.zeros((px.shape[0], 3))))
+    integrator._image_loop(dataclasses.replace(ts, spec=spec), seed=0,
+                           spp=64, max_lanes=1 << 22, progress=None,
+                           checkpoint=None)
+    s_launch = calls[0][0]
+    assert s_launch == 16
+    work = 512 * 512 * s_launch * jax_int._wavefront_widest(spec)
+    cap = max(min(32, (1 << 28) // work), 1)
+    assert cap == integrator._group_cap(spec, s_launch, 32)
+    assert calls[0][1] == min(cap, 64 // s_launch)
+    assert sum(sl * g for sl, g in calls) == 64
+    if scene == "materials_showcase.txt":
+        # 4 slots, 2 live: 4 * 2**4 = 64 lanes per sample at the widest,
+        # so each group takes one chunk, where a linear chain takes four
+        assert integrator._wavefront_widest(spec) == 64
+        assert [g for _, g in calls] == [1, 1, 1, 1]
+    else:
+        assert [g for _, g in calls] == [4]

@@ -1,5 +1,5 @@
-"""Closest-hit parity of the PyTorch port against the JAX package on
-random rays inside and outside the cornell box."""
+"""Closest-hit and shadow-query parity of the PyTorch port against the
+JAX package on random rays inside and outside the scenes' objects."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,9 +7,11 @@ import pytest
 import torch
 
 from raytrace_tpu.ops.intersect import closest_hit as jax_closest_hit
+from raytrace_tpu.ops.intersect import occluded_v as jax_occluded_v
 from raytrace_tpu.ops.vec import V3 as JV3
 from raytrace_tpu.scene.builder import load_scene_file as jax_load
-from raytrace_tpu_torch.ops.intersect import closest_hit, safe_inv2a
+from raytrace_tpu_torch.ops.intersect import (closest_hit, occluded_v,
+                                              safe_inv2a)
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.scene.builder import load_scene_file as torch_load
 
@@ -85,3 +87,60 @@ def test_miss_lanes_take_first_live_row():
 def test_safe_inv2a_guards_zero():
     a = torch.tensor([0.0, 2.0])
     assert safe_inv2a(a).tolist() == [0.5, 0.25]
+
+
+def test_closest_hit_showcase_matches_jax():
+    """All four materials' rows, spheres seen from inside and outside."""
+    path = str(repo_path("examples", "materials_showcase.txt"))
+    js = jax_load(path, dtype=jnp.float32)
+    ts = torch_load(path, device="cpu")
+    ro, rd = _rays(2)
+    ro = ro * np.float32(0.8) - np.float32([0.0, 0.0, 4.0])
+    want = jax_closest_hit(js.data, js.spec,
+                           JV3(*(jnp.asarray(ro[:, i]) for i in range(3))),
+                           JV3(*(jnp.asarray(rd[:, i]) for i in range(3))))
+    got = closest_hit(ts.data, ts.spec,
+                      V3(*(torch.from_numpy(ro[:, i]) for i in range(3))),
+                      V3(*(torch.from_numpy(rd[:, i]) for i in range(3))))
+    same = ((got.obj.numpy() == np.asarray(want.obj))
+            & (got.hit.numpy() == np.asarray(want.hit)))
+    assert same.mean() >= 0.999, same.mean()
+    assert set(got.obj.numpy()[got.hit.numpy()]) == {0, 1, 2, 3}
+    for f in FLOAT_FIELDS:
+        np.testing.assert_allclose(_flat(getattr(got, f))[same],
+                                   _flat(getattr(want, f))[same],
+                                   rtol=1e-5, atol=1e-5, err_msg=f)
+    for f in ROW_FIELDS:
+        np.testing.assert_array_equal(_flat(getattr(got, f))[same],
+                                      _flat(getattr(want, f))[same],
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("has_range", [True, False])
+def test_occluded_matches_jax(has_range):
+    """Shadow any-hit, with a squared range (t*t < r^2) and without."""
+    path = str(repo_path("examples", "materials_showcase.txt"))
+    js = jax_load(path, dtype=jnp.float32)
+    ts = torch_load(path, device="cpu")
+    ro, rd = _rays(4)
+    ro = ro * np.float32(0.8) - np.float32([0.0, 0.0, 4.0])
+    sq = np.random.RandomState(4).uniform(0.0, 30.0, N).astype(np.float32)
+    want = np.asarray(jax_occluded_v(
+        js.data, js.spec, JV3(*(jnp.asarray(ro[:, i]) for i in range(3))),
+        JV3(*(jnp.asarray(rd[:, i]) for i in range(3))), jnp.asarray(sq),
+        has_range))
+    got = occluded_v(ts.data, ts.spec,
+                     V3(*(torch.from_numpy(ro[:, i]) for i in range(3))),
+                     V3(*(torch.from_numpy(rd[:, i]) for i in range(3))),
+                     torch.from_numpy(sq), has_range).numpy()
+    assert got.dtype == np.bool_
+    assert (got == want).mean() >= 0.999, (got == want).mean()
+    assert 0.05 < got.mean() < 0.95
+    if has_range:
+        # the range only ever lets light through
+        unranged = occluded_v(
+            ts.data, ts.spec,
+            V3(*(torch.from_numpy(ro[:, i]) for i in range(3))),
+            V3(*(torch.from_numpy(rd[:, i]) for i in range(3))),
+            torch.from_numpy(sq), False).numpy()
+        assert (got <= unranged).all() and (got < unranged).any()

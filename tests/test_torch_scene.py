@@ -104,3 +104,22 @@ def test_f64_build_is_exact():
 def test_skybox_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         build_scene(tdsl.parse(SKYBOX), device="cpu")
+
+
+def test_scene_data_from_numpy_carries_showcase_leaves():
+    """Every leaf the lit and fan-out path reads (lights, the
+    depth-of-field constants, specular, exponent, ior) comes across from
+    the JAX package's showcase exactly."""
+    js = jax_load(str(repo_path("examples", "materials_showcase.txt")),
+                  dtype=jnp.float32)
+    data = scene_data_from_numpy(
+        {n: np.asarray(getattr(js.data, n)) for n in FIELDS}, "cpu",
+        torch.float32)
+    for n in ("light_p", "light_e1", "light_e2", "light_color", "cam_focus",
+              "cam_aperture", "cam_im_dist", "mat_specular", "mat_exponent",
+              "mat_ior"):
+        want = np.asarray(getattr(js.data, n))
+        got = getattr(data, n)
+        assert got.shape == want.shape, n
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=n)
+    assert data.light_p.shape == (3, 3) and float(data.cam_aperture) > 0

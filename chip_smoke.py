@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from ``raytrace_tpu_torch/csrc`` (one
+Builds the port's three CUDA kernels from ``raytrace_tpu_torch/csrc`` (one
 nvcc each, in parallel) and holds each against its plain PyTorch version
 on the card.  The linear kernel: on ``examples/cornell_indirect.txt``,
 which it renders at 512x512 with 16 samples per pixel through the port's
@@ -13,9 +13,20 @@ The tree kernel: on ``examples/materials_showcase.txt``, on a
 that take its two largest stack sizes (phase 7), then on the lanes of the
 CLI's launch of the showcase, which the CLI then renders at its own
 640x400, 64 x 4 samples per pixel (phase 8); both kernels with lights
-are timed at 2,097,152 lanes per launch (phase 9).  Each CLI render checks that it went through its
-kernel.  Every phase succeeds or raises; the last line is
-``{"ok": true, ...}`` only when all of them passed.  Without a CUDA
+are timed at 2,097,152 lanes per launch (phase 9).  Large scenes, the
+procedural sphere fields of 1,006 and 4,006 objects: the scan kernel
+against its plain version on camera rays and on random rays (phase 10);
+the large instances of the linear and tree kernels, which fold over the
+scene's tables, against the plain path, also with a point light, and the
+split path (the plain chain with the scan kernel) against the fused
+kernel (phase 11); the CLI's own launch of the 1,006-object linear and
+mixed fields (4,194,304 lanes) against the plain path, then the CLI's
+renders of them at 1024x1024 with 4 samples per pixel (phase 12); timing
+at 2,097,152 lanes per launch, where each timed launch of a large
+instance, of the scan kernel and of the split path is again held against
+its plain run (phase 13).  Each CLI render checks that it
+went through its kernel.  Every phase succeeds or raises; the last line
+is ``{"ok": true, ...}`` only when all of them passed.  Without a CUDA
 device it fails at once.  It imports nothing of JAX.
 """
 
@@ -84,6 +95,107 @@ MIN_LANES_OK = 0.99       # ... on at least this share of the lanes
 MEAN_RTOL = 1e-3          # per-channel means
 
 
+# NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations of one object test, counted from the device functions of
+# csrc/render_common.cuh: every add, subtract, multiply, compare, min or
+# max, division and square root counts one; a negation, an absolute value
+# and a select count nothing.  sphere_t: 3 (o - c) + 6 (b) + 7 (cc) + 4
+# (disc) + 1 (disc > 0) + 1 (sqrt) + 4 (t1, t2) + 2 (t1 > 0, t > 0) = 28.
+# plane_t: 5 (denom) + 6 (numer) + 1 (denom != 0) + 1 (division) + 1
+# (t > 0) = 14.  chunk_may, a chunk's bounding-sphere test: 3 + 6 + 7 + 4
+# as the sphere, + 2 (pos) + 2 (max, sqrt) + 3 (margin) + 3 (exit test) + 4
+# (entry test) = 34.  Only these tests are counted: a node's own arithmetic
+# (hit record, gates, lights, child ray) and its shadow rays are not, so
+# every bound made from these is a lower one.
+FLOPS_SPHERE, FLOPS_PLANE, FLOPS_BOUND = 28, 14, 34
+WORK_LANES = 16384  # lanes of the sample on which a path's work is counted
+
+
+def work_sample(t, n=WORK_LANES):
+    """``n`` elements of ``t`` at an even stride over all of it, so that a
+    pixel-ordered launch is sampled over the whole image."""
+    return t[::max(t.shape[0] // n, 1)][:n]
+
+
+def bound(flops: float, nbytes: float):
+    """(the least ms the card could take, "bytes" or "operations"): the
+    larger of the bytes over the memory rate and the operations over the
+    FP32 peak."""
+    by_ops, by_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ((by_ops, "operations") if by_ops >= by_bytes
+            else (by_bytes, "bytes"))
+
+
+def path_work(data, spec, lanes, seed) -> dict:
+    """What these lanes' paths need, per lane, counted by walking the
+    plain version on an even sample of them: live node visits, and for a large scene the sphere
+    chunks that the visits' rays enter (the others are culled).  Shadow
+    rays are not counted, so the bound made from this is a lower one."""
+    from raytrace_tpu_torch.ops import intersect_scan
+    from raytrace_tpu_torch.ops.intersect import scene_tables
+    from raytrace_tpu_torch.ops.vec import V3
+    from raytrace_tpu_torch.render import megakernel
+    from raytrace_tpu_torch.render.integrator import (_dfs_schedule,
+                                                      primary_rays,
+                                                      tree_loop_entry,
+                                                      tree_loop_node,
+                                                      tree_loop_stack)
+
+    lanes = [work_sample(t) for t in lanes]
+    n = lanes[0].shape[0]
+    ro, rd, k1, k2 = primary_rays(data, spec, *lanes, seed)
+    m, levels, _, cap = tree_loop_stack(spec)
+    one = torch.ones_like(ro.x)
+    stack = [None] * cap
+    stack[0] = tree_loop_entry(ro, rd, one, V3(one, one, one), one, k1, k2,
+                               ro.x.dtype)
+    large = megakernel.is_large(spec)
+    tb = scene_tables(data, spec) if large else None
+    visits = chunks = 0
+    sp = 1
+    for depth in _dfs_schedule(m, levels):
+        sp -= 1
+        e = stack[sp]
+        live = e[10] > 0.5
+        visits += int(live.sum())
+        if large:
+            entered = intersect_scan.scan_hit_reference(
+                tb.table, tb.ids, tb.n_sph_pad, V3(*e[0:3]), V3(*e[3:6]),
+                tb.bounds, return_entered=True)[3]
+            chunks += int(entered[live].sum())
+        _, virt = tree_loop_node(data, spec, m, e, depth)
+        if depth < levels - 1:
+            if len(virt) < m:  # no child slot at all: the walk ends here
+                break
+            for j, entry in enumerate(virt):
+                stack[sp + (m - 1 - j)] = entry
+            sp += m
+    return {"visits": visits / n, "chunks": chunks / n}
+
+
+def render_bound(spec, n_lanes: int, work: dict, tables=None):
+    """The bound of one render-kernel launch of ``n_lanes`` lanes whose
+    paths need ``work`` (:func:`path_work`): 16 B in and 12 B out per
+    lane plus the scene once; per live node its closest-hit tests and
+    nothing else of it: every live object of a small scene, or the rows
+    of the chunks entered, every chunk's bound test and the plane rows of
+    a large one."""
+    n_sph = sum(t == 0 for t in spec.shape_type)
+    n_pln = sum(t == 1 for t in spec.shape_type)
+    nbytes = 28 * n_lanes + 96 * (n_sph + n_pln)
+    if tables is None:
+        flops = work["visits"] * (n_sph * FLOPS_SPHERE + n_pln * FLOPS_PLANE)
+    else:
+        n_sph_chunks = tables.n_sph_pad // 32
+        flops = (work["chunks"] * 32 * FLOPS_SPHERE
+                 + work["visits"] * (n_sph_chunks * FLOPS_BOUND
+                                     + n_pln * FLOPS_PLANE))
+        nbytes += 20 * tables.table.shape[0]
+    return bound(flops * n_lanes, nbytes)
+
+
 def nvidia_smi() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], check=True,
@@ -125,6 +237,52 @@ def pixel_lanes(width, n_pix, spp, cam_samples, device):
                     cam_samples)
 
 
+def cli_launch_lanes(spec, device):
+    """The lanes of the CLI's first launch of a scene at its own settings:
+    every pixel, the first aa samples that fit the CLI's lane budget, each
+    with every lens sample.  Returns (lanes, aa samples per launch)."""
+    from raytrace_tpu_torch.render.integrator import _s_p_launch
+
+    s_launch, p_launch = _s_p_launch(spec, spec.antialias, 1 << 22)
+    if p_launch != spec.width * spec.height:
+        raise AssertionError("the image no longer fits one launch")
+    return pixel_lanes(spec.width, p_launch, s_launch, spec.cam_samples,
+                       device), s_launch
+
+
+def compare_scan(got, want) -> dict:
+    """Hold the scan kernel's (t, id, hit) against the plain version's:
+    ids and hits are integers, equal but for a near-tie that one rounding
+    may turn (at most 0.1% of the rays); t within 1e-5 relative where they
+    agree, infinite on a miss."""
+    (t, gid, hit), (wt, wg, wh) = got, want[:3]
+    same = (gid == wg) & (hit == wh)
+    both = same & hit
+    stats = {"rays": t.shape[0],
+             "gid_mismatch": float(1 - (gid == wg).float().mean()),
+             "hit_mismatch": float(1 - (hit == wh).float().mean()),
+             "t_rel_err": float(((t - wt).abs() / wt)[both].max()),
+             "max_abs_err": float((t - wt).abs()[both].max()),
+             "hit_share": float(hit.float().mean())}
+    print(f"  {stats}")
+    if not (float(same.float().mean()) >= 0.999 and stats["t_rel_err"] <= 1e-5
+            and bool(torch.isinf(t[~hit]).all())):
+        raise AssertionError(f"scan kernel disagrees: {stats}")
+    return stats
+
+
+def once_ms(fn):
+    """(ms, result) of one call, not warmed up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def ms_per_launch(fn, warmup: int, reps: int) -> float:
     for _ in range(warmup):
         fn()
@@ -139,27 +297,46 @@ def ms_per_launch(fn, warmup: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name_part: str = "") -> float:
+def device_ms(fn, reps: int, name_part: str = "", per_call: int = 1) -> float:
     """Device time per call of the CUDA kernels and copies whose name
     contains ``name_part``, from torch.profiler over ``reps`` calls.
     Only device rows count: a CPU operator's row repeats the device time
-    of the kernels it launched."""
+    of the kernels it launched.  With a name, a call makes ``per_call``
+    such launches, and the reading stands only when the profiler recorded
+    every one of them: a recording late in a long process may drop some
+    of a run's records, and what is left then reads low or high.  NaN,
+    with the reason printed, for a recording that is not whole; the
+    CUDA-event time printed beside it stands alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    scratch = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name_part in e.key)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time for "
-                             f"{name_part or 'any kernel'}")
-    return us / 1e3 / reps
+    for _ in (0, 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a recording made after large ones loses its first device
+            # records (seen: 1 to 9 of them): trivial kernels go first
+            for _ in range(64):
+                scratch.add_(1.0)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        rows = [e for e in events
+                if e.device_type == DeviceType.CUDA and name_part in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        seen = sum(e.count for e in rows)
+        if us > 0 and (not name_part or seen == reps * per_call):
+            return us / 1e3 / reps
+        # not whole: say what it saw and record once more
+        print(f"    (the profiler recorded {seen} of "
+              f"{reps * per_call if name_part else 'the'} "
+              f"{name_part or 'device'} launches in {len(events)} rows)")
+    # not a fault of the port, and no reading either
+    print("    (no whole recording from the profiler: nan below)")
+    return float("nan")
 
 
 def random_lanes(spec, n, seed, device):
@@ -242,14 +419,19 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     from raytrace_tpu_torch import cli
-    from raytrace_tpu_torch.ops import _build
+    from raytrace_tpu_torch.ops import _build, intersect_scan
+    from raytrace_tpu_torch.ops.intersect import scene_tables
+    from raytrace_tpu_torch.ops.vec import V3
     from raytrace_tpu_torch.render import megakernel
-    from raytrace_tpu_torch.render.integrator import (_s_p_launch,
+    from raytrace_tpu_torch.render.integrator import (primary_rays,
                                                       tree_loop_stack)
     from raytrace_tpu_torch.scene import dsl
     from raytrace_tpu_torch.scene.builder import build_scene, load_scene_file
+    from raytrace_tpu_torch.scene.procedural import (make_sphere_field,
+                                                     sphere_field_source)
 
     k_lin, k_tree = megakernel.KERNEL_LINEAR, megakernel.KERNEL_TREE
+    k_scan = megakernel.KERNEL_SCAN
     srcs = {k: os.path.join("raytrace_tpu_torch", "csrc", k + ".cu")
             for k in megakernel.KERNELS}
 
@@ -275,12 +457,18 @@ def main() -> int:
           f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.2f} s")
     for k in megakernel.KERNELS:
         for line in _build.build_logs.get(k, "").splitlines():
-            inst = re.search(r"(megakernel_\w+?)IL[bi](\d+)E", line)
+            inst = re.search(r"(megakernel_[a-z]+|scan_hit_kernel)"
+                             r"(?:IL[bi](\d+)EL[bi](\d+)EE|E)", line)
             if "entry function" in line and inst:
-                print(f"    {inst.group(1)}<{inst.group(2)}>:")
+                args = [a for a in inst.groups()[1:] if a is not None]
+                print(f"    {inst.group(1)}<{', '.join(args)}>:")
             elif "registers" in line or "stack frame" in line:
                 print(f"      {line.strip()}")
-    max_err = {k: 0.0 for k in megakernel.KERNELS}
+    k_lin_large, k_tree_large = k_lin + " (large)", k_tree + " (large)"
+    # the lines of the closing "kernels" object: the three kernels, the
+    # render kernels' large instances (the in-kernel table fold) apart
+    rows = (k_lin, k_tree, k_lin_large, k_tree_large, k_scan)
+    max_err = {k: 0.0 for k in rows}
 
     # ---- phase 3: the linear kernel vs plain version on the card ----
     scene = load_scene_file(SCENE, device=device)
@@ -334,6 +522,10 @@ def main() -> int:
           f"ms ({rays / k_dev * 1e3:.4g} rays/s), plain path {p_dev:.4f} ms "
           f"on {smi}")
     timing = {k_lin: (ms, plain_ms)}
+    work = path_work(data, spec_b, lanes, 0)
+    bounds = {k_lin: render_bound(spec_b, n, work)}
+    print(f"    needs {work['visits']:.3f} live nodes per lane; bound "
+          f"{bounds[k_lin][0]:.4f} ms ({bounds[k_lin][1]})")
 
     # ---- phase 6: the linear kernel with lights, mirror and DoF ----
     lit = build_scene(dsl.parse(LIT_MIRROR), device=device)
@@ -372,17 +564,11 @@ def main() -> int:
 
     # ---- phase 8: the showcase through the CLI at its own settings ----
     s = show.spec
-    # the lanes of the CLI's first launch: every pixel, the first s_launch
-    # aa samples, each with every lens sample
-    s_launch, p_launch = _s_p_launch(s, s.antialias, 1 << 22)
-    if p_launch != s.width * s.height:
-        raise AssertionError("the showcase no longer fits one launch")
+    lanes, s_launch = cli_launch_lanes(s, device)
     print(f"[8] the CLI's launch, {s.width}x{s.height} x {s_launch} aa x "
           f"{s.cam_samples} lens samples:")
     t0 = time.perf_counter()
-    stats = check_kernel(megakernel, k_tree, show.data, s,
-                         pixel_lanes(s.width, p_launch, s_launch,
-                                     s.cam_samples, device), SEED,
+    stats = check_kernel(megakernel, k_tree, show.data, s, lanes, SEED,
                          "the CLI's launch")
     print(f"    ({time.perf_counter() - t0:.2f} s)")
     max_err[k_tree] = max(max_err[k_tree], stats["max_abs_err"])
@@ -421,19 +607,220 @@ def main() -> int:
               f"the device; on {smi}")
         if kname == k_tree:
             timing[k_tree] = (ms, plain_ms)
+            work = path_work(sc.data, sc.spec, lanes, 0)
+            bounds[k_tree] = render_bound(sc.spec, 1 << 21, work)
+            print(f"    needs {work['visits']:.3f} live nodes per lane; "
+                  f"bound {bounds[k_tree][0]:.4f} ms ({bounds[k_tree][1]})")
 
-    launches = {k_lin: lin_launches, k_tree: tree_launches}
-    # the one pallas_call: its linear regime, and its fan-out regime
-    # (radiance_tree_v traced in _kernel, :424, and _tree_loop_scratch,
-    # :509)
-    replaces = {k: "raytrace_tpu/render/megakernel.py:773"
-                for k in megakernel.KERNELS}
+    # ---- phase 10: the scan kernel vs its plain version ----
+    n_chk = 65536
+    fields = {}
+    for n_sph in (1000, 4000):
+        sc = make_sphere_field(n_sph, mix_materials=False, device=device)
+        fields[n_sph] = (sc, scene_tables(sc.data, sc.spec))
+    rs = np.random.RandomState(SEED)
+    rand_o = V3(*(torch.from_numpy(rs.uniform(-28, 28, n_chk).astype(
+        np.float32)).to(device) for _ in range(3)))
+    rand_d = V3(*(torch.from_numpy(rs.normal(0, 1, n_chk).astype(
+        np.float32)).to(device) for _ in range(3)))
+    print("[10] scan kernel vs plain, 65,536 rays (id and hit mismatch "
+          "shares, largest relative t error on agreeing hits; mean sphere "
+          "chunks a ray enters):")
+    for n_sph, (sc, tb) in fields.items():
+        cam_o, cam_d, _, _ = primary_rays(
+            sc.data, sc.spec, *random_lanes(sc.spec, n_chk, SEED, device),
+            SEED)
+        for label, (o, d) in (("camera rays", (cam_o, cam_d)),
+                              ("random rays", (rand_o, rand_d))):
+            before = megakernel.LAUNCHES[k_scan]
+            t, gid, hit = intersect_scan.scan_hit(tb.table, tb.ids,
+                                                  tb.n_sph_pad, o, d)
+            torch.cuda.synchronize()
+            if megakernel.LAUNCHES[k_scan] != before + 1:
+                raise AssertionError("scan_hit did not launch its kernel once")
+            want = intersect_scan.scan_hit_reference(
+                tb.table, tb.ids, tb.n_sph_pad, o, d, tb.bounds,
+                return_entered=True)
+            print(f"    {n_sph + 6} objects, {label}, entering "
+                  f"{float(want[3].float().mean()):.2f} of "
+                  f"{tb.n_sph_pad // 32} sphere chunks:")
+            stats = compare_scan((t, gid, hit), want)
+            max_err[k_scan] = max(max_err[k_scan], stats["max_abs_err"])
+
+    # ---- phase 11: the large instances vs the plain path ----
+    lin, lin_tb = fields[1000]
+    mixed = make_sphere_field(1000, mix_materials=True, device=device)
+    lit_large = build_scene(dsl.parse(sphere_field_source(
+        1000, mix_materials=False).replace("lights: [ ]", """lights: [
+        { model: PointLight { location: (0, 20, 10) }
+          color: rgb(30, 28, 26) } ]""")), device=device)
+    print("[11] large scenes (1,006 objects), 65,536 random lanes:")
+    for kname, row, label, sc in (
+            (k_lin, k_lin_large, "linear field", lin),
+            (k_tree, k_tree_large, "mixed field (m = 2, 63 nodes)", mixed),
+            (k_lin, k_lin_large, "linear field with a point light",
+             lit_large)):
+        if not megakernel.is_large(sc.spec):
+            raise AssertionError(f"{label}: not a large scene")
+        t0 = time.perf_counter()
+        stats = check_kernel(megakernel, kname, sc.data, sc.spec,
+                             random_lanes(sc.spec, n_chk, SEED, device), SEED,
+                             label)
+        print(f"    ({time.perf_counter() - t0:.2f} s)")
+        max_err[row] = max(max_err[row], stats["max_abs_err"])
+    lanes = random_lanes(lin.spec, n_chk, SEED, device)
+    before = dict(megakernel.LAUNCHES)
+    split = megakernel.radiance_lanes_split(lin.data, lin.spec, *lanes, SEED)
+    torch.cuda.synchronize()
+    rose = {k: megakernel.LAUNCHES[k] - before[k] for k in megakernel.KERNELS}
+    if rose != {k_lin: 0, k_tree: 0, k_scan: lin.spec.max_depth + 2}:
+        raise AssertionError(f"split path launches: {rose}")
+    print(f"    split path (the plain chain, {rose[k_scan]} scan kernel "
+          f"launches) vs the fused kernel, linear field:")
+    compare(split, megakernel.radiance_lanes(lin.data, lin.spec, *lanes,
+                                             SEED))
+
+    # ---- phase 12: large scenes through the CLI at their own settings ----
+    print("[12] the CLI on the 1,006-object fields, 1024x1024 x 4 spp:")
+    large_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kname, row, label, mix in ((k_lin, k_lin_large, "linear", False),
+                                       (k_tree, k_tree_large, "mixed", True)):
+            path = os.path.join(tmp, f"field_{label}.txt")
+            with open(path, "w") as f:
+                f.write(sphere_field_source(1000, mix_materials=mix))
+            sc = load_scene_file(path, device=device)
+            if len(sc.spec.live_objects()) != 1006:
+                raise AssertionError("the field file lost objects")
+            lanes, s_launch = cli_launch_lanes(sc.spec, device)
+            t0 = time.perf_counter()
+            stats = check_kernel(
+                megakernel, kname, sc.data, sc.spec, lanes, SEED,
+                f"{label} field, the CLI's launch, {sc.spec.width}x"
+                f"{sc.spec.height} x {s_launch} aa")
+            print(f"    ({time.perf_counter() - t0:.2f} s)")
+            max_err[row] = max(max_err[row], stats["max_abs_err"])
+            done, wall, launches, size = cli_render(cli, megakernel, kname,
+                                                    path, [], sc.spec)
+            large_launches[row] = launches[kname]
+            print(f"    {label} field: {wall:.2f} s wall, {done['seconds']} s "
+                  f"render, launches {launches}, mean radiance "
+                  f"{done['mean_radiance']:.6f}, BMP {size} B, on {smi}")
+
+    # ---- phase 13: large scenes at 2,097,152 lanes per launch ----
+    print("[13] large scenes, 2,097,152 lanes per launch (pixel-ordered, "
+          "1024x1024 x 2 spp):")
+    n = 1 << 21
+    lanes = [t.to(torch.int32) for t in pixel_lanes(1024, n // 2, 2, 1,
+                                                    device)]
+
+    for row, label, sc, plain_once in (
+            (k_lin_large, "linear kernel, 1,006 objects", lin, True),
+            (None, "linear kernel, 4,006 objects", fields[4000][0], False),
+            (k_tree_large, "tree kernel, 1,006 objects, mixed", mixed, True)):
+        def kernel():
+            return megakernel.radiance_lanes(sc.data, sc.spec, *lanes, 0)
+
+        tb = scene_tables(sc.data, sc.spec)
+        got = kernel()
+        ms = min(ms_per_launch(kernel, 2, 5) for _ in range(2))
+        k_dev = device_ms(kernel, 5, megakernel.kernel_for(sc.spec))
+        work = path_work(sc.data, sc.spec, lanes, 0)
+        b_ms, b_by = render_bound(sc.spec, n, work, tb)
+        line = (f"    {label}: kernel {ms:.4f} ms/call, {k_dev:.4f} ms on the "
+                f"device; needs {work['visits']:.3f} live nodes per lane, "
+                f"each entering {work['chunks'] / work['visits']:.2f} of "
+                f"{tb.n_sph_pad // 32} sphere chunks; bound {b_ms:.4f} ms "
+                f"({b_by})")
+        if plain_once:
+            # the plain path takes seconds here: one run, not warmed up
+            plain_ms, want = once_ms(
+                lambda: megakernel.radiance_lanes_reference(
+                    sc.data, sc.spec, *lanes, 0))
+            line += f"; plain {plain_ms:.1f} ms (one run)"
+        print(f"{line}; on {smi}")
+        if row is not None:
+            print("    that launch vs the plain run:")
+            stats = compare(got, want)
+            max_err[row] = max(max_err[row], stats["max_abs_err"])
+            timing[row] = (ms, plain_ms)
+            bounds[row] = (b_ms, b_by)
+        if sc is lin:
+            fused = got
+
+    def split_path():
+        return megakernel.radiance_lanes_split(lin.data, lin.spec, *lanes, 0)
+
+    for k in megakernel.KERNELS:
+        megakernel.LAUNCHES[k] = 0
+    split = split_path()
+    split_launches = megakernel.LAUNCHES[k_scan]
+    if split_launches < 1 or megakernel.LAUNCHES[k_lin] != 0:
+        raise AssertionError("the split path did not go through the scan "
+                             "kernel alone")
+    split_ms = min(ms_per_launch(split_path, 1, 3) for _ in range(2))
+    scan_dev = device_ms(split_path, 2, "scan_hit", split_launches)
+    print(f"    split path, 1,006 objects: {split_ms:.4f} ms/call, of which "
+          f"{scan_dev:.4f} ms in its {split_launches} scan kernel launches "
+          f"(device time); vs the fused kernel on the same lanes:")
+    compare(split, fused)
+    for n_sph, (sc, tb) in fields.items():
+        o, d, _, _ = primary_rays(sc.data, sc.spec, *lanes, 0)
+
+        def scan():
+            return intersect_scan.scan_hit(tb.table, tb.ids, tb.n_sph_pad, o,
+                                           d, tb.bounds)
+
+        def scan_plain():
+            return intersect_scan.scan_hit_reference(tb.table, tb.ids,
+                                                     tb.n_sph_pad, o, d)
+
+        ms = min(ms_per_launch(scan, 2, 10) for _ in range(2))
+        dev = device_ms(scan, 10, "scan_hit")
+        plain_ms, want = once_ms(scan_plain)
+        entered = intersect_scan.scan_hit_reference(
+            tb.table, tb.ids, tb.n_sph_pad,
+            V3(*(work_sample(c, n_chk) for c in o)),
+            V3(*(work_sample(c, n_chk) for c in d)), tb.bounds,
+            return_entered=True)[3].float().mean().item()
+        n_sph_chunks = tb.n_sph_pad // 32
+        b_ms, b_by = bound(
+            n * (entered * 32 * FLOPS_SPHERE + n_sph_chunks * FLOPS_BOUND
+                 + 5 * FLOPS_PLANE), 33 * n + 20 * tb.table.shape[0])
+        print(f"    scan kernel, {n_sph + 6} objects, the launch's camera "
+              f"rays: {ms:.4f} ms/call, {dev:.4f} ms on the device; plain "
+              f"{plain_ms:.1f} ms (one run); a ray enters {entered:.2f} of "
+              f"{n_sph_chunks} sphere chunks (every 32nd ray); bound "
+              f"{b_ms:.4f} ms ({b_by}); on {smi}; that launch vs the plain "
+              f"run:")
+        stats = compare_scan(scan(), want)
+        max_err[k_scan] = max(max_err[k_scan], stats["max_abs_err"])
+        if n_sph == 1000:
+            timing[k_scan] = (ms, plain_ms)
+            bounds[k_scan] = (b_ms, b_by)
+
+    launches = {k_lin: lin_launches, k_tree: tree_launches,
+                k_scan: split_launches, **large_launches}
+    # the pallas_call of the render kernel, in its linear regime, its
+    # fan-out regimes (radiance_tree_v traced in _kernel, :424, and
+    # _tree_loop_scratch, :509) and its large regimes (the in-kernel table
+    # fold), and the pallas_call of the scan kernel
+    fold = "raytrace_tpu/ops/intersect_inline.py:100"
+    replaces = {k_lin: "raytrace_tpu/render/megakernel.py:773",
+                k_tree: "raytrace_tpu/render/megakernel.py:773",
+                k_lin_large: fold, k_tree_large: fold,
+                k_scan: "raytrace_tpu/ops/intersect_pallas.py:302"}
+    for k in rows:
+        if launches[k] < 1:
+            raise AssertionError(f"{k} was launched no time on its main path")
     print(json.dumps({"kernels": [{
-        "name": k, "route": "cuda", "source": srcs[k],
+        "name": k, "route": "cuda", "source": srcs[k.split(" ")[0]],
         "replaces": replaces[k],
         "launches": launches[k], "max_abs_err": max_err[k],
-        "ms": timing[k][0], "plain_ms": timing[k][1]}
-        for k in megakernel.KERNELS]}))
+        "ms": timing[k][0], "plain_ms": timing[k][1],
+        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+        "library_ms": None}
+        for k in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,12 @@
 // CUDA kernel, one thread per lane.
 //
 // Replaces raytrace_tpu/render/megakernel.py::_kernel (the pallas_call of
-// _radiance_lanes_fwd_kernel) in its small linear regime: at most 64 live
-// objects, at most one child slot per shaded ray (one indirect sample, or
-// the reflect slot of mirror-Phong scenes), float32, solid background.  Per
+// _radiance_lanes_fwd_kernel) in its linear regimes: at most one child slot
+// per shaded ray (one indirect sample, or the reflect slot of mirror-Phong
+// scenes), float32, solid background; at most 64 live objects in the small
+// instances, any number in the large ones, which replace the in-kernel
+// table fold of raytrace_tpu/ops/intersect_inline.py (inline_fold,
+// inline_closest_hit, inline_occluded) under radiance_linear_loop_v.  Per
 // lane it computes the RNG keys, the antialiasing jitter and the camera ray
 // (integrator.primary_rays, both cameras), then up to max_depth + 2 rounds
 // of closest hit (intersect.closest_hit) and shading (materials.shade:
@@ -24,6 +27,16 @@
 // is read once after the loop.  A lane leaves the chain as soon as it dies
 // (miss or no live child), which is exact: a dead lane adds nothing to its
 // radiance and never comes back to life.
+//
+// The large instances stage only the header and the lights.  Closest hit
+// and the shadow queries fold over the unified primitive table in device
+// memory (render_common.cuh, fold_closest and fold_any): 16 bytes per row
+// through the read-only cache, the same row for every thread of a warp, so
+// the table (64 KB at 4,006 objects) stays in L1 and L2 and the bound is
+// still FP32 issue, now times the rows each ray must test.  A thread skips
+// the sphere chunks whose bounding sphere its ray cannot enter before its
+// running best hit; a warp runs a chunk while any of its threads needs it.
+// The winner's 24-float row is one indexed load by object id.
 
 #include "render_common.cuh"
 
@@ -31,26 +44,26 @@ namespace {
 
 using namespace rt;
 
-template <bool LIT>
+template <bool LIT, bool LARGE>
 __global__ void __launch_bounds__(THREADS)
 megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                   const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                  const float* __restrict__ scene, int n_obj, int n_light, int max_depth,
-                  int has_reflect, int has_refract, int n_indirect, int dof, uint32_t seed,
-                  float* __restrict__ out, long long n) {
+                  const float* __restrict__ scene, Tables tb, int n_obj, int n_light,
+                  int max_depth, int has_reflect, int has_refract, int n_indirect, int dof,
+                  uint32_t seed, float* __restrict__ out, long long n) {
   extern __shared__ float s[];
-  stage_scene(scene, s, n_obj, n_light);
+  stage_scene(scene, s, LARGE ? 0 : n_obj, n_light);
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect};
+  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene, tb};
 
-  Node e = primary_ray(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, LIT && dof);
+  Node e = primary_ray<LARGE>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, LIT && dof);
   float accx = 0.0f, accy = 0.0f, accz = 0.0f;
   for (int depth = 0; depth <= max_depth + 1; ++depth) {
     float cx, cy, cz;
     Node next;
     next.live = false;
-    shade_node<LIT>(sc, e, depth, cx, cy, cz,
+    shade_node<LIT, LARGE>(sc, e, depth, cx, cy, cz,
                [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
                    float sig, float wx, float wy, float wz) {
                  next = child_node(e, slot, ox, oy, oz, dx, dy, dz, sig, wx, wy, wz);
@@ -66,19 +79,19 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
   out[2 * n + lane] = accz;
 }
 
-template <bool LIT>
+template <bool LIT, bool LARGE>
 int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const uint32_t* cam,
-           const float* scene, int n_obj, int n_light, int max_depth, int has_reflect,
-           int has_refract, int n_indirect, int dof, uint32_t seed, float* out, long long n,
-           cudaStream_t stream) {
+           const float* scene, const Tables& tb, int n_obj, int n_light, int max_depth,
+           int has_reflect, int has_refract, int n_indirect, int dof, uint32_t seed, float* out,
+           long long n, cudaStream_t stream) {
   const long long blocks = (n + THREADS - 1) / THREADS;
-  const size_t smem = scene_bytes(n_obj, n_light);
-  cudaError_t err = cudaFuncSetAttribute(megakernel_linear<LIT>,
+  const size_t smem = scene_bytes(LARGE ? 0 : n_obj, n_light);
+  cudaError_t err = cudaFuncSetAttribute(megakernel_linear<LIT, LARGE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  megakernel_linear<LIT><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      pix, piy, aa, cam, scene, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect,
-      dof, seed, out, n);
+  megakernel_linear<LIT, LARGE><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      pix, piy, aa, cam, scene, tb, n_obj, n_light, max_depth, has_reflect, has_refract,
+      n_indirect, dof, seed, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -90,14 +103,21 @@ extern "C" {
 // (x, then y, then z).  Returns the launch's cudaError_t.  `dof` is 1
 // for the depth-of-field camera.  Scenes with no light, no reflect or
 // refract slot and a pinhole camera take the instance without their code.
+// n_chunks > 0 selects the large instances: `table`, `ids` and `bounds` are
+// then the scene's unified table (n_chunks * 32 rows, the first
+// n_sph_chunks chunks spheres), and `scene` holds one row per object id.
 int rt_megakernel_linear(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
-                         const uint32_t* cam, const float* scene, int n_obj, int n_light,
-                         int max_depth, int has_reflect, int has_refract, int n_indirect,
-                         int dof, uint32_t seed, float* out, long long n, void* stream) {
+                         const uint32_t* cam, const float* scene, const float* table,
+                         const int* ids, const float* bounds, int n_sph_chunks, int n_chunks,
+                         int n_obj, int n_light, int max_depth, int has_reflect,
+                         int has_refract, int n_indirect, int dof, uint32_t seed, float* out,
+                         long long n, void* stream) {
   const bool lit = n_light > 0 || has_reflect || has_refract || dof;
-  return (lit ? launch<true> : launch<false>)(pix, piy, aa, cam, scene, n_obj, n_light,
-                                              max_depth, has_reflect, has_refract, n_indirect,
-                                              dof, seed, out, n, (cudaStream_t)stream);
+  const Tables tb{(const float4*)table, ids, (const float4*)bounds, n_sph_chunks, n_chunks};
+  const auto fn = n_chunks > 0 ? (lit ? launch<true, true> : launch<false, true>)
+                               : (lit ? launch<true, false> : launch<false, false>);
+  return fn(pix, piy, aa, cam, scene, tb, n_obj, n_light, max_depth, has_reflect, has_refract,
+            n_indirect, dof, seed, out, n, (cudaStream_t)stream);
 }
 
 const char* rt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

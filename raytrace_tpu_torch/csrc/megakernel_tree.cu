@@ -7,8 +7,14 @@
 // larger ones.  Both walk the same nodes with the same RNG streams; this
 // kernel is one form, the preorder walk of
 // raytrace_tpu_torch/render/integrator.py::radiance_tree_loop_v (its plain
-// version), with the same running sum.  Scenes: at most 64 live objects,
-// float32, solid background, any materials, lights and camera.
+// version), with the same running sum.  Scenes: float32, solid background,
+// any materials, lights and camera; at most 64 live objects in the small
+// instances, any number in the large ones (the reference's "large x
+// fan-out" regime: the table fold of raytrace_tpu/ops/intersect_inline.py
+// in the DFS's node body), which answer closest hit and the shadow queries
+// by the folds of render_common.cuh over the scene's tables in device
+// memory, as the linear kernel's large instances do.  The stack, the
+// schedule and the routing are the same in both.
 //
 // Per lane: the primary ray, then a loop that pops a stack entry, runs one
 // node (closest hit, shading with shadow rays, render_common.cuh), adds
@@ -35,24 +41,24 @@ namespace {
 
 using namespace rt;
 
-template <int CAP>
+template <int CAP, bool LARGE>
 __global__ void __launch_bounds__(THREADS)
 megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                 const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                const float* __restrict__ scene, int n_obj, int n_light, int max_depth,
-                int has_reflect, int has_refract, int n_indirect, int dof, int m,
+                const float* __restrict__ scene, Tables tb, int n_obj, int n_light,
+                int max_depth, int has_reflect, int has_refract, int n_indirect, int dof, int m,
                 uint32_t seed, float* __restrict__ out, long long n) {
   extern __shared__ float s[];
-  stage_scene(scene, s, n_obj, n_light);
+  stage_scene(scene, s, LARGE ? 0 : n_obj, n_light);
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect};
+  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene, tb};
   const int levels = max_depth + 2;
   const bool direct = sc.slots() <= m;  // slot j is virtual child j
 
   Node stack[CAP];
   int depth_of[CAP];
-  stack[0] = primary_ray(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, dof);
+  stack[0] = primary_ray<LARGE>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, dof);
   depth_of[0] = 0;
   int sp = 1;
   float accx = 0.0f, accy = 0.0f, accz = 0.0f;
@@ -70,7 +76,7 @@ megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ p
     if (e.live) {
       float cx, cy, cz;
       int routed = 0;
-      shade_node<true>(sc, e, depth, cx, cy, cz,
+      shade_node<true, LARGE>(sc, e, depth, cx, cy, cz,
                  [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
                      float sig, float wx, float wy, float wz) {
                    const int v = direct ? slot : routed++;
@@ -89,19 +95,19 @@ megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ p
   out[2 * n + lane] = accz;
 }
 
-template <int CAP>
+template <int CAP, bool LARGE>
 int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const uint32_t* cam,
-           const float* scene, int n_obj, int n_light, int max_depth, int has_reflect,
-           int has_refract, int n_indirect, int dof, int m, uint32_t seed, float* out,
-           long long n, cudaStream_t stream) {
+           const float* scene, const Tables& tb, int n_obj, int n_light, int max_depth,
+           int has_reflect, int has_refract, int n_indirect, int dof, int m, uint32_t seed,
+           float* out, long long n, cudaStream_t stream) {
   const long long blocks = (n + THREADS - 1) / THREADS;
-  const size_t smem = scene_bytes(n_obj, n_light);
-  cudaError_t err = cudaFuncSetAttribute(megakernel_tree<CAP>,
+  const size_t smem = scene_bytes(LARGE ? 0 : n_obj, n_light);
+  cudaError_t err = cudaFuncSetAttribute(megakernel_tree<CAP, LARGE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  megakernel_tree<CAP><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      pix, piy, aa, cam, scene, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect,
-      dof, m, seed, out, n);
+  megakernel_tree<CAP, LARGE><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      pix, piy, aa, cam, scene, tb, n_obj, n_light, max_depth, has_reflect, has_refract,
+      n_indirect, dof, m, seed, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -113,16 +119,22 @@ extern "C" {
 // (x, then y, then z).  `dof` is 1 for the depth-of-field camera, `m` the
 // virtual children per node.  Returns the launch's cudaError_t, or
 // cudaErrorInvalidValue when the stack 1 + (levels-1)(m-1) exceeds 64
-// entries (render/megakernel.py, MAX_TREE_STACK).
+// entries (render/megakernel.py, MAX_TREE_STACK).  n_chunks > 0 selects the
+// large instances, with `table`, `ids`, `bounds` and `scene` as
+// rt_megakernel_linear takes them.
 int rt_megakernel_tree(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
-                       const uint32_t* cam, const float* scene, int n_obj, int n_light,
-                       int max_depth, int has_reflect, int has_refract, int n_indirect, int dof,
-                       int m, uint32_t seed, float* out, long long n, void* stream) {
+                       const uint32_t* cam, const float* scene, const float* table,
+                       const int* ids, const float* bounds, int n_sph_chunks, int n_chunks,
+                       int n_obj, int n_light, int max_depth, int has_reflect, int has_refract,
+                       int n_indirect, int dof, int m, uint32_t seed, float* out, long long n,
+                       void* stream) {
   const int cap = 1 + (max_depth + 1) * (m - 1);
   const cudaStream_t st = (cudaStream_t)stream;
+  const Tables tb{(const float4*)table, ids, (const float4*)bounds, n_sph_chunks, n_chunks};
 #define RT_LAUNCH(C)                                                                       \
-  return launch<C>(pix, piy, aa, cam, scene, n_obj, n_light, max_depth, has_reflect,      \
-                   has_refract, n_indirect, dof, m, seed, out, n, st)
+  return (n_chunks > 0 ? launch<C, true> : launch<C, false>)(                              \
+      pix, piy, aa, cam, scene, tb, n_obj, n_light, max_depth, has_reflect, has_refract,   \
+      n_indirect, dof, m, seed, out, n, st)
   if (m < 1) return (int)cudaErrorInvalidValue;
   if (cap <= 8) RT_LAUNCH(8);
   if (cap <= 16) RT_LAUNCH(16);

@@ -1,7 +1,10 @@
 // Device code shared by the render kernels (megakernel_linear.cu and
-// megakernel_tree.cu): the scene buffer's layout, the counter-based RNG,
-// the primary ray, closest hit, the shadow any-hit query, light sampling
-// and the shading of one node.  One thread handles one lane.
+// megakernel_tree.cu) and the scan kernel (scan_hit.cu): the scene
+// buffer's layout, the counter-based RNG, the primary ray, closest hit and
+// the shadow any-hit query in their two forms (a loop over the object rows
+// in shared memory for small scenes, a fold over the unified primitive
+// table in device memory for large ones), light sampling and the shading
+// of one node.  One thread handles one lane.
 //
 // The arithmetic follows the plain PyTorch version operation by operation
 // (raytrace_tpu_torch/render/integrator.py, models/materials.py,
@@ -117,33 +120,83 @@ struct Node {
   bool live;
 };
 
-// the scene as staged in shared memory, and the static slot layout
+// ---- the unified primitive table of a large scene, in device memory
+// (raytrace_tpu_torch/ops/intersect.py::_packed_tables): n_chunks chunks of
+// CHUNK rows, the sphere chunks first
+constexpr int CHUNK = 32;
+constexpr int ID_SENTINEL = 0x7FFFFFFF;  // the id of a lane that hit nothing
+struct Tables {
+  const float4* tab;  // sphere row (cx, cy, cz, r), plane row (nx, ny, nz, p.n); pad rows zero
+  const int* ids;     // object id of each row, -1 on pad rows
+  const float4* bnd;  // one bounding sphere (cx, cy, cz, R) per chunk
+  int n_sph_chunks, n_chunks;
+};
+
+// the scene as the kernels see it, and the static slot layout: header and
+// lights staged in shared memory (s); the object rows behind them there
+// too for a small scene, or in device memory (g, indexed by object id)
+// beside the tables for a large one
 struct Scene {
   const float* s;
   int n_obj, n_light, max_depth;
   int has_reflect, has_refract, n_indirect;
+  const float* g;
+  Tables tb;
 
   __device__ __forceinline__ const float* light(int i) const { return s + HDR + LROW * i; }
   __device__ __forceinline__ const float* row(int o) const {
     return s + HDR + LROW * n_light + ROW * o;
   }
+  __device__ __forceinline__ const float* row_by_id(int o) const {
+    return g + HDR + LROW * n_light + ROW * o;
+  }
   __device__ __forceinline__ int slots() const { return has_reflect + has_refract + n_indirect; }
 };
 
-// copies the packed scene into shared memory; every thread of the block calls it
+// copies the packed scene's header, lights and n_rows object rows into
+// shared memory; every thread of the block calls it
 __device__ __forceinline__ void stage_scene(const float* __restrict__ scene, float* s,
-                                            int n_obj, int n_light) {
-  const int n = HDR + LROW * n_light + ROW * n_obj;
+                                            int n_rows, int n_light) {
+  const int n = HDR + LROW * n_light + ROW * n_rows;
   for (int j = threadIdx.x; j < n; j += blockDim.x) s[j] = scene[j];
   __syncthreads();
 }
 
-__host__ __forceinline__ size_t scene_bytes(int n_obj, int n_light) {
-  return sizeof(float) * (HDR + LROW * (size_t)n_light + ROW * (size_t)n_obj);
+__host__ __forceinline__ size_t scene_bytes(int n_rows, int n_light) {
+  return sizeof(float) * (HDR + LROW * (size_t)n_light + ROW * (size_t)n_rows);
+}
+
+// ---- arithmetic with or without contraction.  RN rounds every product
+// and sum on its own, as the plain version does; without it the compiler
+// contracts them into fused multiply-adds.  The large instances take RN
+// wherever a ray's origin, direction or hit distance is made: a large field
+// spans tens of units, where the 1e-5 offset of a secondary ray is a few
+// float32 steps, so one rounding decides whether that ray hits the surface
+// it left, and the path forks.
+template <bool RN>
+__device__ __forceinline__ float mul_(float x, float y) {
+  if constexpr (RN) return __fmul_rn(x, y);
+  else return x * y;
+}
+template <bool RN>
+__device__ __forceinline__ float add_(float x, float y) {
+  if constexpr (RN) return __fadd_rn(x, y);
+  else return x + y;
+}
+template <bool RN>
+__device__ __forceinline__ float sub_(float x, float y) {
+  if constexpr (RN) return __fsub_rn(x, y);
+  else return x - y;
+}
+template <bool RN>
+__device__ __forceinline__ float dot_(float ax, float ay, float az, float bx, float by,
+                                      float bz) {
+  return add_<RN>(add_<RN>(mul_<RN>(ax, bx), mul_<RN>(ay, by)), mul_<RN>(az, bz));
 }
 
 // ---- primary ray (integrator.primary_rays, cameras.project); `dof` for
 // the depth-of-field camera
+template <bool RN>
 __device__ __forceinline__ Node primary_ray(const float* s, uint32_t px, uint32_t py,
                                             uint32_t a_id, uint32_t c_id, uint32_t seed,
                                             bool dof) {
@@ -159,25 +212,26 @@ __device__ __forceinline__ Node primary_ray(const float* s, uint32_t px, uint32_
   make_keys(seed, w4, e.k1, e.k2);
 
   const float* m = s + H_CAM_M;
-  float dx = m[0] * pos_x + m[1] * pos_y + m[2];
-  float dy = m[3] * pos_x + m[4] * pos_y + m[5];
-  float dz = m[6] * pos_x + m[7] * pos_y + m[8];
+  float dx = add_<RN>(add_<RN>(mul_<RN>(m[0], pos_x), mul_<RN>(m[1], pos_y)), m[2]);
+  float dy = add_<RN>(add_<RN>(mul_<RN>(m[3], pos_x), mul_<RN>(m[4], pos_y)), m[5]);
+  float dz = add_<RN>(add_<RN>(mul_<RN>(m[6], pos_x), mul_<RN>(m[7], pos_y)), m[8]);
   float ox = s[H_CAM_POS], oy = s[H_CAM_POS + 1], oz = s[H_CAM_POS + 2];
   if (dof) {
     // camera.rs:110-121: d un-normalized, lens point uniform on a disc
     const float fr = s[H_FOCUS] / s[H_IM_DIST];
-    const float fx = ox + dx * fr, fy = oy + dy * fr, fz = oz + dz * fr;
+    const float fx = add_<RN>(ox, mul_<RN>(dx, fr)), fy = add_<RN>(oy, mul_<RN>(dy, fr)),
+                fz = add_<RN>(oz, mul_<RN>(dz, fr));
     const float theta = draw(e.k1, e.k2, PURPOSE_LENS_THETA) * TWO_PI;
     const float r = sqrtf(draw(e.k1, e.k2, PURPOSE_LENS_R)) * s[H_APERTURE];
     const float lx = cosf(theta) * r, ly = sinf(theta) * r;
-    ox = (ox + dx) + (m[0] * lx + m[1] * ly + m[2] * 0.0f);
-    oy = (oy + dy) + (m[3] * lx + m[4] * ly + m[5] * 0.0f);
-    oz = (oz + dz) + (m[6] * lx + m[7] * ly + m[8] * 0.0f);
+    ox = (ox + dx) + dot_<RN>(m[0], m[1], m[2], lx, ly, 0.0f);
+    oy = (oy + dy) + dot_<RN>(m[3], m[4], m[5], lx, ly, 0.0f);
+    oz = (oz + dz) + dot_<RN>(m[6], m[7], m[8], lx, ly, 0.0f);
     dx = fx - ox;
     dy = fy - oy;
     dz = fz - oz;
   }
-  const float dinv = rsqrtf(dx * dx + dy * dy + dz * dz);
+  const float dinv = rsqrtf(dot_<RN>(dx, dy, dz, dx, dy, dz));
   e.ox = ox;
   e.oy = oy;
   e.oz = oz;
@@ -190,30 +244,48 @@ __device__ __forceinline__ Node primary_ray(const float* s, uint32_t px, uint32_
   return e;
 }
 
-// ---- intersection (ops/intersect.py::_object_t): t and validity of one object
-__device__ __forceinline__ bool object_t(const float* r, float ox, float oy, float oz,
-                                         float dx, float dy, float dz, float a, float inv2a,
-                                         float& t) {
-  if (r[R_SPH] > 0.5f) {
-    const float ocx = ox - r[R_P], ocy = oy - r[R_P + 1], ocz = oz - r[R_P + 2];
-    const float b = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
-    const float rad = r[R_Q];
-    const float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - rad * rad;
-    const float disc = b * b - 4.0f * a * cc;
-    const bool has = disc > 0.0f;
-    const float sq = sqrtf(has ? disc : 1.0f);
-    const float t1 = (-b - sq) * inv2a;
-    const float t2 = (-b + sq) * inv2a;
-    t = t1 > 0.0f ? t1 : t2;
-    return has && t > 0.0f;
-  }
-  const float qx = r[R_Q], qy = r[R_Q + 1], qz = r[R_Q + 2];
-  const float p_dot_n = r[R_P] * qx + r[R_P + 1] * qy + r[R_P + 2] * qz;
-  const float denom = dx * qx + dy * qy + dz * qz;
-  const float numer = p_dot_n - (ox * qx + oy * qy + oz * qz);
+// ---- intersection (ops/intersect.py::_object_t): t and validity of one
+// sphere (center, radius), of one plane (normal, p.n), of one object row.
+// The folds over a large scene's table take RN (above): seen from tens of
+// units away a unit sphere's discriminant cancels, a contracted b*b - 4ac
+// then moves t by 1e-5 relative and the normal by 1e-4, and every later
+// bounce with it.
+template <bool RN>
+__device__ __forceinline__ bool sphere_t(float cx, float cy, float cz, float rad, float ox,
+                                         float oy, float oz, float dx, float dy, float dz,
+                                         float a, float inv2a, float& t) {
+  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  const float b = mul_<RN>(2.0f, dot_<RN>(dx, dy, dz, ocx, ocy, ocz));
+  const float cc = sub_<RN>(dot_<RN>(ocx, ocy, ocz, ocx, ocy, ocz), mul_<RN>(rad, rad));
+  const float disc = sub_<RN>(mul_<RN>(b, b), mul_<RN>(mul_<RN>(4.0f, a), cc));
+  const bool has = disc > 0.0f;
+  const float sq = sqrtf(has ? disc : 1.0f);
+  const float t1 = (-b - sq) * inv2a;
+  const float t2 = (-b + sq) * inv2a;
+  t = t1 > 0.0f ? t1 : t2;
+  return has && t > 0.0f;
+}
+
+template <bool RN>
+__device__ __forceinline__ bool plane_t(float qx, float qy, float qz, float p_dot_n, float ox,
+                                        float oy, float oz, float dx, float dy, float dz,
+                                        float& t) {
+  const float denom = dot_<RN>(dx, dy, dz, qx, qy, qz);
+  const float numer = sub_<RN>(p_dot_n, dot_<RN>(ox, oy, oz, qx, qy, qz));
   const bool ok = denom != 0.0f;
   t = numer / (ok ? denom : 1.0f);
   return ok && t > 0.0f;
+}
+
+__device__ __forceinline__ bool object_t(const float* r, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float a, float inv2a,
+                                         float& t) {
+  if (r[R_SPH] > 0.5f)
+    return sphere_t<false>(r[R_P], r[R_P + 1], r[R_P + 2], r[R_Q], ox, oy, oz, dx, dy, dz, a,
+                           inv2a, t);
+  const float qx = r[R_Q], qy = r[R_Q + 1], qz = r[R_Q + 2];
+  const float p_dot_n = r[R_P] * qx + r[R_P + 1] * qy + r[R_P + 2] * qz;
+  return plane_t<false>(qx, qy, qz, p_dot_n, ox, oy, oz, dx, dy, dz, t);
 }
 
 __device__ __forceinline__ float safe_inv2a(float a) { return 0.5f / (a > 0.0f ? a : 1.0f); }
@@ -257,6 +329,99 @@ __device__ __forceinline__ bool occluded(const Scene& sc, float ox, float oy, fl
   return false;
 }
 
+// ---- the same two queries over the unified table of a large scene
+// (ops/intersect_scan.py::scan_hit_reference).  Every thread of a warp reads
+// the same row, so a load through the read-only cache is a broadcast.
+
+// Whether a sphere chunk may hold a hit in front of the ray's origin and not
+// beyond t_limit: the ray enters the chunk's bounding sphere in that range.
+// A thread skips the chunks that fail, which changes no result: a hit of a
+// member sphere implies an earlier entry into the bound.  The three tests
+// take slack relative to the quantities that carry the rounding error of
+// b*b - 4ac, which keeps a far grazing ray from skipping a real hit.
+__device__ __forceinline__ bool chunk_may(const float4 bs, float ox, float oy, float oz,
+                                          float dx, float dy, float dz, float a, float inv2a,
+                                          float t_limit) {
+  const float ocx = ox - bs.x, ocy = oy - bs.y, ocz = oz - bs.z;
+  const float b = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
+  const float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - bs.w * bs.w;
+  const float disc = b * b - 4.0f * a * cc;
+  const bool pos = disc > -1e-5f * (b * b);
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float margin = 1e-5f * fabsf(b) * inv2a + 1e-4f;
+  return pos && (-b + sq) * inv2a > -margin && (-b - sq) * inv2a <= t_limit + margin;
+}
+
+// closest hit: the minimum of (t, object id) over the valid rows, so an
+// exact tie goes to the first object in scene order whatever the order of
+// the table; gid is ID_SENTINEL on a miss.  r > 0 masks the sphere pad
+// rows, a zero normal the plane pad rows.
+__device__ __forceinline__ bool fold_closest(const Tables& tb, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float& t_best,
+                                             int& gid) {
+  const float a = dot_<true>(dx, dy, dz, dx, dy, dz);
+  const float inv2a = safe_inv2a(a);
+  t_best = INFINITY;
+  gid = ID_SENTINEL;
+  for (int c = 0; c < tb.n_sph_chunks; ++c) {
+    if (!chunk_may(__ldg(tb.bnd + c), ox, oy, oz, dx, dy, dz, a, inv2a, t_best)) continue;
+    for (int row = c * CHUNK; row < (c + 1) * CHUNK; ++row) {
+      const float4 r = __ldg(tb.tab + row);
+      float t;
+      if (sphere_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, a, inv2a, t) && r.w > 0.0f
+          && t <= t_best) {
+        const int g = __ldg(tb.ids + row);
+        if (t < t_best || g < gid) {
+          t_best = t;
+          gid = g;
+        }
+      }
+    }
+  }
+  for (int row = tb.n_sph_chunks * CHUNK; row < tb.n_chunks * CHUNK; ++row) {
+    const float4 r = __ldg(tb.tab + row);
+    float t;
+    if (plane_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, t) && t <= t_best) {
+      const int g = __ldg(tb.ids + row);
+      if (t < t_best || g < gid) {
+        t_best = t;
+        gid = g;
+      }
+    }
+  }
+  return gid != ID_SENTINEL;
+}
+
+// any hit, within range when the light has one (t*t < sq_range,
+// uncontracted): in range iff the closest hit is, so the first one found
+// answers.  With a range, sphere chunks entered only beyond it are skipped
+// (t*t < sq_range implies t < 1.00001 * sqrt(sq_range) in float32).
+__device__ __forceinline__ bool fold_any(const Tables& tb, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float sq_range,
+                                         bool has_range) {
+  const float a = dot_<true>(dx, dy, dz, dx, dy, dz);
+  const float inv2a = safe_inv2a(a);
+  const float t_limit = has_range ? sqrtf(sq_range) * 1.00001f : INFINITY;
+  for (int c = 0; c < tb.n_sph_chunks; ++c) {
+    if (!chunk_may(__ldg(tb.bnd + c), ox, oy, oz, dx, dy, dz, a, inv2a, t_limit)) continue;
+    for (int row = c * CHUNK; row < (c + 1) * CHUNK; ++row) {
+      const float4 r = __ldg(tb.tab + row);
+      float t;
+      if (sphere_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, a, inv2a, t) && r.w > 0.0f
+          && (!has_range || __fmul_rn(t, t) < sq_range))
+        return true;
+    }
+  }
+  for (int row = tb.n_sph_chunks * CHUNK; row < tb.n_chunks * CHUNK; ++row) {
+    const float4 r = __ldg(tb.tab + row);
+    float t;
+    if (plane_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, t)
+        && (!has_range || __fmul_rn(t, t) < sq_range))
+      return true;
+  }
+  return false;
+}
+
 // ---- shading of one node (integrator.tree_loop_node without the routing):
 // closest hit, local radiance times throughput into (cx, cy, cz), and
 // emit(slot, child) for every live child slot in slot order (reflect,
@@ -269,18 +434,30 @@ __device__ __forceinline__ bool occluded(const Scene& sc, float ox, float oy, fl
 // specular light and the reflect child, the only children, indirect ones,
 // keep their parent's significance, which starts at 1, and a linear scene
 // has at most one slot.  It keeps the IndirectPhong-only chain short.
-template <bool LIT, class Emit>
+// LARGE answers closest hit and the shadow queries by the folds over the
+// scene's tables and reads the winner's row from device memory by object
+// id; the small instances keep the loops over shared memory.
+template <bool LIT, bool LARGE, class Emit>
 __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int depth,
                                            float& cx, float& cy, float& cz, Emit&& emit) {
   float t_best;
   int best;
-  if (!closest_hit(sc, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best)) {
+  bool hit;
+  if constexpr (LARGE)
+    hit = fold_closest(sc.tb, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
+  else
+    hit = closest_hit(sc, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
+  if (!hit) {
     cx = e.tx * sc.s[H_BG];  // background; a miss spawns nothing
     cy = e.ty * sc.s[H_BG + 1];
     cz = e.tz * sc.s[H_BG + 2];
     return;
   }
-  const float* r = sc.row(best);  // the one load of the winner's row
+  const float* r;  // the one load of the winner's row
+  if constexpr (LARGE)
+    r = sc.row_by_id(best);
+  else
+    r = sc.row(best);
   if (depth > sc.max_depth) {  // ambient only, no recursion (raytrace.rs:33)
     cx = e.tx * r[R_AMB];
     cy = e.ty * r[R_AMB + 1];
@@ -289,10 +466,14 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
   }
   const float sig = LIT ? e.sig : 1.0f;
 
-  // hit record: point, normal, snap onto the surface
-  float ptx = e.ox + e.dx * t_best, pty = e.oy + e.dy * t_best, ptz = e.oz + e.dz * t_best;
+  // hit record: point, normal, snap onto the surface; RN in the large
+  // instances, like the origins of the shadow and child rays
+  constexpr bool RN = LARGE;
+  float ptx = add_<RN>(e.ox, mul_<RN>(e.dx, t_best));
+  float pty = add_<RN>(e.oy, mul_<RN>(e.dy, t_best));
+  float ptz = add_<RN>(e.oz, mul_<RN>(e.dz, t_best));
   const float relx = ptx - r[R_P], rely = pty - r[R_P + 1], relz = ptz - r[R_P + 2];
-  const float nrm2 = relx * relx + rely * rely + relz * relz;
+  const float nrm2 = dot_<RN>(relx, rely, relz, relx, rely, relz);
   const float inv = rsqrtf(nrm2 > 0.0f ? nrm2 : 1.0f);
   float nx, ny, nz;
   if (r[R_SPH] > 0.5f) {
@@ -300,25 +481,27 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     ny = rely * inv;
     nz = relz * inv;
     const float k = r[R_Q] * inv;
-    ptx = (ptx - relx) + relx * k;
-    pty = (pty - rely) + rely * k;
-    ptz = (ptz - relz) + relz * k;
+    ptx = add_<RN>(ptx - relx, mul_<RN>(relx, k));
+    pty = add_<RN>(pty - rely, mul_<RN>(rely, k));
+    ptz = add_<RN>(ptz - relz, mul_<RN>(relz, k));
   } else {
     nx = r[R_Q];
     ny = r[R_Q + 1];
     nz = r[R_Q + 2];
-    const float nn = nx * nx + ny * ny + nz * nz;
-    const float dist = ((ptx * nx + pty * ny + ptz * nz)
-                        - (r[R_P] * nx + r[R_P + 1] * ny + r[R_P + 2] * nz))
+    const float nn = dot_<RN>(nx, ny, nz, nx, ny, nz);
+    const float dist = sub_<RN>(dot_<RN>(ptx, pty, ptz, nx, ny, nz),
+                                dot_<RN>(r[R_P], r[R_P + 1], r[R_P + 2], nx, ny, nz))
                        / (nn > 0.0f ? nn : 1.0f);
     const float sc_ = nn > 0.0f ? dist : 0.0f;
-    ptx = ptx - nx * sc_;
-    pty = pty - ny * sc_;
-    ptz = ptz - nz * sc_;
+    ptx = sub_<RN>(ptx, mul_<RN>(nx, sc_));
+    pty = sub_<RN>(pty, mul_<RN>(ny, sc_));
+    ptz = sub_<RN>(ptz, mul_<RN>(nz, sc_));
   }
+  // the origin of a secondary ray: the hit point moved 1e-5 along the ray
+  const auto off = [](float p, float d) { return add_<RN>(p, mul_<RN>(d, OFFSET)); };
 
   // the normal flipped toward the viewer
-  const float nd = nx * e.dx + ny * e.dy + nz * e.dz;
+  const float nd = dot_<RN>(nx, ny, nz, e.dx, e.dy, e.dz);
   const float nfx = nd > 0.0f ? -nx : nx;
   const float nfy = nd > 0.0f ? -ny : ny;
   const float nfz = nd > 0.0f ? -nz : nz;
@@ -340,10 +523,10 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     refract_ok = sin2 < 1.0f && ior != 0.0f;
     const float cos_t = refract_ok ? sqrtf(fmaxf(1.0f - sin2, 0.0f)) : 0.0f;
     const float n_r = refract_ok ? n_ratio : 0.0f;
-    const float anr = n_r * fabsf(nd) + cos_t;
-    rfx = e.dx * n_r - nfx * anr;
-    rfy = e.dy * n_r - nfy * anr;
-    rfz = e.dz * n_r - nfz * anr;
+    const float anr = add_<RN>(mul_<RN>(n_r, fabsf(nd)), cos_t);
+    rfx = sub_<RN>(mul_<RN>(e.dx, n_r), mul_<RN>(nfx, anr));
+    rfy = sub_<RN>(mul_<RN>(e.dy, n_r), mul_<RN>(nfy, anr));
+    rfz = sub_<RN>(mul_<RN>(e.dz, n_r), mul_<RN>(nfz, anr));
     const float omcos_transp =
         nd > 0.0f ? (refract_ok ? 1.0f - (nfx * rfx + nfy * rfy + nfz * rfz) : 0.0f)
                   : 1.0f - fabsf(nd);
@@ -388,9 +571,13 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
       ly = ry * il;
       lz = rz * il;
     }
-    if (occluded(sc, ptx + lx * OFFSET, pty + ly * OFFSET, ptz + lz * OFFSET, lx, ly, lz, sq,
-                 has_range))
-      continue;
+    const float sx = off(ptx, lx), sy = off(pty, ly), sz = off(ptz, lz);
+    bool blocked;
+    if constexpr (LARGE)
+      blocked = fold_any(sc.tb, sx, sy, sz, lx, ly, lz, sq, has_range);
+    else
+      blocked = occluded(sc, sx, sy, sz, lx, ly, lz, sq, has_range);
+    if (blocked) continue;
     const float* lc = L + L_COLOR;
     if (diffuse_gate) {
       const float lam = fmaxf(lx * nfx + ly * nfy + lz * nfz, 0.0f) * INV_PI;
@@ -418,9 +605,10 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
   int slot = 0;
   if (LIT && sc.has_reflect) {
     if (spec_gate && !is_ind) {
-      const float rdn = 2.0f * (e.dx * nfx + e.dy * nfy + e.dz * nfz);
-      const float rx = e.dx - nfx * rdn, ry = e.dy - nfy * rdn, rz = e.dz - nfz * rdn;
-      emit(slot, ptx + rx * OFFSET, pty + ry * OFFSET, ptz + rz * OFFSET, rx, ry, rz,
+      const float rdn = mul_<RN>(2.0f, dot_<RN>(e.dx, e.dy, e.dz, nfx, nfy, nfz));
+      const float rx = sub_<RN>(e.dx, mul_<RN>(nfx, rdn)), ry = sub_<RN>(e.dy, mul_<RN>(nfy, rdn)),
+                  rz = sub_<RN>(e.dz, mul_<RN>(nfz, rdn));
+      emit(slot, off(ptx, rx), off(pty, ry), off(ptz, rz), rx, ry, rz,
            sig * spec_sig * fres, r[R_SPEC] * fres, r[R_SPEC + 1] * fres, r[R_SPEC + 2] * fres);
     }
     ++slot;
@@ -428,10 +616,10 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
   if (LIT && sc.has_refract) {
     if (is_tra && fres < 1.0f && refract_ok) {
       const float omf = fminf(1.0f - fres, 1.0f);
-      const float n2 = rfx * rfx + rfy * rfy + rfz * rfz;
+      const float n2 = dot_<RN>(rfx, rfy, rfz, rfx, rfy, rfz);
       const float ri = n2 > 0.0f ? rsqrtf(n2) : 0.0f;
       const float rx = rfx * ri, ry = rfy * ri, rz = rfz * ri;
-      emit(slot, ptx + rx * OFFSET, pty + ry * OFFSET, ptz + rz * OFFSET, rx, ry, rz,
+      emit(slot, off(ptx, rx), off(pty, ry), off(ptz, rz), rx, ry, rz,
            omf * sig, omf, omf, omf);
     }
     ++slot;
@@ -442,16 +630,16 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
       if ((float)k < msamples) {
         const float r1 = draw(e.k1, e.k2, PURPOSE_INDIRECT_R1 + 2u * k) * 2.0f - 1.0f;
         const float phi = draw(e.k1, e.k2, PURPOSE_INDIRECT_R2 + 2u * k) * TWO_PI;
-        const float sw = 1.0f - r1 * r1;
+        const float sw = sub_<RN>(1.0f, mul_<RN>(r1, r1));
         float ddx = sw * cosf(phi), ddy = r1, ddz = sw * sinf(phi);
-        if (!(ddx * nfx + ddy * nfy + ddz * nfz >= 0.0f)) {
+        if (!(dot_<RN>(ddx, ddy, ddz, nfx, nfy, nfz) >= 0.0f)) {
           ddx = -ddx;
           ddy = -ddy;
           ddz = -ddz;
         }
         const float fac = msamples * 0.5f;
         const float w = (nfx * ddx + nfy * ddy + nfz * ddz) / (fac > 0.0f ? fac : 1.0f);
-        emit(slot + k, ptx + ddx * OFFSET, pty + ddy * OFFSET, ptz + ddz * OFFSET, ddx, ddy, ddz,
+        emit(slot + k, off(ptx, ddx), off(pty, ddy), off(ptz, ddz), ddx, ddy, ddz,
              sig, r[R_DIFF] * w, r[R_DIFF + 1] * w, r[R_DIFF + 2] * w);
       }
     }

@@ -25,6 +25,17 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the kernels: one ``csrc/<name>.cu`` each
+KERNEL_LINEAR = "megakernel_linear"
+KERNEL_TREE = "megakernel_tree"
+KERNEL_SCAN = "scan_hit"
+KERNELS = (KERNEL_LINEAR, KERNEL_TREE, KERNEL_SCAN)
+
+# kernel launches in this process, per kernel: a wrapper adds one where
+# it launches its kernel and nowhere else (chip_smoke.py resets and reads
+# them to show that a run went through the kernels)
+LAUNCHES = {k: 0 for k in KERNELS}
+
 # one lock per kernel, so that kernels build in parallel threads
 _locks_lock = threading.Lock()
 _locks: dict[str, threading.Lock] = {}

@@ -1,11 +1,15 @@
 """Batched closest-hit and shadow queries (shapes.rs:43-112,
 scene.rs:244-250, raytrace.rs:43-50).
 
-PyTorch counterpart of the small-scene regime of
-:mod:`raytrace_tpu.ops.intersect`: a running minimum over the (at most
-``LARGE_SCENE_THRESHOLD``) live objects in scene order, then one indexed
-load of the winner's row from the per-object table; shadow rays ask
-only whether any object is hit in range.
+PyTorch counterpart of :mod:`raytrace_tpu.ops.intersect`, in its two
+regimes.  Up to ``LARGE_SCENE_THRESHOLD`` live objects: a running
+minimum over the objects in scene order.  Above it: a scan of the
+unified primitive table (:func:`_packed_tables`; spheres, then planes,
+in chunks of 32 rows), by the plain PyTorch scan or, when the caller
+asks for it, by the CUDA scan kernel
+(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  Either way the winner's
+row is one indexed load from the per-object table; shadow rays ask only
+whether any object is hit in range.
 
 Semantics kept exactly:
 
@@ -13,26 +17,29 @@ Semantics kept exactly:
   root; unit outward normal;
 * plane: ``t = n.(p0 - o) / n.d``, ``t <= 0`` and ``n.d == 0`` rejected;
   the normal is the stored one, raw;
-* closest hit: strict ``<``, so the first minimum in scene order wins;
-* miss lanes: ``obj = 0`` and the first live object's row;
+* closest hit: the first minimum in scene order wins (strict ``<`` in
+  the small regime, the lower object id on an exact tie in the scan);
+* miss lanes: ``obj = 0``, and the first live object's row in the small
+  regime, object 0's row and ``ior = 1`` in the large one;
 * hit points are snapped onto the analytic surface.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from raytrace_tpu_torch.ops import vec
+from raytrace_tpu_torch.ops import intersect_scan, vec
 from raytrace_tpu_torch.ops.vec import V3, dot
 from raytrace_tpu_torch.scene.schema import (
-    MAT_FRESNEL, MAT_INDIRECT_PHONG, MAT_TRANSPARENT, SHAPE_SPHERE,
-    SceneData, SceneSpec)
+    MAT_FRESNEL, MAT_INDIRECT_PHONG, MAT_TRANSPARENT, SHAPE_PLANE,
+    SHAPE_SPHERE, SceneData, SceneSpec)
 
-# above this many live objects the JAX package scans object chunks
-# (ROADMAP item 10); the port has only the small regime
+# above this many live objects the per-object loop gives way to the scan
+# of the unified table, so that the work per object stays a table row
 LARGE_SCENE_THRESHOLD = 64
 
 # columns of object_table() (the JAX package's packed_object_table layout)
@@ -122,13 +129,142 @@ def _snapped_point(pt: V3, rel: V3, inv, is_sph, radius, nrm: V3,
     return vec.where(is_sph, sph, pln)
 
 
-def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3) -> HitRec:
-    """Closest-hit query plus the winner's material row (scene.rs:247-249)."""
+def hitrec_from_cols(col, t_best, obj, hit, ro: V3, rd: V3) -> HitRec:
+    """The hit record of the winner's row: normal, snapped hit point and
+    material fields.  ``col(j)`` is column ``j`` of the lanes' rows, in
+    the layout of :func:`object_table`."""
+    def col3(j):
+        return V3(col(j), col(j + 1), col(j + 2))
+
+    t_safe = torch.where(hit, t_best, 0.0)
+    pt = ro + rd.scale(t_safe)
+    rel = pt - col3(COL_P)
+    nrm2 = dot(rel, rel)
+    inv = torch.rsqrt(torch.where(nrm2 > 0, nrm2, 1.0))
+    is_sph = col(COL_SPHERE) > 0.5
+    q = col3(COL_Q)
+    normal = vec.where(is_sph, rel.scale(inv), q)
+    pt = _snapped_point(pt, rel, inv, is_sph, q.x, q, col3(COL_P))
+    return HitRec(
+        t=t_best, hit=hit, obj=obj, normal=normal, pt=pt,
+        diffuse=col3(COL_DIFFUSE), specular=col3(COL_SPECULAR),
+        ambient=col3(COL_AMBIENT), exponent=col(COL_EXPONENT),
+        ior=col(COL_IOR), msamples=col(COL_SAMPLES),
+        is_fresnel=col(COL_FRESNEL) > 0.5, is_transp=col(COL_TRANSP) > 0.5,
+        is_indirect=col(COL_INDIRECT) > 0.5)
+
+
+def _typed_geometry(spec: SceneSpec):
+    """Static type partition: (sphere indices, plane indices)."""
+    st = np.asarray(spec.shape_type)
+    return np.nonzero(st == SHAPE_SPHERE)[0], np.nonzero(st == SHAPE_PLANE)[0]
+
+
+def _packed_tables(data: SceneData, spec: SceneSpec):
+    """The unified primitive table the scan reads: spheres ``(cx, cy, cz,
+    r)`` first, then planes ``(n, p.n)``, each partition zero-padded to a
+    multiple of ``intersect_scan.OBJ_CHUNK`` rows (an empty partition
+    still takes one chunk); pad rows carry id -1.  Returns ``(table,
+    n_sph_pad, ids)`` with ``ids`` the int32 object index of each row."""
+    sph, pln = _typed_geometry(spec)
+    ck = intersect_scan.OBJ_CHUNK
+
+    def pad(rows, ids):
+        extra = (-len(ids)) % ck if len(ids) else ck
+        rows = torch.cat([rows, rows.new_zeros((extra, 4))])
+        return rows, np.concatenate([ids.astype(np.int32),
+                                     np.full(extra, -1, np.int32)])
+
+    sph_rows, sph_ids = pad(
+        torch.cat([data.prim_p[sph], data.prim_q[sph, 0:1]], dim=1), sph)
+    pn = torch.sum(data.prim_p[pln] * data.prim_q[pln], dim=1, keepdim=True)
+    pln_rows, pln_ids = pad(torch.cat([data.prim_q[pln], pn], dim=1), pln)
+    ids = torch.from_numpy(np.concatenate([sph_ids, pln_ids]))
+    return (torch.cat([sph_rows, pln_rows]), sph_rows.shape[0],
+            ids.to(data.device))
+
+
+class SceneTables(NamedTuple):
+    """What the large regime reads, on the scene's device."""
+
+    table: torch.Tensor    # (C*32, 4) unified primitive table
+    ids: torch.Tensor      # (C*32,) int32 object index per row, -1 pad
+    n_sph_pad: int         # rows of the sphere partition
+    bounds: torch.Tensor   # (C, 4) float32 chunk bounding spheres
+    rows: torch.Tensor     # (O, 22) object_table
+
+
+def per_scene_cache(fn):
+    """Keep the last result of ``fn(data, spec)``: reused while the same
+    scene tensors, unmodified (by their version counters), come with an
+    equal spec, as they do in every launch of one render.  Scenes that
+    require grad are computed anew each time."""
+    last = None
+
+    def cached(data: SceneData, spec: SceneSpec):
+        nonlocal last
+        leaves = tuple(getattr(data, f.name) for f in dataclasses.fields(data))
+        if any(t.requires_grad for t in leaves):
+            return fn(data, spec)
+        versions = tuple(t._version for t in leaves)
+        if (last is not None and all(a is b for a, b in zip(last[0], leaves))
+                and last[1] == versions and last[2] == spec):
+            return last[3]
+        out = fn(data, spec)
+        last = (leaves, versions, spec, out)
+        return out
+
+    cached.__doc__ = fn.__doc__
+    return cached
+
+
+@per_scene_cache
+def scene_tables(data: SceneData, spec: SceneSpec) -> SceneTables:
+    """The large regime's tables of a scene (cached per scene)."""
+    table, n_sph_pad, ids = _packed_tables(data, spec)
+    n_chunks = table.shape[0] // intersect_scan.OBJ_CHUNK
+    bounds = intersect_scan._chunk_bounds(table, n_sph_pad, n_chunks)
+    return SceneTables(table, ids, n_sph_pad, bounds,
+                       object_table(data, spec))
+
+
+def _scan_all_objects(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
+                      scan_kernel: bool):
+    """``(t_best, obj, hit)`` over all objects of a large scene, for lanes
+    of any shape (the scan sees them flat): the plain scan, or with
+    ``scan_kernel`` the wrapper of the CUDA scan kernel (which on CPU
+    tensors is the plain scan too).  Miss lanes carry ``obj = 0``."""
+    tb = scene_tables(data, spec)
+    shape = ro.x.shape
+    ro, rd = (V3(*(c.reshape(-1) for c in v)) for v in (ro, rd))
+    if scan_kernel:
+        t_best, gid, hit = intersect_scan.scan_hit(
+            tb.table, tb.ids, tb.n_sph_pad, ro, rd, tb.bounds)
+    else:
+        t_best, gid, hit = intersect_scan.scan_hit_reference(
+            tb.table, tb.ids, tb.n_sph_pad, ro, rd)
+    obj = torch.where(hit, gid, 0).to(torch.int64)
+    return t_best.reshape(shape), obj.reshape(shape), hit.reshape(shape)
+
+
+def _closest_hit_scanned(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
+                         scan_kernel: bool = False) -> HitRec:
+    """Large-scene closest hit: the scan, then one indexed load of the
+    winner's row (object 0's on a miss, with a finite ``ior`` of 1)."""
+    t_best, obj, hit = _scan_all_objects(data, spec, ro, rd, scan_kernel)
+    rows = scene_tables(data, spec).rows[obj]
+    rec = hitrec_from_cols(lambda j: rows[..., j], t_best, obj, hit, ro, rd)
+    return rec._replace(ior=torch.where(hit, rec.ior, 1.0))
+
+
+def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
+                scan_kernel: bool = False) -> HitRec:
+    """Closest-hit query plus the winner's material row (scene.rs:247-249).
+    ``scan_kernel`` sends a large scene's scan through
+    :func:`intersect_scan.scan_hit`; small scenes ignore it."""
     live = spec.live_objects()
     if len(live) > LARGE_SCENE_THRESHOLD:
-        raise NotImplementedError(
-            f"scenes with more than {LARGE_SCENE_THRESHOLD} objects are not "
-            f"ported yet (ROADMAP item 10)")
+        return _closest_hit_scanned(data, spec, ro, rd, scan_kernel)
     like = ro.x
     t_best = torch.full_like(like, float("inf"))
     hit = torch.zeros(like.shape, dtype=torch.bool, device=like.device)
@@ -154,41 +290,19 @@ def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3) -> HitRec:
         obj = torch.where(better, i, obj)
         row = torch.where(better, i, row)
     rows = object_table(data, spec)[row]
-
-    def col(j):
-        return rows[..., j]
-
-    def col3(j):
-        return V3(col(j), col(j + 1), col(j + 2))
-
-    t_safe = torch.where(hit, t_best, 0.0)
-    pt = ro + rd.scale(t_safe)
-    rel = pt - col3(COL_P)
-    nrm2 = dot(rel, rel)
-    inv = torch.rsqrt(torch.where(nrm2 > 0, nrm2, 1.0))
-    is_sph = col(COL_SPHERE) > 0.5
-    q = col3(COL_Q)
-    normal = vec.where(is_sph, rel.scale(inv), q)
-    pt = _snapped_point(pt, rel, inv, is_sph, q.x, q, col3(COL_P))
-    return HitRec(
-        t=t_best, hit=hit, obj=obj, normal=normal, pt=pt,
-        diffuse=col3(COL_DIFFUSE), specular=col3(COL_SPECULAR),
-        ambient=col3(COL_AMBIENT), exponent=col(COL_EXPONENT),
-        ior=col(COL_IOR), msamples=col(COL_SAMPLES),
-        is_fresnel=col(COL_FRESNEL) > 0.5, is_transp=col(COL_TRANSP) > 0.5,
-        is_indirect=col(COL_INDIRECT) > 0.5)
+    return hitrec_from_cols(lambda j: rows[..., j], t_best, obj, hit, ro, rd)
 
 
 def occluded_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, sq_range,
-               has_range: bool) -> torch.Tensor:
+               has_range: bool, scan_kernel: bool = False) -> torch.Tensor:
     """Shadow query (raytrace.rs:43-50): does any live object hit the ray,
     within range when the light has one (``t*t < sq_range``)?  Any-hit,
-    so no running minimum is needed."""
+    so the small regime needs no running minimum; the large one asks the
+    scan for the closest hit, which is in range iff any hit is."""
     live = spec.live_objects()
     if len(live) > LARGE_SCENE_THRESHOLD:
-        raise NotImplementedError(
-            f"scenes with more than {LARGE_SCENE_THRESHOLD} objects are not "
-            f"ported yet (ROADMAP item 10)")
+        t_best, _, hit = _scan_all_objects(data, spec, ro, rd, scan_kernel)
+        return hit & (t_best * t_best < sq_range) if has_range else hit
     a = dot(rd, rd)
     inv2a = safe_inv2a(a)
     blocked = torch.zeros(ro.x.shape, dtype=torch.bool, device=ro.x.device)

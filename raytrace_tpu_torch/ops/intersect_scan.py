@@ -1,0 +1,216 @@
+"""Closest hit of N rays against the unified primitive table of a large
+scene, as one CUDA kernel.
+
+PyTorch counterpart of :mod:`raytrace_tpu.ops.intersect_pallas`.
+:func:`scan_hit` launches ``csrc/scan_hit.cu`` on CUDA tensors (one
+thread per ray, the fold of ``csrc/render_common.cuh`` that the render
+kernels also call) or raises; on CPU tensors it runs the plain version,
+:func:`scan_hit_reference`.
+
+Table layout (:func:`raytrace_tpu_torch.ops.intersect._packed_tables`),
+one ``(C * OBJ_CHUNK, 4)`` float32 table, spheres first:
+
+* sphere row ``(cx, cy, cz, r)``; plane row ``(nx, ny, nz, p.n)``;
+* zero pad rows are never valid: a sphere needs ``r > 0``, a zero plane
+  normal gives ``denom == 0``; their ids are -1.
+
+The result is the minimum of ``(t, global id)`` over the valid rows, so on
+an exact tie in ``t`` the first object in scene order wins whatever the
+order of the scan.  Miss lanes carry id ``2**31 - 1``: mask with ``hit``
+before indexing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raytrace_tpu_torch.ops import _build
+from raytrace_tpu_torch.ops.vec import V3
+
+OBJ_CHUNK = 32               # table rows per chunk (one bounding sphere each)
+ID_SENTINEL = 2 ** 31 - 1    # id of a lane that hit nothing
+
+
+def _chunk_bounds(table: torch.Tensor, n_sph_pad: int,
+                  n_chunks: int) -> torch.Tensor:
+    """Conservative bounding spheres ``(cx, cy, cz, R)`` of the sphere
+    chunks, (n_chunks, 4) float32: the centroid of the chunk's valid
+    members with radius ``max(|c_i - C| + r_i)``, inflated by 1.0001 and
+    1e-4, so that a ray that hits a member at t > 0 enters the bound
+    earlier.  Plane chunks and all-pad chunks carry zeros."""
+    sph = table[:n_sph_pad].detach().reshape(-1, OBJ_CHUNK, 4)
+    valid = sph[..., 3] > 0
+    cnt = torch.clamp(valid.sum(dim=1, keepdim=True), min=1)
+    ctr = torch.where(valid[..., None], sph[..., :3], 0.0).sum(dim=1) / cnt
+    dist = torch.sqrt(torch.sum((sph[..., :3] - ctr[:, None, :]) ** 2,
+                                dim=-1)) + sph[..., 3]
+    r = torch.where(valid, dist, 0.0).amax(dim=1)
+    r = torch.where(r > 0, r * 1.0001 + 1e-4, 0.0)
+    bounds = torch.cat([ctr, r[:, None]], dim=1)
+    pad = bounds.new_zeros((n_chunks - bounds.shape[0], 4))
+    return torch.cat([bounds, pad]).to(torch.float32)
+
+
+def _may_enter(bound, ro: V3, rd: V3, a, inv2a, t_best):
+    """Whether a chunk may improve each lane: the ray enters the chunk's
+    bounding sphere in front of its origin and not beyond the running best
+    t.  All three tests take slack relative to the quantities that carry
+    the rounding error of ``b*b - 4ac``, so a grazing ray from far away
+    never skips a chunk that holds a real hit."""
+    ocx, ocy, ocz = ro.x - bound[0], ro.y - bound[1], ro.z - bound[2]
+    b = 2.0 * (rd.x * ocx + rd.y * ocy + rd.z * ocz)
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - bound[3] * bound[3]
+    disc = b * b - 4.0 * a * cc
+    pos = disc > -1e-5 * (b * b)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    margin = 1e-5 * torch.abs(b) * inv2a + 1e-4
+    enters = pos & ((-b + sq) * inv2a > -margin)
+    return enters & ((-b - sq) * inv2a <= t_best + margin)
+
+
+def scan_hit_reference(table, ids, n_sph_pad: int, ro: V3, rd: V3,
+                       bounds=None, return_entered: bool = False):
+    """The plain PyTorch version of the kernel, on any device: ``(t_best,
+    global id, hit)`` of (N,) rays, folded chunk by chunk with each row
+    broadcast against the lanes; every element's arithmetic is the
+    kernel's formula.
+
+    With ``bounds`` (:func:`_chunk_bounds`) a lane skips the sphere chunks
+    it cannot be improved by, as the kernel does; the result is the same
+    bit for bit.  ``return_entered`` adds the number of sphere chunks each
+    lane folded."""
+    a = rd.x * rd.x + rd.y * rd.y + rd.z * rd.z
+    inv2a = 0.5 / torch.where(a > 0, a, 1.0)
+    n_rows = table.shape[0]
+    if n_rows % OBJ_CHUNK or n_sph_pad % OBJ_CHUNK:
+        raise ValueError(f"table partitions must be multiples of {OBJ_CHUNK}")
+    t_best = torch.full_like(ro.x, float("inf"))
+    obj = torch.full(ro.x.shape, ID_SENTINEL, dtype=torch.int32,
+                     device=ro.x.device)
+    hit = torch.zeros(ro.x.shape, dtype=torch.bool, device=ro.x.device)
+    entered = torch.zeros(ro.x.shape, dtype=torch.int64, device=ro.x.device)
+    ox, oy, oz = ro.x[:, None], ro.y[:, None], ro.z[:, None]
+    dx, dy, dz = rd.x[:, None], rd.y[:, None], rd.z[:, None]
+    a_, inv2a_ = a[:, None], inv2a[:, None]
+
+    for r0 in range(0, n_rows, OBJ_CHUNK):
+        rows = table[r0:r0 + OBJ_CHUNK]
+        gid = ids[r0:r0 + OBJ_CHUNK]
+        c0, c1, c2, c3 = rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3]
+        if r0 < n_sph_pad:
+            ocx, ocy, ocz = ox - c0, oy - c1, oz - c2
+            b = 2.0 * (dx * ocx + dy * ocy + dz * ocz)
+            cc = ocx * ocx + ocy * ocy + ocz * ocz - c3 * c3
+            disc = b * b - 4.0 * a_ * cc
+            has = disc > 0.0
+            sq = torch.sqrt(torch.where(has, disc, 1.0))
+            t1 = (-b - sq) * inv2a_
+            t2 = (-b + sq) * inv2a_
+            t = torch.where(t1 > 0.0, t1, t2)
+            valid = has & (t > 0.0) & (c3 > 0.0)
+        else:
+            denom = dx * c0 + dy * c1 + dz * c2
+            numer = c3 - (ox * c0 + oy * c1 + oz * c2)
+            ok = denom != 0.0
+            t = numer / torch.where(ok, denom, 1.0)
+            valid = ok & (t > 0.0)
+        valid = valid & (gid >= 0)
+        t = torch.where(valid, t, float("inf"))
+        # the chunk's minimum of (t, id), then the running one
+        t_c = t.amin(dim=1)
+        g_c = torch.where(valid & (t == t_c[:, None]), gid,
+                          ID_SENTINEL).amin(dim=1)
+        better = (t_c < t_best) | ((t_c == t_best) & (g_c < obj))
+        any_valid = valid.any(dim=1)
+        if bounds is not None and r0 < n_sph_pad:
+            may = _may_enter(bounds[r0 // OBJ_CHUNK], ro, rd, a, inv2a,
+                             t_best)
+            entered = entered + may
+            better = better & may
+            any_valid = any_valid & may
+        t_best = torch.where(better, t_c, t_best)
+        obj = torch.where(better, g_c, obj)
+        hit = hit | any_valid
+    if return_entered:
+        return t_best, obj, hit, entered
+    return t_best, obj, hit
+
+
+_lib_ready: ctypes.CDLL | None = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_ready
+    if _lib_ready is None:
+        lib = _build.load(_build.KERNEL_SCAN)
+        lib.rt_scan_hit.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p])
+        lib.rt_scan_hit.restype = ctypes.c_int
+        lib.rt_error_string.argtypes = [ctypes.c_int]
+        lib.rt_error_string.restype = ctypes.c_char_p
+        _lib_ready = lib
+    return _lib_ready
+
+
+def scan_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3, bounds=None):
+    """``(t_best, global id, hit)`` of (N,) float32 rays against the
+    unified table: ``table`` (C*32, 4) float32 with the spheres in rows
+    ``[0, n_sph_pad)`` and the planes after, ``ids`` (C*32,) int32 global
+    object id per row (-1 on pad rows).  ``bounds`` are the chunks'
+    bounding spheres, computed here when not given.  On CUDA tensors this
+    launches the kernel or raises; on CPU tensors it runs
+    :func:`scan_hit_reference`."""
+    rays = (*ro, *rd)
+    if any(t.requires_grad for t in (table, *rays)):
+        raise NotImplementedError(
+            "gradients through scan_hit are not ported yet (ROADMAP item 7)")
+    device = ro.x.device
+    if any(t.device != device for t in (table, ids, *rays)):
+        raise ValueError("table, ids and rays must lie on one device")
+    if device.type == "cpu":
+        return scan_hit_reference(table, ids, n_sph_pad, ro, rd)
+    if device.type != "cuda":
+        raise ValueError(f"no scan kernel for device {device}")
+
+    n = ro.x.shape[0]
+    n_rows = table.shape[0]
+    if (table.dtype != torch.float32 or table.ndim != 2
+            or table.shape[1] != 4 or n_rows % OBJ_CHUNK
+            or n_sph_pad % OBJ_CHUNK or not 0 <= n_sph_pad <= n_rows):
+        raise ValueError("table must be (C*32, 4) float32, spheres first")
+    if ids.dtype != torch.int32 or ids.shape != (n_rows,):
+        raise ValueError("ids must be (C*32,) int32")
+    if any(t.dtype != torch.float32 or t.shape != (n,) for t in rays):
+        raise ValueError("rays must be (N,) float32 tensors")
+    n_chunks = n_rows // OBJ_CHUNK
+    if bounds is None:
+        bounds = _chunk_bounds(table, n_sph_pad, n_chunks)
+    elif (bounds.dtype != torch.float32 or bounds.shape != (n_chunks, 4)
+          or bounds.device != device):
+        raise ValueError("bounds must be (C, 4) float32 on the rays' device")
+    table, ids, bounds = table.contiguous(), ids.contiguous(), bounds.contiguous()
+    rays = [t.contiguous() for t in rays]
+    if table.data_ptr() % 16 or bounds.data_ptr() % 16:
+        raise ValueError("table and bounds must be 16-byte aligned")
+
+    t_out = torch.empty(n, dtype=torch.float32, device=device)
+    gid = torch.empty(n, dtype=torch.int32, device=device)
+    hit = torch.empty(n, dtype=torch.bool, device=device)
+    if n == 0:
+        return t_out, gid, hit
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.rt_scan_hit(table.data_ptr(), ids.data_ptr(),
+                             bounds.data_ptr(), n_sph_pad // OBJ_CHUNK,
+                             n_chunks, *(t.data_ptr() for t in rays),
+                             t_out.data_ptr(), gid.data_ptr(), hit.data_ptr(),
+                             n, stream)
+    if rc != 0:
+        raise RuntimeError(f"scan_hit launch failed: "
+                           f"{lib.rt_error_string(rc).decode()}")
+    _build.LAUNCHES[_build.KERNEL_SCAN] += 1
+    return t_out, gid, hit

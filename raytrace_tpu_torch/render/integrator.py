@@ -35,11 +35,13 @@ from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
 
 
 def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
-                      k1, k2) -> V3:
+                      k1, k2, scan_kernel: bool = False) -> V3:
     """Radiance of chains that never fan out (``children_per_ray <= 1``:
     one indirect slot, or the reflect slot of pure mirror-Phong scenes),
     with per-lane significance and throughput.  Elementwise over whatever
-    lane shape ``ro.x`` has."""
+    lane shape ``ro.x`` has.  ``scan_kernel`` sends a large scene's
+    closest-hit and shadow scans through the CUDA scan kernel
+    (:func:`raytrace_tpu_torch.ops.intersect.closest_hit`)."""
     if spec.children_per_ray > 1:
         raise ValueError("fan-out scenes take radiance_tree_loop_v")
     sig = torch.ones_like(ro.x)
@@ -49,9 +51,9 @@ def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
     zero = vec.full_like(sig, 0.0)
 
     for depth in range(spec.max_depth + 2):
-        hit = closest_hit(data, spec, ro, rd)
+        hit = closest_hit(data, spec, ro, rd, scan_kernel)
         emit, children = shade(data, spec, ro, rd, hit, sig, live, k1, k2,
-                               depth)
+                               depth, scan_kernel)
         bg = background_color_v(data, spec, rd)
         local = vec.where(hit.hit, emit, bg)
         acc = acc + vec.where(live, tp.mul(local), zero)
@@ -156,7 +158,7 @@ def tree_loop_entry(ro: V3, rd: V3, sig, tp: V3, live01, k1, k2, dtype):
 
 
 def tree_loop_node(data: SceneData, spec: SceneSpec, m: int, entry,
-                   depth: int):
+                   depth: int, scan_kernel: bool = False):
     """One DFS node visit: closest hit, shade, route the child slots to m
     virtual children.  ``entry`` is a popped 13-tuple
     (:func:`tree_loop_entry`).  Returns ``(contrib: V3, virt)``, where
@@ -170,8 +172,9 @@ def tree_loop_node(data: SceneData, spec: SceneSpec, m: int, entry,
     live = entry[10] > 0.5
     k1, k2 = entry[11], entry[12]
 
-    hit = closest_hit(data, spec, ro, rd)
-    emit, children = shade(data, spec, ro, rd, hit, sig, live, k1, k2, depth)
+    hit = closest_hit(data, spec, ro, rd, scan_kernel)
+    emit, children = shade(data, spec, ro, rd, hit, sig, live, k1, k2, depth,
+                           scan_kernel)
     bg = background_color_v(data, spec, rd)
     local = vec.where(hit.hit, emit, bg)
     zero = vec.full_like(sig, 0.0)
@@ -192,7 +195,7 @@ def tree_loop_node(data: SceneData, spec: SceneSpec, m: int, entry,
 
 
 def radiance_tree_loop_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
-                         k1, k2) -> V3:
+                         k1, k2, scan_kernel: bool = False) -> V3:
     """Radiance of fan-out scenes as a depth-first walk of each lane's
     virtual child tree (the recursion of ``ray_color``,
     raytrace.rs:261-267), the plain version of the CUDA tree kernel.
@@ -217,7 +220,8 @@ def radiance_tree_loop_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
     sp = 1
     for depth in depths:
         sp -= 1
-        contrib, virt = tree_loop_node(data, spec, m, stack[sp], depth)
+        contrib, virt = tree_loop_node(data, spec, m, stack[sp], depth,
+                                       scan_kernel)
         acc = acc + contrib
         if depth < levels - 1:
             # child j lands at sp + (m-1-j): popped in preorder

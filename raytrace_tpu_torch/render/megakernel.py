@@ -1,15 +1,21 @@
 """The render megakernels: per-lane radiance through one CUDA kernel.
 
-PyTorch counterpart of :mod:`raytrace_tpu.render.megakernel` for scenes of
-at most 64 objects in float32 with a solid background.
+PyTorch counterpart of :mod:`raytrace_tpu.render.megakernel` for scenes
+of any object count in float32 with a solid background.
 :func:`radiance_lanes` takes per-lane integer identities (pixel x, pixel
 y, antialias sample, lens sample) and returns their radiance.  On CUDA
 tensors it launches a hand-written kernel or raises: linear scenes
 (``children_per_ray <= 1``) go to ``csrc/megakernel_linear.cu``, fan-out
-scenes to ``csrc/megakernel_tree.cu``, one thread per lane each.  On CPU
-tensors it runs their plain PyTorch version,
-:func:`radiance_lanes_reference`.  Scenes outside :func:`usable` raise
-``NotImplementedError`` naming the ROADMAP item on every device.
+scenes to ``csrc/megakernel_tree.cu``, one thread per lane each.  Above
+``LARGE_SCENE_THRESHOLD`` live objects both kernels answer closest-hit
+and shadow queries by folding over the scene's unified primitive table
+in device memory (their large instances).  On CPU tensors it runs their
+plain PyTorch version, :func:`radiance_lanes_reference`.
+:func:`radiance_lanes_split` is the plain chain with a large scene's
+scans answered by the CUDA scan kernel
+(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  Scenes outside
+:func:`usable` raise ``NotImplementedError`` naming the ROADMAP item on
+every device.
 """
 
 from __future__ import annotations
@@ -20,18 +26,20 @@ import dataclasses
 import torch
 
 from raytrace_tpu_torch.ops import _build
-from raytrace_tpu_torch.ops.intersect import LARGE_SCENE_THRESHOLD, object_table
+from raytrace_tpu_torch.ops.intersect import (LARGE_SCENE_THRESHOLD,
+                                              object_table, per_scene_cache,
+                                              scene_tables)
+from raytrace_tpu_torch.ops.intersect_scan import OBJ_CHUNK
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.scene.schema import (BG_SOLID, CAM_DEPTH_OF_FIELD,
                                              SceneData, SceneSpec)
 
-KERNEL_LINEAR = "megakernel_linear"
-KERNEL_TREE = "megakernel_tree"
-KERNELS = (KERNEL_LINEAR, KERNEL_TREE)
-
-# kernel launches in this process, per kernel (chip_smoke.py resets and
-# reads them to show that a run went through the kernels)
-LAUNCHES = {k: 0 for k in KERNELS}
+KERNEL_LINEAR = _build.KERNEL_LINEAR
+KERNEL_TREE = _build.KERNEL_TREE
+KERNEL_SCAN = _build.KERNEL_SCAN
+KERNELS = _build.KERNELS
+# kernel launches in this process, per kernel
+LAUNCHES = _build.LAUNCHES
 
 # the largest DFS stack csrc/megakernel_tree.cu takes (its largest CAP)
 MAX_TREE_STACK = 64
@@ -46,15 +54,17 @@ def kernel_for(spec: SceneSpec) -> str:
     return KERNEL_LINEAR if spec.children_per_ray <= 1 else KERNEL_TREE
 
 
+def is_large(spec: SceneSpec) -> bool:
+    """Whether the scene takes the kernels' table-fold instances."""
+    return len(spec.live_objects()) > LARGE_SCENE_THRESHOLD
+
+
 def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
     """Why this scene is outside the ported slice, or None."""
     from raytrace_tpu_torch.render.integrator import tree_loop_stack
 
     if data.dtype != torch.float32:
         return "float64 rendering is not ported yet (ROADMAP item 12)"
-    if len(spec.live_objects()) > LARGE_SCENE_THRESHOLD:
-        return (f"scenes with more than {LARGE_SCENE_THRESHOLD} objects are "
-                f"not ported yet (ROADMAP item 10)")
     if spec.bg_type != BG_SOLID:
         return "skybox backgrounds are not ported yet (ROADMAP item 11)"
     if kernel_for(spec) == KERNEL_TREE:
@@ -97,9 +107,11 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
 
 
 def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
-                             cam, seed: int) -> V3:
+                             cam, seed: int, scan_kernel: bool = False) -> V3:
     """The plain PyTorch version of the kernels, on any device: the
-    linear chain or the DFS, as :func:`kernel_for` picks the kernel."""
+    linear chain or the DFS, as :func:`kernel_for` picks the kernel.  A
+    large scene goes through the plain scan of its table and launches no
+    kernel, unless ``scan_kernel`` is set (:func:`radiance_lanes_split`)."""
     from raytrace_tpu_torch.render.integrator import (primary_rays,
                                                       radiance_linear_v,
                                                       radiance_tree_loop_v)
@@ -107,17 +119,33 @@ def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
     ro, rd, k1, k2 = primary_rays(data, spec, pix, piy, aa, cam, seed)
     fn = (radiance_linear_v if kernel_for(spec) == KERNEL_LINEAR
           else radiance_tree_loop_v)
-    return fn(data, spec, ro, rd, k1, k2)
+    return fn(data, spec, ro, rd, k1, k2, scan_kernel)
+
+
+def radiance_lanes_split(data: SceneData, spec: SceneSpec, pix, piy, aa,
+                         cam, seed: int) -> V3:
+    """The split path of a large scene: the plain chain or DFS, with every
+    closest-hit and shadow scan answered by
+    :func:`raytrace_tpu_torch.ops.intersect_scan.scan_hit`, the CUDA scan
+    kernel on CUDA tensors (one launch per scan)."""
+    if not is_large(spec):
+        raise ValueError(f"the split path is for scenes of more than "
+                         f"{LARGE_SCENE_THRESHOLD} objects")
+    return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed,
+                                    scan_kernel=True)
 
 
 def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
     """The kernels' float32 scene buffer on the scene's device
-    (csrc/render_common.cuh): a 24-float header (camera position,
-    row-major camera matrix, background color, half width, half height,
-    NDC scale, minimum significance, focal distance, aperture, image
-    distance, two pads), then 16 floats per light (type, position, first
-    and second edge, color, three pads), then one 24-float row per live
-    object in scene order (the columns of ``object_table``, pad)."""
+    (csrc/render_common.cuh): a 24-float header (camera
+    position, row-major camera matrix, background color, half width, half
+    height, NDC scale, minimum significance, focal distance, aperture,
+    image distance, two pads), then 16 floats per light (type, position,
+    first and second edge, color, three pads), then 24-float object rows
+    (the columns of ``object_table``, pad): one per live object in scene
+    order, or for a large scene one per object, indexed by object id
+    (the large instances read them from device memory and fold over
+    :func:`raytrace_tpu_torch.ops.intersect.scene_tables`)."""
     halfw, halfh = spec.width / 2.0, spec.height / 2.0
     # every number taken from the spec, in one host-to-device copy
     host = torch.tensor([halfw, halfh, max(1.0 / halfw, 1.0 / halfh),
@@ -129,7 +157,9 @@ def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
                         data.light_e1[:n_l], data.light_e2[:n_l],
                         data.light_color[:n_l],
                         torch.zeros_like(data.light_p[:n_l])], dim=1)
-    rows = object_table(data, spec)[spec.live_objects()]
+    rows = object_table(data, spec)
+    if not is_large(spec):
+        rows = rows[spec.live_objects()]
     rows = torch.cat([rows, torch.zeros_like(rows[:, :_ROW - rows.shape[1]])],
                      dim=1)
     parts = [data.cam_position, data.cam_matrix.reshape(9), data.bg_color,
@@ -139,26 +169,12 @@ def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
     return torch.cat(parts).to(torch.float32).contiguous()
 
 
-# the last scene buffer packed: (scene tensors, their version counters,
-# spec, buffer); reused while the same tensors, unmodified, come with an
-# equal spec, as they do in every launch of one render
-_packed: tuple | None = None
+# the last scene buffer packed, reused while the scene is unchanged
+_scene_buffer = per_scene_cache(pack_scene)
 
-
-def _scene_buffer(data: SceneData, spec: SceneSpec) -> torch.Tensor:
-    global _packed
-    leaves = tuple(getattr(data, f.name) for f in dataclasses.fields(data))
-    versions = tuple(t._version for t in leaves)
-    last = _packed
-    if (last is not None and all(a is b for a, b in zip(last[0], leaves))
-            and last[1] == versions and last[2] == spec):
-        return last[3]
-    buf = pack_scene(data, spec)
-    _packed = (leaves, versions, spec, buf)
-    return buf
-
-
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+# lane ids, scene buffer, table, row ids, chunk bounds; sphere chunks,
+# chunks, objects, lights, max_depth, reflect, refract, indirect, dof
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -189,8 +205,21 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
            else (t.to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
            for t in (pix, piy, aa, cam)]
     scene = _scene_buffer(data, spec)
-    args = [*(t.data_ptr() for t in ids), scene.data_ptr(),
-            len(spec.live_objects()), spec.n_lights, spec.max_depth,
+    if is_large(spec):
+        # the large instances: n_chunks > 0, rows indexed by object id
+        tb = scene_tables(data, spec)
+        n_chunks = tb.table.shape[0] // OBJ_CHUNK
+        tables = [tb.table.data_ptr(), tb.ids.data_ptr(),
+                  tb.bounds.data_ptr(), tb.n_sph_pad // OBJ_CHUNK, n_chunks,
+                  spec.n_objects]
+        if (tb.table.dtype != torch.float32 or tables[0] % 16
+                or tables[2] % 16):
+            raise ValueError("the scene's tables must be float32 and "
+                             "16-byte aligned")
+    else:
+        tables = [None, None, None, 0, 0, len(spec.live_objects())]
+    args = [*(t.data_ptr() for t in ids), scene.data_ptr(), *tables,
+            spec.n_lights, spec.max_depth,
             int(spec.has_reflect), int(spec.has_refract), spec.n_indirect,
             int(spec.cam_type == CAM_DEPTH_OF_FIELD)]
     if name == KERNEL_TREE:

@@ -75,11 +75,8 @@ def _variant(**spec_changes):
 
 def _out_of_slice():
     f64 = torch_load(CORNELL, device="cpu", dtype=torch.float64)
-    n = 65
     return {
         "f64": (f64.data, f64.spec, 12),
-        "objects": (*_variant(shape_type=(schema.SHAPE_SPHERE,) * n,
-                              mat_type=(schema.MAT_INDIRECT_PHONG,) * n), 10),
         "skybox": (*_variant(bg_type=schema.BG_SKYBOX), 11),
     }
 
@@ -299,12 +296,14 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "from raytrace_tpu_torch.ops import _build\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'raytrace_tpu')]\n"
+        "for m in ('scene.procedural', 'ops.intersect_scan'):\n"
+        "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
         "print(len(mods), bad, _build.loaded())\n")
     r = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_mods, rest = r.stdout.split(" ", 1)
-    assert int(n_mods) >= 20
+    assert int(n_mods) >= 22
     assert rest.strip() == "[] []"
     after = sorted(os.listdir(build)) if os.path.isdir(build) else None
     assert after == before

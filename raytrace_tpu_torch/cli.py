@@ -2,8 +2,9 @@
 
 Same positional argument and flags as ``raytrace_tpu.cli``, plus
 ``--device``.  On ``--device cuda`` every lane goes through a CUDA
-megakernel (the linear one or the tree one), and a machine without a
-usable GPU is an error, never a silent CPU render.
+megakernel (the linear one or the tree one; a skybox scene's faces are
+loaded from the image files it names, relative to the scene file), and
+a machine without a usable GPU is an error, never a silent CPU render.
 
     python -m raytrace_tpu_torch.cli examples/materials_showcase.txt \\
         -o out.bmp --device cuda

@@ -4,7 +4,9 @@
 // Replaces raytrace_tpu/render/megakernel.py::_kernel (the pallas_call of
 // _radiance_lanes_fwd_kernel) in its linear regimes: at most one child slot
 // per shaded ray (one indirect sample, or the reflect slot of mirror-Phong
-// scenes), float32, solid background; at most 64 live objects in the small
+// scenes), float32, a solid background or a skybox (the instances with SKY
+// look the cube up where a ray misses, in place of the reference's miss
+// records and post-pass); at most 64 live objects in the small
 // instances, any number in the large ones, which replace the in-kernel
 // table fold of raytrace_tpu/ops/intersect_inline.py (inline_fold,
 // inline_closest_hit, inline_occluded) under radiance_linear_loop_v.  Per
@@ -44,18 +46,19 @@ namespace {
 
 using namespace rt;
 
-template <bool LIT, bool LARGE>
+template <bool LIT, bool LARGE, bool SKY>
 __global__ void __launch_bounds__(THREADS)
 megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                   const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                  const float* __restrict__ scene, Tables tb, int n_obj, int n_light,
+                  const float* __restrict__ scene, Tables tb, Sky sky, int n_obj, int n_light,
                   int max_depth, int has_reflect, int has_refract, int n_indirect, int dof,
                   uint32_t seed, float* __restrict__ out, long long n) {
   extern __shared__ float s[];
   stage_scene(scene, s, LARGE ? 0 : n_obj, n_light);
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene, tb};
+  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene, tb,
+                 sky};
 
   Node e = primary_ray<LARGE>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, LIT && dof);
   float accx = 0.0f, accy = 0.0f, accz = 0.0f;
@@ -63,7 +66,7 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
     float cx, cy, cz;
     Node next;
     next.live = false;
-    shade_node<LIT, LARGE>(sc, e, depth, cx, cy, cz,
+    shade_node<LIT, LARGE, SKY>(sc, e, depth, cx, cy, cz,
                [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
                    float sig, float wx, float wy, float wz) {
                  next = child_node(e, slot, ox, oy, oz, dx, dy, dz, sig, wx, wy, wz);
@@ -79,18 +82,18 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
   out[2 * n + lane] = accz;
 }
 
-template <bool LIT, bool LARGE>
+template <bool LIT, bool LARGE, bool SKY>
 int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const uint32_t* cam,
-           const float* scene, const Tables& tb, int n_obj, int n_light, int max_depth,
+           const float* scene, const Tables& tb, const Sky& sky, int n_obj, int n_light, int max_depth,
            int has_reflect, int has_refract, int n_indirect, int dof, uint32_t seed, float* out,
            long long n, cudaStream_t stream) {
   const long long blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = scene_bytes(LARGE ? 0 : n_obj, n_light);
-  cudaError_t err = cudaFuncSetAttribute(megakernel_linear<LIT, LARGE>,
+  cudaError_t err = cudaFuncSetAttribute(megakernel_linear<LIT, LARGE, SKY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  megakernel_linear<LIT, LARGE><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      pix, piy, aa, cam, scene, tb, n_obj, n_light, max_depth, has_reflect, has_refract,
+  megakernel_linear<LIT, LARGE, SKY><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      pix, piy, aa, cam, scene, tb, sky, n_obj, n_light, max_depth, has_reflect, has_refract,
       n_indirect, dof, seed, out, n);
   return (int)cudaGetLastError();
 }
@@ -106,17 +109,26 @@ extern "C" {
 // n_chunks > 0 selects the large instances: `table`, `ids` and `bounds` are
 // then the scene's unified table (n_chunks * 32 rows, the first
 // n_sph_chunks chunks spheres), and `scene` holds one row per object id.
+// A non-null `cube` selects the skybox instances: the (6, hmax, wmax, 3)
+// float32 faces in device memory, with `face_hw` 14 ints in host memory
+// (hmax, wmax, then each face's own height and width).
 int rt_megakernel_linear(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
                          const uint32_t* cam, const float* scene, const float* table,
                          const int* ids, const float* bounds, int n_sph_chunks, int n_chunks,
-                         int n_obj, int n_light, int max_depth, int has_reflect,
+                         const float* cube, const int* face_hw, int n_obj, int n_light, int max_depth, int has_reflect,
                          int has_refract, int n_indirect, int dof, uint32_t seed, float* out,
                          long long n, void* stream) {
   const bool lit = n_light > 0 || has_reflect || has_refract || dof;
   const Tables tb{(const float4*)table, ids, (const float4*)bounds, n_sph_chunks, n_chunks};
-  const auto fn = n_chunks > 0 ? (lit ? launch<true, true> : launch<false, true>)
-                               : (lit ? launch<true, false> : launch<false, false>);
-  return fn(pix, piy, aa, cam, scene, tb, n_obj, n_light, max_depth, has_reflect, has_refract,
+  const Sky sky = make_sky(cube, face_hw);
+  const bool large = n_chunks > 0;
+  const auto fn =
+      cube != nullptr
+          ? (large ? (lit ? launch<true, true, true> : launch<false, true, true>)
+                   : (lit ? launch<true, false, true> : launch<false, false, true>))
+          : (large ? (lit ? launch<true, true, false> : launch<false, true, false>)
+                   : (lit ? launch<true, false, false> : launch<false, false, false>));
+  return fn(pix, piy, aa, cam, scene, tb, sky, n_obj, n_light, max_depth, has_reflect, has_refract,
             n_indirect, dof, seed, out, n, (cudaStream_t)stream);
 }
 

@@ -3,16 +3,19 @@
 // buffer's layout, the counter-based RNG, the primary ray, closest hit and
 // the shadow any-hit query in their two forms (a loop over the object rows
 // in shared memory for small scenes, a fold over the unified primitive
-// table in device memory for large ones), light sampling and the shading
-// of one node.  One thread handles one lane.
+// table in device memory for large ones), light sampling, the skybox
+// lookup and the shading of one node.  One thread handles one lane.
 //
 // The arithmetic follows the plain PyTorch version operation by operation
 // (raytrace_tpu_torch/render/integrator.py, models/materials.py,
 // models/lights.py, models/cameras.py, ops/intersect.py); the RNG words are
-// bit-identical (uint32 wraparound).  Floats may differ by the rounding of
-// contracted multiply-adds and by the last ulp of sqrtf/rsqrtf/sinf/cosf/
-// powf.  The comparison that decides whether light refracts (sin^2 < 1)
-// is computed without contraction, so it rounds as the plain version does.
+// bit-identical (uint32 wraparound).  In the linear kernel floats may
+// differ by the rounding of contracted multiply-adds; the comparison that
+// decides whether light refracts (sin^2 < 1) is computed without
+// contraction, so it rounds as the plain version does.  The tree kernel is
+// compiled without contraction altogether (ops/_build.py, KERNEL_FLAGS) and
+// gives the plain version's floats to the bit on the card, whose sqrtf,
+// rsqrtf, sinf, cosf and powf are the ones PyTorch's CUDA operators call.
 
 #pragma once
 
@@ -132,6 +135,93 @@ struct Tables {
   int n_sph_chunks, n_chunks;
 };
 
+// ---- skybox (models/backgrounds.py::_skybox).  Replaces the skybox regime
+// of raytrace_tpu/render/megakernel.py::_kernel: there a miss leaves the
+// kernel as a record (direction, throughput) and a post-pass outside it
+// does the texture gather; here the lookup runs where the ray misses.
+// The six faces lie padded in one (6, hmax, wmax, 3) float32 cube in
+// device memory (six faces of 1024 x 1024 are 75.5 MB: nothing of it can be
+// staged), read through the read-only cache, four texels of three floats
+// per miss, 48 B against a few dozen operations: the lookup is bound by
+// bytes, and by the latency of four dependent-free loads.
+struct Sky {
+  const float* cube;  // null: the scene has a solid background
+  int hmax, wmax;     // strides of the padded cube
+  int h[6], w[6];     // each face's own size: px nx py ny pz nz
+};
+
+__device__ __forceinline__ float3 sky_texel(const Sky& sky, int face, int y, int x) {
+  const float* p = sky.cube + 3 * (((long long)face * sky.hmax + y) * sky.wmax + x);
+  return make_float3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+}
+
+// Dominant axis by strict > tested in x, y, z order (a tie for the largest
+// component is black), the face's UV, clamped bilinear fetch at the face's
+// own size.  Division is IEEE and every product and sum is rounded on its
+// own, in the plain version's order, so both take the same texels and
+// weights; they part only where the plain version's direction differs.
+__device__ __forceinline__ void sky_lookup(const Sky& sky, float dx, float dy, float dz,
+                                           float& r, float& g, float& b) {
+  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+  int face, fh, fw;
+  float u, v;
+  if (ax > az && ax > ay) {
+    face = dx > 0.0f ? 0 : 1;
+    fh = dx > 0.0f ? sky.h[0] : sky.h[1];
+    fw = dx > 0.0f ? sky.w[0] : sky.w[1];
+    u = -dz / dx;
+    v = -dy / ax;
+  } else if (ay > ax && ay > az) {
+    face = dy > 0.0f ? 2 : 3;
+    fh = dy > 0.0f ? sky.h[2] : sky.h[3];
+    fw = dy > 0.0f ? sky.w[2] : sky.w[3];
+    u = dx / ay;
+    v = dz / dy;
+  } else if (az > ax && az > ay) {
+    face = dz > 0.0f ? 4 : 5;
+    fh = dz > 0.0f ? sky.h[4] : sky.h[5];
+    fw = dz > 0.0f ? sky.w[4] : sky.w[5];
+    u = dx / dz;
+    v = -dy / az;
+  } else {
+    r = g = b = 0.0f;
+    return;
+  }
+  u = __fadd_rn(__fmul_rn(u, 0.5f), 0.5f);
+  v = __fadd_rn(__fmul_rn(v, 0.5f), 0.5f);
+  // Texture::sample: clamp, scale by size - 1, bilinear, y first
+  const float x = __fmul_rn(fminf(fmaxf(u, 0.0f), 1.0f), (float)(fw - 1));
+  const float y = __fmul_rn(fminf(fmaxf(v, 0.0f), 1.0f), (float)(fh - 1));
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float xx = x - x0, yy = y - y0;
+  const float omx = 1.0f - xx, omy = 1.0f - yy;
+  const int x0i = (int)x0, y0i = (int)y0;
+  const int x1i = min(x0i + 1, fw - 1), y1i = min(y0i + 1, fh - 1);
+  const float3 c00 = sky_texel(sky, face, y0i, x0i), c01 = sky_texel(sky, face, y1i, x0i);
+  const float3 c10 = sky_texel(sky, face, y0i, x1i), c11 = sky_texel(sky, face, y1i, x1i);
+  const auto mix = [](float p, float wp, float q, float wq) {
+    return __fadd_rn(__fmul_rn(p, wp), __fmul_rn(q, wq));
+  };
+  r = mix(mix(c00.x, omy, c01.x, yy), omx, mix(c10.x, omy, c11.x, yy), xx);
+  g = mix(mix(c00.y, omy, c01.y, yy), omx, mix(c10.y, omy, c11.y, yy), xx);
+  b = mix(mix(c00.z, omy, c01.z, yy), omx, mix(c10.z, omy, c11.z, yy), xx);
+}
+
+// the face sizes as the wrappers pass them: hmax, wmax, then (h, w) of the
+// six faces, 14 ints in host memory; a null cube is a solid background
+__host__ __forceinline__ Sky make_sky(const float* cube, const int* face_hw) {
+  Sky sky{};
+  sky.cube = cube;
+  if (cube == nullptr) return sky;
+  sky.hmax = face_hw[0];
+  sky.wmax = face_hw[1];
+  for (int f = 0; f < 6; ++f) {
+    sky.h[f] = face_hw[2 + 2 * f];
+    sky.w[f] = face_hw[3 + 2 * f];
+  }
+  return sky;
+}
+
 // the scene as the kernels see it, and the static slot layout: header and
 // lights staged in shared memory (s); the object rows behind them there
 // too for a small scene, or in device memory (g, indexed by object id)
@@ -142,6 +232,7 @@ struct Scene {
   int has_reflect, has_refract, n_indirect;
   const float* g;
   Tables tb;
+  Sky sky;
 
   __device__ __forceinline__ const float* light(int i) const { return s + HDR + LROW * i; }
   __device__ __forceinline__ const float* row(int o) const {
@@ -172,7 +263,11 @@ __host__ __forceinline__ size_t scene_bytes(int n_rows, int n_light) {
 // wherever a ray's origin, direction or hit distance is made: a large field
 // spans tens of units, where the 1e-5 offset of a secondary ray is a few
 // float32 steps, so one rounding decides whether that ray hits the surface
-// it left, and the path forks.
+// it left, and the path forks.  RN, and the explicit __fmul_rn/__fadd_rn
+// calls further down (the refraction test, the shadow range, sky_lookup),
+// matter only where the compiler may contract: in megakernel_linear.cu,
+// scan_hit.cu and skybox.cu.  megakernel_tree.cu is built with -fmad=false,
+// where they change nothing.
 template <bool RN>
 __device__ __forceinline__ float mul_(float x, float y) {
   if constexpr (RN) return __fmul_rn(x, y);
@@ -436,8 +531,10 @@ __device__ __forceinline__ bool fold_any(const Tables& tb, float ox, float oy, f
 // has at most one slot.  It keeps the IndirectPhong-only chain short.
 // LARGE answers closest hit and the shadow queries by the folds over the
 // scene's tables and reads the winner's row from device memory by object
-// id; the small instances keep the loops over shared memory.
-template <bool LIT, bool LARGE, class Emit>
+// id; the small instances keep the loops over shared memory.  SKY takes a
+// miss's radiance from the skybox (sky_lookup); the instances without it
+// carry none of its code.
+template <bool LIT, bool LARGE, bool SKY, class Emit>
 __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int depth,
                                            float& cx, float& cy, float& cz, Emit&& emit) {
   float t_best;
@@ -447,10 +544,18 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     hit = fold_closest(sc.tb, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
   else
     hit = closest_hit(sc, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
-  if (!hit) {
-    cx = e.tx * sc.s[H_BG];  // background; a miss spawns nothing
-    cy = e.ty * sc.s[H_BG + 1];
-    cz = e.tz * sc.s[H_BG + 2];
+  if (!hit) {  // background; a miss spawns nothing
+    float bx, by, bz;
+    if constexpr (SKY) {
+      sky_lookup(sc.sky, e.dx, e.dy, e.dz, bx, by, bz);
+    } else {
+      bx = sc.s[H_BG];
+      by = sc.s[H_BG + 1];
+      bz = sc.s[H_BG + 2];
+    }
+    cx = e.tx * bx;
+    cy = e.ty * by;
+    cz = e.tz * bz;
     return;
   }
   const float* r;  // the one load of the winner's row

@@ -29,7 +29,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_LINEAR = "megakernel_linear"
 KERNEL_TREE = "megakernel_tree"
 KERNEL_SCAN = "scan_hit"
-KERNELS = (KERNEL_LINEAR, KERNEL_TREE, KERNEL_SCAN)
+KERNEL_SKY = "skybox"
+KERNELS = (KERNEL_LINEAR, KERNEL_TREE, KERNEL_SCAN, KERNEL_SKY)
+
+# flags of one kernel on top of NVCC_FLAGS.  The tree kernel is compiled
+# without contraction of multiply-adds, so every product and sum rounds as
+# the plain PyTorch path's does and its lanes agree with that path to the
+# bit: a lane of a wide tree visits hundreds of nodes, and one contracted
+# sphere or plane test that turns a grazing child ray's self-hit forks it.
+KERNEL_FLAGS = {KERNEL_TREE: ("-fmad=false",)}
 
 # kernel launches in this process, per kernel: a wrapper adds one where
 # it launches its kernel and nowhere else (chip_smoke.py resets and reads
@@ -62,19 +70,24 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` builds to, named by a hash of every
-    source in ``csrc/`` and of the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    source in ``csrc/`` and of the kernel's flags."""
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for fname in sorted(os.listdir(CSRC_DIR)):
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             h.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags ``csrc/<name>.cu`` is compiled with."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def _compile(name: str, so: str) -> None:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", tmp, src]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if r.returncode != 0:
         raise KernelBuildError(

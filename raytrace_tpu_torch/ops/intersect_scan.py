@@ -5,7 +5,10 @@ PyTorch counterpart of :mod:`raytrace_tpu.ops.intersect_pallas`.
 :func:`scan_hit` launches ``csrc/scan_hit.cu`` on CUDA tensors (one
 thread per ray, the fold of ``csrc/render_common.cuh`` that the render
 kernels also call) or raises; on CPU tensors it runs the plain version,
-:func:`scan_hit_reference`.
+:func:`scan_hit_reference`.  Gradients of ``t`` with respect to the
+table and the rays come from the plain version
+(:mod:`raytrace_tpu_torch.ops.kernel_grad`); the forward pass is still
+the kernel.
 
 Table layout (:func:`raytrace_tpu_torch.ops.intersect._packed_tables`),
 one ``(C * OBJ_CHUNK, 4)`` float32 table, spheres first:
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from raytrace_tpu_torch.ops import _build
+from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.ops.vec import V3
 
 OBJ_CHUNK = 32               # table rows per chunk (one bounding sphere each)
@@ -162,11 +166,10 @@ def scan_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3, bounds=None):
     object id per row (-1 on pad rows).  ``bounds`` are the chunks'
     bounding spheres, computed here when not given.  On CUDA tensors this
     launches the kernel or raises; on CPU tensors it runs
-    :func:`scan_hit_reference`."""
+    :func:`scan_hit_reference`.  ``t_best`` is differentiable in the
+    table and the rays, through the plain scan without culling; ids and
+    hits take no gradient."""
     rays = (*ro, *rd)
-    if any(t.requires_grad for t in (table, *rays)):
-        raise NotImplementedError(
-            "gradients through scan_hit are not ported yet (ROADMAP item 7)")
     device = ro.x.device
     if any(t.device != device for t in (table, ids, *rays)):
         raise ValueError("table, ids and rays must lie on one device")
@@ -191,8 +194,20 @@ def scan_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3, bounds=None):
     elif (bounds.dtype != torch.float32 or bounds.shape != (n_chunks, 4)
           or bounds.device != device):
         raise ValueError("bounds must be (C, 4) float32 on the rays' device")
-    table, ids, bounds = table.contiguous(), ids.contiguous(), bounds.contiguous()
-    rays = [t.contiguous() for t in rays]
+    ids, bounds = ids.contiguous(), bounds.contiguous()
+    return kernel_forward(
+        lambda tab, *r: _launch(tab, ids, bounds, n_sph_pad, r),
+        lambda tab, *r: scan_hit_reference(tab, ids, n_sph_pad, V3(*r[:3]),
+                                           V3(*r[3:])),
+        table, *rays)
+
+
+def _launch(table, ids, bounds, n_sph_pad: int, rays):
+    device = table.device
+    n = rays[0].shape[0]
+    n_chunks = table.shape[0] // OBJ_CHUNK
+    table = table.detach().contiguous()
+    rays = [t.detach().contiguous() for t in rays]
     if table.data_ptr() % 16 or bounds.data_ptr() % 16:
         raise ValueError("table and bounds must be 16-byte aligned")
 

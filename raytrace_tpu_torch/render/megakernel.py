@@ -1,7 +1,7 @@
 """The render megakernels: per-lane radiance through one CUDA kernel.
 
 PyTorch counterpart of :mod:`raytrace_tpu.render.megakernel` for scenes
-of any object count in float32 with a solid background.
+of any object count in float32, with a solid background or a skybox.
 :func:`radiance_lanes` takes per-lane integer identities (pixel x, pixel
 y, antialias sample, lens sample) and returns their radiance.  On CUDA
 tensors it launches a hand-written kernel or raises: linear scenes
@@ -9,13 +9,17 @@ tensors it launches a hand-written kernel or raises: linear scenes
 scenes to ``csrc/megakernel_tree.cu``, one thread per lane each.  Above
 ``LARGE_SCENE_THRESHOLD`` live objects both kernels answer closest-hit
 and shadow queries by folding over the scene's unified primitive table
-in device memory (their large instances).  On CPU tensors it runs their
-plain PyTorch version, :func:`radiance_lanes_reference`.
+in device memory (their large instances), and a skybox scene takes the
+instances that look the cube up where a ray misses.  On CPU tensors it
+runs their plain PyTorch version, :func:`radiance_lanes_reference`.
+Gradients: the forward pass is the kernel, the backward pass
+differentiates the plain version on the same lanes
+(:mod:`raytrace_tpu_torch.ops.kernel_grad`).
 :func:`radiance_lanes_split` is the plain chain with a large scene's
 scans answered by the CUDA scan kernel
 (:mod:`raytrace_tpu_torch.ops.intersect_scan`).  Scenes outside
-:func:`usable` raise ``NotImplementedError`` naming the ROADMAP item on
-every device.
+:func:`usable` (float64, DFS stacks above 64 entries) raise
+``NotImplementedError`` naming the ROADMAP item on every device.
 """
 
 from __future__ import annotations
@@ -25,18 +29,21 @@ import dataclasses
 
 import torch
 
+from raytrace_tpu_torch.models.backgrounds import face_sizes_arg
 from raytrace_tpu_torch.ops import _build
 from raytrace_tpu_torch.ops.intersect import (LARGE_SCENE_THRESHOLD,
                                               object_table, per_scene_cache,
                                               scene_tables)
 from raytrace_tpu_torch.ops.intersect_scan import OBJ_CHUNK
+from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.ops.vec import V3
-from raytrace_tpu_torch.scene.schema import (BG_SOLID, CAM_DEPTH_OF_FIELD,
+from raytrace_tpu_torch.scene.schema import (BG_SKYBOX, CAM_DEPTH_OF_FIELD,
                                              SceneData, SceneSpec)
 
 KERNEL_LINEAR = _build.KERNEL_LINEAR
 KERNEL_TREE = _build.KERNEL_TREE
 KERNEL_SCAN = _build.KERNEL_SCAN
+KERNEL_SKY = _build.KERNEL_SKY
 KERNELS = _build.KERNELS
 # kernel launches in this process, per kernel
 LAUNCHES = _build.LAUNCHES
@@ -64,9 +71,9 @@ def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
     from raytrace_tpu_torch.render.integrator import tree_loop_stack
 
     if data.dtype != torch.float32:
-        return "float64 rendering is not ported yet (ROADMAP item 12)"
-    if spec.bg_type != BG_SOLID:
-        return "skybox backgrounds are not ported yet (ROADMAP item 11)"
+        return ("the kernels are float32: call radiance_lanes_reference "
+                "for a float64 scene, as sample_pixels does on CPU tensors "
+                "(double kernels: ROADMAP item 12)")
     if kernel_for(spec) == KERNEL_TREE:
         m, levels, _, cap = tree_loop_stack(spec)
         if cap > MAX_TREE_STACK:
@@ -84,12 +91,8 @@ def usable(data: SceneData, spec: SceneSpec) -> bool:
 def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
                    seed: int) -> V3:
     """Radiance of each lane, given (N,) integer identity tensors on the
-    scene's device.  Returns a V3 of (N,) float32 tensors."""
-    if any(getattr(data, f.name).requires_grad
-           for f in dataclasses.fields(data)):
-        raise NotImplementedError(
-            "gradients through the megakernel are not ported yet "
-            "(ROADMAP item 7)")
+    scene's device.  Returns a V3 of (N,) float32 tensors, differentiable
+    in every float leaf of the scene."""
     reason = unsupported_reason(data, spec)
     if reason is not None:
         raise NotImplementedError(reason)
@@ -100,7 +103,14 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
     if data.device != device:
         raise ValueError(f"scene on {data.device}, lanes on {device}")
     if device.type == "cuda":
-        return _launch(data, spec, pix, piy, aa, cam, seed)
+        # the kernel forward; backward through the plain version
+        leaves = [getattr(data, f.name) for f in dataclasses.fields(data)]
+        return V3(*kernel_forward(
+            lambda *ls: _launch(SceneData(*ls), spec, pix, piy, aa, cam,
+                                seed),
+            lambda *ls: radiance_lanes_reference(SceneData(*ls), spec, pix,
+                                                 piy, aa, cam, seed),
+            *leaves))
     if device.type == "cpu":
         return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed)
     raise ValueError(f"no megakernel for device {device}")
@@ -172,9 +182,12 @@ def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
 # the last scene buffer packed, reused while the scene is unchanged
 _scene_buffer = per_scene_cache(pack_scene)
 
+
 # lane ids, scene buffer, table, row ids, chunk bounds; sphere chunks,
-# chunks, objects, lights, max_depth, reflect, refract, indirect, dof
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+# chunks; cube, face sizes; objects, lights, max_depth, reflect, refract,
+# indirect, dof
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -210,16 +223,25 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
         tb = scene_tables(data, spec)
         n_chunks = tb.table.shape[0] // OBJ_CHUNK
         tables = [tb.table.data_ptr(), tb.ids.data_ptr(),
-                  tb.bounds.data_ptr(), tb.n_sph_pad // OBJ_CHUNK, n_chunks,
-                  spec.n_objects]
+                  tb.bounds.data_ptr(), tb.n_sph_pad // OBJ_CHUNK, n_chunks]
+        n_obj = spec.n_objects
         if (tb.table.dtype != torch.float32 or tables[0] % 16
                 or tables[2] % 16):
             raise ValueError("the scene's tables must be float32 and "
                              "16-byte aligned")
     else:
-        tables = [None, None, None, 0, 0, len(spec.live_objects())]
-    args = [*(t.data_ptr() for t in ids), scene.data_ptr(), *tables,
-            spec.n_lights, spec.max_depth,
+        tables = [None, None, None, 0, 0]
+        n_obj = len(spec.live_objects())
+    if spec.bg_type == BG_SKYBOX:
+        # the skybox instances: a non-null cube, which stays where it is in
+        # device memory (six faces of 1024 x 1024 are 75.5 MB) and is read
+        # where a ray misses
+        cube = data.bg_cube.detach().contiguous()
+        sky = [cube.data_ptr(), face_sizes_arg(cube, spec)]
+    else:
+        sky = [None, None]
+    args = [*(t.data_ptr() for t in ids), scene.data_ptr(), *tables, *sky,
+            n_obj, spec.n_lights, spec.max_depth,
             int(spec.has_reflect), int(spec.has_refract), spec.n_indirect,
             int(spec.cam_type == CAM_DEPTH_OF_FIELD)]
     if name == KERNEL_TREE:

@@ -8,12 +8,16 @@ requested dtype and device at the end, so the leaves equal those of
 
 from __future__ import annotations
 
+import os
+import struct
+
 import numpy as np
 import torch
 
+from raytrace_tpu_torch import color as colorlib
 from raytrace_tpu_torch.scene import dsl
 from raytrace_tpu_torch.scene.schema import (
-    BG_SOLID, CAM_DEPTH_OF_FIELD, CAM_SIMPLE_PERSPECTIVE, LIGHT_AREA,
+    BG_SKYBOX, BG_SOLID, CAM_DEPTH_OF_FIELD, CAM_SIMPLE_PERSPECTIVE, LIGHT_AREA,
     LIGHT_DIRECTIONAL, LIGHT_POINT, MAT_FRESNEL, MAT_INDIRECT_PHONG,
     MAT_PHONG, MAT_TRANSPARENT, SHAPE_PLANE, SHAPE_SPHERE, Scene, SceneSpec,
     scene_data_from_numpy,
@@ -52,8 +56,58 @@ def camera_look_at(focus, look, up, pov, h) -> tuple[np.ndarray, np.ndarray]:
     return camera_matrix(position, look, up, cot)
 
 
-def build_scene(ast: dsl.SceneAst, *, device, dtype=torch.float32) -> Scene:
-    """Assemble the tensor scene on ``device`` from a parsed AST."""
+def _read_bmp_rgb(blob: bytes) -> np.ndarray | None:
+    """The (H, W, 3) uint8 RGB pixels, top row first, of an uncompressed
+    24-bit BMP (what :mod:`raytrace_tpu_torch.io.bmp` writes), or None
+    for any other file."""
+    if len(blob) < 54 or blob[:2] != b"BM":
+        return None
+    offset, = struct.unpack("<I", blob[10:14])
+    dib, = struct.unpack("<I", blob[14:18])
+    if dib < 40:
+        return None
+    width, height = struct.unpack("<ii", blob[18:26])
+    planes, bpp, compression = struct.unpack("<HHI", blob[26:34])
+    stride = (3 * width + 3) & ~3
+    if (planes != 1 or bpp != 24 or compression != 0 or width <= 0
+            or height == 0 or len(blob) < offset + stride * abs(height)):
+        return None
+    rows = np.frombuffer(blob, np.uint8, count=stride * abs(height),
+                         offset=offset).reshape(abs(height), stride)
+    rgb = rows[:, :3 * width].reshape(abs(height), width, 3)[..., ::-1]
+    # a positive height stores the bottom row first
+    return rgb[::-1] if height > 0 else rgb
+
+
+def load_texture(path: str) -> np.ndarray:
+    """Load an image file to a linear-RGB f64 array (H, W, 3), top row
+    first (texture.rs:34-42): sRGB bytes decoded through the
+    ``SRGB_VALUES`` table, like Texture::at (texture.rs:39-42).
+
+    Uncompressed 24-bit BMP files are read with numpy alone; any other
+    format goes through Pillow, imported here, where it is installed.  A
+    file that cannot be read gives the ``SceneSyntaxError`` of a failed
+    texture load."""
+    try:
+        with open(path, "rb") as f:
+            blob = f.read()
+        rgb = _read_bmp_rgb(blob)
+        if rgb is None:
+            import io
+
+            from PIL import Image
+
+            with Image.open(io.BytesIO(blob)) as im:
+                rgb = np.asarray(im.convert("RGB"), dtype=np.uint8)
+    except Exception as e:  # noqa: BLE001 -- the TextureLoad error's shape
+        raise dsl.SceneSyntaxError(f'error loading "{path}": {e}', 0, 0)
+    return colorlib.SRGB_VALUES[rgb]
+
+
+def build_scene(ast: dsl.SceneAst, *, device, dtype=torch.float32,
+                scene_dir: str | None = None) -> Scene:
+    """Assemble the tensor scene on ``device`` from a parsed AST.  Skybox
+    face paths that are relative are taken against ``scene_dir``."""
     n_obj = max(len(ast.objects), 1)
     prim_p = np.zeros((n_obj, 3))
     prim_q = np.zeros((n_obj, 3))
@@ -126,9 +180,24 @@ def build_scene(ast: dsl.SceneAst, *, device, dtype=torch.float32) -> Scene:
                 else CAM_SIMPLE_PERSPECTIVE)
     cam_samples = cam.samples if cam.kind == "DepthOfField" else 1
 
-    if ast.background.kind == "Skybox":
-        raise NotImplementedError(
-            "skybox backgrounds are not ported yet (ROADMAP item 11)")
+    bg = ast.background
+    if bg.kind == "Skybox":
+        bg_type = BG_SKYBOX
+        faces = [load_texture(p if scene_dir is None or os.path.isabs(p)
+                              else os.path.join(scene_dir, p))
+                 for p in bg.faces]
+        face_sizes = tuple((t.shape[0], t.shape[1]) for t in faces)
+        # the faces padded into one cube; each is clamped to its own size
+        cube = np.zeros((6, max(h for h, _ in face_sizes),
+                         max(w for _, w in face_sizes), 3))
+        for i, t in enumerate(faces):
+            cube[i, :t.shape[0], :t.shape[1]] = t
+        bg_color = np.zeros(3)
+    else:
+        bg_type = BG_SOLID
+        cube = np.zeros((6, 1, 1, 3))
+        face_sizes = ((1, 1),) * 6
+        bg_color = np.asarray(bg.color, np.float64)
 
     spec = SceneSpec(
         shape_type=tuple(shape_type),
@@ -136,13 +205,14 @@ def build_scene(ast: dsl.SceneAst, *, device, dtype=torch.float32) -> Scene:
         light_type=tuple(light_type),
         cam_type=cam_type,
         cam_samples=max(cam_samples, 1),
-        bg_type=BG_SOLID,
+        bg_type=bg_type,
         width=ast.options.width,
         height=ast.options.height,
         antialias=ast.options.antialias,
         has_reflect=has_reflect,
         has_refract=has_refract,
         n_indirect=n_indirect,
+        face_sizes=face_sizes,
     )
     arrays = dict(
         prim_p=prim_p, prim_q=prim_q,
@@ -155,8 +225,7 @@ def build_scene(ast: dsl.SceneAst, *, device, dtype=torch.float32) -> Scene:
         cam_focus=np.float64(cam.dof_focus),
         cam_aperture=np.float64(cam.aperture),
         cam_im_dist=im_dist_cache,
-        bg_color=np.asarray(ast.background.color, np.float64),
-        bg_cube=np.zeros((6, 1, 1, 3)),
+        bg_color=bg_color, bg_cube=cube,
     )
     return Scene(data=scene_data_from_numpy(arrays, device, dtype),
                  spec=spec)
@@ -166,4 +235,5 @@ def load_scene_file(path: str, *, device, dtype=torch.float32) -> Scene:
     """Read, parse and build a scene file (main.rs:15-30) on ``device``."""
     with open(path, "r") as fh:
         text = fh.read()
-    return build_scene(dsl.parse(text), device=device, dtype=dtype)
+    return build_scene(dsl.parse(text), device=device, dtype=dtype,
+                       scene_dir=os.path.dirname(os.path.abspath(path)))

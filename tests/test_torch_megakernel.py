@@ -74,11 +74,19 @@ def _variant(**spec_changes):
 
 
 def _out_of_slice():
+    """Scenes the kernels do not take: float64, and a fan-out tree whose
+    DFS stack exceeds 64 entries (4 indirect samples at max_depth 21)."""
     f64 = torch_load(CORNELL, device="cpu", dtype=torch.float64)
     return {
         "f64": (f64.data, f64.spec, 12),
-        "skybox": (*_variant(bg_type=schema.BG_SKYBOX), 11),
+        "deep tree": (*_variant(n_indirect=4, max_depth=21), 9),
     }
+
+
+def test_usable_takes_skybox_scenes():
+    data, spec = _variant(bg_type=schema.BG_SKYBOX)
+    assert megakernel.usable(data, spec)
+    assert megakernel.unsupported_reason(data, spec) is None
 
 
 @pytest.mark.parametrize("feature", list(_out_of_slice()))
@@ -209,11 +217,19 @@ def test_in_slice_matches_jax_kernel(feature, monkeypatch):
 
 
 def test_gradients_not_ported():
+    """(The name dates from when this tested the refusal.)  A scene that
+    requires grad goes through radiance_lanes, and the gradient is the
+    plain version's."""
     ts = torch_load(CORNELL, device="cpu")
-    ts.data.prim_p.requires_grad_(True)
-    lanes = [torch.zeros(4, dtype=torch.int64)] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        megakernel.radiance_lanes(ts.data, ts.spec, *lanes, 0)
+    lanes = [torch.from_numpy(a.astype(np.int64)) for a in _lanes(64, 5)]
+    grads = []
+    for fn in (megakernel.radiance_lanes, megakernel.radiance_lanes_reference):
+        leaf = ts.data.mat_diffuse.clone().requires_grad_(True)
+        data = dataclasses.replace(ts.data, mat_diffuse=leaf)
+        out = fn(data, ts.spec, *lanes, 0)
+        grads.append(torch.autograd.grad(out.x.sum() + out.y.sum(), leaf)[0])
+    assert torch.equal(grads[0], grads[1])
+    assert torch.isfinite(grads[0]).all() and grads[0].abs().max() > 0
 
 
 def test_cpu_dispatch_is_the_plain_version():
@@ -296,14 +312,15 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "from raytrace_tpu_torch.ops import _build\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'raytrace_tpu')]\n"
-        "for m in ('scene.procedural', 'ops.intersect_scan'):\n"
+        "for m in ('scene.procedural', 'ops.intersect_scan', 'optim',\n"
+        "          'models.backgrounds', 'ops.kernel_grad'):\n"
         "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
         "print(len(mods), bad, _build.loaded())\n")
     r = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_mods, rest = r.stdout.split(" ", 1)
-    assert int(n_mods) >= 22
+    assert int(n_mods) >= 24
     assert rest.strip() == "[] []"
     after = sorted(os.listdir(build)) if os.path.isdir(build) else None
     assert after == before
@@ -384,7 +401,7 @@ def test_tree_kernel_deep_stacks_on_card(cuda_device, samples, max_depth):
 
 @pytest.mark.cuda
 def test_card_raises_out_of_slice(cuda_device):
-    data, spec, _ = _out_of_slice()["skybox"]
+    data, spec, _ = _out_of_slice()["deep tree"]
     lanes = [torch.zeros(4, dtype=torch.int64, device=cuda_device)] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         megakernel.radiance_lanes(data.to(cuda_device), spec, *lanes, 0)

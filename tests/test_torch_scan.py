@@ -193,12 +193,12 @@ def test_scan_hit_on_cpu_is_the_plain_version():
     assert _build.LAUNCHES == before
     for a, b in zip(got, intersect_scan.scan_hit_reference(*args)):
         assert torch.equal(a, b)
-    tb.table.requires_grad_(True)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-            intersect_scan.scan_hit(*args)
-    finally:
-        tb.table.requires_grad_(False)
+    # a table that requires grad goes through, and t carries the gradient
+    table = tb.table.clone().requires_grad_(True)
+    t, gid, hit = intersect_scan.scan_hit(table, *args[1:])
+    assert torch.equal(t, got[0]) and not gid.requires_grad
+    grad, = torch.autograd.grad(torch.where(hit, t, 0.0).sum(), table)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
     with pytest.raises(ValueError):
         intersect_scan.scan_hit_reference(tb.table[:-1], tb.ids[:-1],
                                           tb.n_sph_pad, *args[3:])

@@ -102,8 +102,18 @@ def test_f64_build_is_exact():
 
 
 def test_skybox_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    """(The name dates from when this tested the refusal.)  A scene with
+    a SkyboxBackground parses to the JAX package's AST and builds up to
+    the first face it cannot read, which is the same error in both."""
+    from raytrace_tpu.scene.builder import build_scene as jax_build
+
+    assert repr(tdsl.parse(SKYBOX)) == repr(jdsl.parse(SKYBOX))
+    with pytest.raises(jdsl.SceneSyntaxError) as want:
+        jax_build(jdsl.parse(SKYBOX))
+    with pytest.raises(tdsl.SceneSyntaxError) as got:
         build_scene(tdsl.parse(SKYBOX), device="cpu")
+    assert str(got.value) == str(want.value)
+    assert 'error loading "a.png"' in str(got.value)
 
 
 def test_scene_data_from_numpy_carries_showcase_leaves():

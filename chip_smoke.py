@@ -35,10 +35,21 @@ them (phase 17).  Gradients: forward through each kernel and backward
 through its plain version against the plain version alone, then two fits
 at 256x256 with 4 samples per pixel, which recover a perturbed diffuse
 row and ambient row with Adam at betas 0.8/0.99, and the same fits with
-``fit``'s default optimiser beside them (phase 18).  Each CLI render checks that it
-went through its kernel.  Every phase succeeds or raises; the last line
-is ``{"ok": true, ...}`` only when all of them passed.  Without a CUDA
-device it fails at once.  It imports nothing of JAX.
+``fit``'s default optimiser beside them (phase 18).  The tree kernel is
+held to the plain version bit for bit in each of its four stack sizes; the
+table fold with the table staged in shared memory (1,006 objects) and read
+from device memory (4,006), on camera rays, which every thread folds for
+itself, and on rays that part, which a warp folds one at a time, through
+the scan kernel and through both render kernels' large instances; phases 9
+and 13 print what the paths need (live nodes per lane and the largest of a
+warp; sphere chunks a ray enters and the union over a warp, per depth)
+beside the times.  Each CLI render checks that it went through its kernel;
+a second render of it runs under the profiler, and the device time of that
+run over that run's own seconds is the share the device was busy.  Phase
+headers carry the seconds since the start.  Every phase succeeds or
+raises; the last line is ``{"ok": true, ...}`` only when all of them
+passed.  Without a CUDA device it fails at once.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -113,16 +124,21 @@ PEAK_BYTES = 3.35e12
 # FP32 operations of one object test, counted from the device functions of
 # csrc/render_common.cuh: every add, subtract, multiply, compare, min or
 # max, division and square root counts one; a negation, an absolute value
-# and a select count nothing.  sphere_t: 3 (o - c) + 6 (b) + 7 (cc) + 4
-# (disc) + 1 (disc > 0) + 1 (sqrt) + 4 (t1, t2) + 2 (t1 > 0, t > 0) = 28.
-# plane_t: 5 (denom) + 6 (numer) + 1 (denom != 0) + 1 (division) + 1
-# (t > 0) = 14.  chunk_may, a chunk's bounding-sphere test: 3 + 6 + 7 + 4
-# as the sphere, + 2 (pos) + 2 (max, sqrt) + 3 (margin) + 3 (exit test) + 4
-# (entry test) = 34.  Only these tests are counted: a node's own arithmetic
-# (hit record, gates, lights, child ray) and its shadow rays are not, so
-# every bound made from these is a lower one.
-FLOPS_SPHERE, FLOPS_PLANE, FLOPS_BOUND = 28, 14, 34
-WORK_LANES = 16384  # lanes of the sample on which a path's work is counted
+# and a select count nothing.  sphere_t, a small scene's sphere: 3 (o - c)
+# + 6 (b) + 7 (cc, with r * r) + 4 (disc, with 4 * a) + 1 (disc > 0) + 1
+# (sqrt) + 4 (t1, t2) + 2 (t1 > 0, t > 0) = 28.  sphere_row_t, a table row
+# of a large scene, whose r * r the table holds and whose 4 * a the ray
+# holds: 3 (o - c) + 6 (b) + 6 (cc) + 3 (disc) + 1 (disc > 0) = 19; the
+# square root, the roots and their two compares lie behind the branch, run
+# only on the rows whose disc is positive, and are left out.  plane_t: 5
+# (denom) + 6 (numer) + 1 (denom != 0) + 1 (division) + 1 (t > 0) = 14.
+# A chunk's bounding-sphere test, chunk_bound: 3 (o - c) + 6 (b) + 7 (cc)
+# + 4 (disc) + 2 (pos) + 2 (max, sqrt) + 3 (margin) + 2 (t_enter) + 3 (exit
+# test), and chunk_may_enter, 2, counted once per chunk = 34.  Only these
+# tests are counted: a node's own arithmetic (hit record, gates, lights,
+# child ray) and its shadow rays are not, so every bound made from these is
+# a lower one.
+FLOPS_SPHERE, FLOPS_SPHERE_ROW, FLOPS_PLANE, FLOPS_BOUND = 28, 19, 14, 34
 # a skybox lookup: four texels of three floats; about 40 operations (three
 # absolute values and six compares for the face, two divisions, the scaling,
 # clamps and floors of u and v, nine blends of two products and a sum)
@@ -169,12 +185,6 @@ def under_the_sky(text: str, open_planes=()) -> str:
     return text
 
 
-def work_sample(t, n=WORK_LANES):
-    """``n`` elements of ``t`` at an even stride over all of it, so that a
-    pixel-ordered launch is sampled over the whole image."""
-    return t[::max(t.shape[0] // n, 1)][:n]
-
-
 def bound(flops: float, nbytes: float):
     """(the least ms the card could take, "bytes" or "operations"): the
     larger of the bytes over the memory rate and the operations over the
@@ -184,66 +194,14 @@ def bound(flops: float, nbytes: float):
             else (by_bytes, "bytes"))
 
 
-def path_work(data, spec, lanes, seed) -> dict:
-    """What these lanes' paths need, per lane, counted by walking the
-    plain version on an even sample of them: live node visits, the visits
-    that miss every object (each a skybox lookup in a skybox scene), and
-    for a large scene the sphere chunks that the visits' rays enter (the
-    others are culled).  Shadow rays are not counted, so the bound made
-    from this is a lower one."""
-    from raytrace_tpu_torch.ops import intersect_scan
-    from raytrace_tpu_torch.ops.intersect import closest_hit, scene_tables
-    from raytrace_tpu_torch.ops.vec import V3
-    from raytrace_tpu_torch.render import megakernel
-    from raytrace_tpu_torch.render.integrator import (_dfs_schedule,
-                                                      primary_rays,
-                                                      tree_loop_entry,
-                                                      tree_loop_node,
-                                                      tree_loop_stack)
-    from raytrace_tpu_torch.scene.schema import BG_SKYBOX
-
-    lanes = [work_sample(t) for t in lanes]
-    n = lanes[0].shape[0]
-    ro, rd, k1, k2 = primary_rays(data, spec, *lanes, seed)
-    m, levels, _, cap = tree_loop_stack(spec)
-    one = torch.ones_like(ro.x)
-    stack = [None] * cap
-    stack[0] = tree_loop_entry(ro, rd, one, V3(one, one, one), one, k1, k2,
-                               ro.x.dtype)
-    large = megakernel.is_large(spec)
-    tb = scene_tables(data, spec) if large else None
-    visits = chunks = misses = 0
-    sp = 1
-    for depth in _dfs_schedule(m, levels):
-        sp -= 1
-        e = stack[sp]
-        live = e[10] > 0.5
-        visits += int(live.sum())
-        if spec.bg_type == BG_SKYBOX:
-            hit = closest_hit(data, spec, V3(*e[0:3]), V3(*e[3:6])).hit
-            misses += int((live & ~hit).sum())
-        if large:
-            entered = intersect_scan.scan_hit_reference(
-                tb.table, tb.ids, tb.n_sph_pad, V3(*e[0:3]), V3(*e[3:6]),
-                tb.bounds, return_entered=True)[3]
-            chunks += int(entered[live].sum())
-        _, virt = tree_loop_node(data, spec, m, e, depth)
-        if depth < levels - 1:
-            if len(virt) < m:  # no child slot at all: the walk ends here
-                break
-            for j, entry in enumerate(virt):
-                stack[sp + (m - 1 - j)] = entry
-            sp += m
-    return {"visits": visits / n, "chunks": chunks / n, "misses": misses / n}
-
-
 def render_bound(spec, n_lanes: int, work: dict, tables=None):
     """The bound of one render-kernel launch of ``n_lanes`` lanes whose
-    paths need ``work`` (:func:`path_work`): 16 B in and 12 B out per
-    lane plus the scene once, and 48 B of texels per skybox lookup; per
-    live node its closest-hit tests and nothing else of it: every live object of a small scene, or the rows
-    of the chunks entered, every chunk's bound test and the plane rows of
-    a large one."""
+    paths need ``work`` (``raytrace_tpu_torch.render.work.path_work``,
+    counted on whole warps drawn from the launch): 16 B in and 12 B out
+    per lane plus the scene once, and 48 B of texels per skybox lookup; per
+    live node its closest-hit tests and nothing else of it: every live
+    object of a small scene, or the rows of the chunks entered, every
+    chunk's bound test and the plane rows of a large one."""
     n_sph = sum(t == 0 for t in spec.shape_type)
     n_pln = sum(t == 1 for t in spec.shape_type)
     nbytes = (28 + SKY_TEXEL_BYTES * work["misses"]) * n_lanes + 96 * (
@@ -252,7 +210,7 @@ def render_bound(spec, n_lanes: int, work: dict, tables=None):
         flops = work["visits"] * (n_sph * FLOPS_SPHERE + n_pln * FLOPS_PLANE)
     else:
         n_sph_chunks = tables.n_sph_pad // 32
-        flops = (work["chunks"] * 32 * FLOPS_SPHERE
+        flops = (work["chunks"] * 32 * FLOPS_SPHERE_ROW
                  + work["visits"] * (n_sph_chunks * FLOPS_BOUND
                                      + n_pln * FLOPS_PLANE))
         nbytes += 20 * tables.table.shape[0]
@@ -266,9 +224,10 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def compare(got, want) -> dict:
+def compare(got, want, exact: bool = False) -> dict:
     """Hold kernel radiance against the plain version's; raise if the
-    tolerance above is missed."""
+    tolerance above is missed, or with ``exact`` (the tree kernel, which
+    is compiled without contraction) if any lane differs in any bit."""
     g = torch.stack(list(got)).double().cpu().numpy()
     w = torch.stack(list(want)).double().cpu().numpy()
     d = np.abs(g - w)
@@ -285,6 +244,9 @@ def compare(got, want) -> dict:
             and (mean_rel <= MEAN_RTOL).all()):
         raise AssertionError(f"kernel disagrees with the plain version: "
                              f"{stats}")
+    if exact and stats["bit_equal"] != 1.0:
+        raise AssertionError(f"the tree kernel is not bit-equal to the plain "
+                             f"version: {stats}")
     return stats
 
 
@@ -313,11 +275,10 @@ def cli_launch_lanes(spec, device):
                        device), s_launch
 
 
-def compare_scan(got, want) -> dict:
+def compare_scan(got, want, quiet: bool = False) -> dict:
     """Hold the scan kernel's (t, id, hit) against the plain version's:
-    ids and hits are integers, equal but for a near-tie that one rounding
-    may turn (at most 0.1% of the rays); t within 1e-5 relative where they
-    agree, infinite on a miss."""
+    ids and hits equal on every ray and t to the bit (the fold rounds every
+    product and sum as the plain scan does)."""
     (t, gid, hit), (wt, wg, wh) = got, want[:3]
     same = (gid == wg) & (hit == wh)
     both = same & hit
@@ -327,8 +288,9 @@ def compare_scan(got, want) -> dict:
              "t_rel_err": float(((t - wt).abs() / wt)[both].max()),
              "max_abs_err": float((t - wt).abs()[both].max()),
              "hit_share": float(hit.float().mean())}
-    print(f"  {stats}")
-    if not (float(same.float().mean()) >= 0.999 and stats["t_rel_err"] <= 1e-5
+    if not quiet:
+        print(f"  {stats}")
+    if not (bool(same.all()) and torch.equal(t, wt)
             and bool(torch.isinf(t[~hit]).all())):
         raise AssertionError(f"scan kernel disagrees: {stats}")
     return stats
@@ -402,6 +364,28 @@ def device_ms(fn, reps: int, name_part: str = "", per_call: int = 1) -> float:
     return float("nan")
 
 
+def device_busy_ms(fn) -> float:
+    """Device time (ms) of every kernel and copy that ``fn`` launches, from
+    torch.profiler.  The recording starts with 64 trivial kernels, which a
+    recording made after large ones may lose in place of ``fn``'s; they
+    are the first 64 device records and are left out of the sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            scratch.add_(1.0)
+        fn()
+        torch.cuda.synchronize()
+    records = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    return sum(e.device_time_total for e in records[64:]) / 1e3
+
+
 def random_lanes(spec, n, seed, device):
     rs = np.random.RandomState(seed)
     return [torch.from_numpy(a.astype(np.int64)).to(device) for a in (
@@ -410,9 +394,12 @@ def random_lanes(spec, n, seed, device):
         rs.randint(0, spec.cam_samples, n))]
 
 
-def check_kernel(megakernel, kernel, data, spec, lanes, seed, label) -> dict:
+def check_kernel(megakernel, kernel, data, spec, lanes, seed, label,
+                 want=None) -> dict:
     """One wrapper call on the card, which must launch ``kernel`` once
-    and nothing else, held against the plain version on the same lanes."""
+    and nothing else, held against the plain version on the same lanes
+    (``want``, when the caller has run it already); the tree kernel bit
+    for bit."""
     if megakernel.kernel_for(spec) != kernel:
         raise AssertionError(f"{label}: the scene is not {kernel}'s")
     before = dict(megakernel.LAUNCHES)
@@ -421,16 +408,21 @@ def check_kernel(megakernel, kernel, data, spec, lanes, seed, label) -> dict:
     rose = {k: megakernel.LAUNCHES[k] - before[k] for k in megakernel.KERNELS}
     if rose != {k: int(k == kernel) for k in megakernel.KERNELS}:
         raise AssertionError(f"{label}: launches {rose}, not one of {kernel}")
-    want = megakernel.radiance_lanes_reference(data, spec, *lanes, seed)
+    if want is None:
+        want = megakernel.radiance_lanes_reference(data, spec, *lanes, seed)
     torch.cuda.synchronize()
     print(f"    {kernel} vs plain, {label}:")
-    return compare(got, want)
+    return compare(got, want, exact=kernel == megakernel.KERNEL_TREE)
 
 
 def cli_render(cli, megakernel, kernel, scene_path, args, spec):
     """The CLI on --device cuda, with the launch counts set to 0 just
-    before it; checks the BMP and the image.  Returns (render_done log
-    record, wall seconds, launches per kernel)."""
+    before it; checks the BMP and the image; then the same render once
+    more under the profiler: ``seconds_profiled`` in the record is that
+    run's render seconds (the allocator now holds the launch's buffers, the
+    profiler adds its own work), ``device_busy`` that same run's device
+    time over them.  Returns (render_done log record, wall seconds,
+    launches per kernel, BMP bytes)."""
     from raytrace_tpu_torch.io.bmp import row_stride
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -451,6 +443,15 @@ def cli_render(cli, megakernel, kernel, scene_path, args, spec):
             blob = f.read()
         with open(log) as f:
             done = [json.loads(x) for x in f if '"render_done"' in x][-1]
+        busy = device_busy_ms(lambda: cli.main(
+            [scene_path, "-o", os.path.join(tmp, "again.bmp"), *args,
+             "--device", "cuda", "--log-json", log, "-q"]))
+        with open(log) as f:
+            again = [json.loads(x) for x in f if '"render_done"' in x]
+        if len(again) != 2:
+            raise AssertionError("the profiled render left no record")
+        done["seconds_profiled"] = again[-1]["seconds"]
+        done["device_busy"] = busy / (again[-1]["seconds"] * 1e3)
     w, h = struct.unpack("<ii", blob[18:26])
     if not (blob[:2] == b"BM" and blob[0x46:0x4A] == b"BGRs"
             and (w, h) == (spec.width, spec.height)
@@ -490,11 +491,27 @@ def main() -> int:
     from raytrace_tpu_torch.render.integrator import (primary_rays,
                                                       sample_pixels,
                                                       tree_loop_stack)
+    from raytrace_tpu_torch.render.work import path_work as count_work
+    from raytrace_tpu_torch.render.work import warp_sample
     from raytrace_tpu_torch.scene import dsl
     from raytrace_tpu_torch.scene.builder import build_scene, load_scene_file
     from raytrace_tpu_torch.scene.procedural import (make_sphere_field,
                                                      sphere_field_source)
     from raytrace_tpu_torch.scene.schema import SceneData
+
+    def path_work(data, spec, lanes, seed):
+        """What a launch's paths need, counted on 512 of its warps."""
+        return count_work(data, spec, [warp_sample(t) for t in lanes], seed)
+
+    def by_depth(work):
+        return ", ".join(f"{d}: {a:.3f} x {b:.2f}, a warp's union {c:.2f}"
+                         for d, (a, b, c) in work["by_depth"].items())
+
+    t_start = time.perf_counter()
+
+    def at():
+        """Seconds since the start, for the phase headers."""
+        return f"{time.perf_counter() - t_start:.0f} s"
 
     k_lin, k_tree = megakernel.KERNEL_LINEAR, megakernel.KERNEL_TREE
     k_scan, k_sky = megakernel.KERNEL_SCAN, megakernel.KERNEL_SKY
@@ -546,7 +563,7 @@ def main() -> int:
     rand_lanes = random_lanes(spec, 65536, SEED, device)
     main_lanes = pixel_lanes(spec.width, spec.width * spec.height, 16, 1,
                              device)
-    print("[3] kernel vs plain on cornell_indirect:")
+    print(f"[3, {at()}] " "kernel vs plain on cornell_indirect:")
     for name, lanes in (("random cornell lanes", rand_lanes),
                         ("the CLI's launch, 512x512 x 16 spp", main_lanes)):
         stats = check_kernel(megakernel, k_lin, data, spec, lanes, SEED, name)
@@ -556,8 +573,11 @@ def main() -> int:
     done, wall, launches, size = cli_render(cli, megakernel, k_lin, SCENE,
                                             ["--spp", "16"], spec)
     lin_launches = launches[k_lin]
-    print(f"[4] CLI render {spec.width}x{spec.height} x 16 spp: {wall:.2f} s "
-          f"wall, {done['seconds']} s render, launches {launches}, mean "
+    print(f"[4, {at()}] "
+          f"CLI render {spec.width}x{spec.height} x 16 spp: {wall:.2f} s "
+          f"wall, {done['seconds']} s render ("
+          f"{done['seconds_profiled']} s under the profiler, the device busy "
+          f"{done['device_busy']:.3f} of that), launches {launches}, mean "
           f"radiance {done['mean_radiance']:.6f}, BMP {size} B")
 
     # ---- phase 5: throughput at 2,097,152 lanes per launch ----
@@ -575,7 +595,7 @@ def main() -> int:
     def plain():
         megakernel.radiance_lanes_reference(data, spec_b, *lanes, 0)
 
-    print(f"[5] {n} lanes of cornell at 1024x1024:")
+    print(f"[5, {at()}] {n} lanes of cornell at 1024x1024:")
     stats = check_kernel(megakernel, k_lin, data, spec_b, lanes, 0,
                          "1024x1024 x 16 spp")
     max_err[k_lin] = max(max_err[k_lin], stats["max_abs_err"])
@@ -599,7 +619,7 @@ def main() -> int:
 
     # ---- phase 6: the linear kernel with lights, mirror and DoF ----
     lit = build_scene(dsl.parse(LIT_MIRROR), device=device)
-    print("[6] kernel vs plain on the lit mirror scene (point and "
+    print(f"[6, {at()}] " "kernel vs plain on the lit mirror scene (point and "
           "directional lights, Phong mirror, depth of field):")
     stats = check_kernel(megakernel, k_lin, lit.data, lit.spec,
                          random_lanes(lit.spec, 65536, SEED, device), SEED,
@@ -617,7 +637,7 @@ def main() -> int:
                      f"4,096 random lanes",
                      dataclasses.replace(sc, spec=dataclasses.replace(
                          sc.spec, max_depth=depth)), 4096))
-    print("[7] tree kernel vs plain:")
+    print(f"[7, {at()}] " "tree kernel vs plain:")
     for label, sc, n in (("materials_showcase, 65,536 random lanes", show,
                           65536),
                          ("4-sample IndirectPhong, 16,384 random lanes",
@@ -626,16 +646,21 @@ def main() -> int:
         print(f"    {label}: m={m}, {levels} levels, {nodes} nodes, "
               f"stack {cap}")
         t0 = time.perf_counter()
-        stats = check_kernel(megakernel, k_tree, sc.data, sc.spec,
-                             random_lanes(sc.spec, n, SEED, device), SEED,
-                             label)
-        print(f"    ({time.perf_counter() - t0:.2f} s)")
+        lanes = random_lanes(sc.spec, n, SEED, device)
+        want = megakernel.radiance_lanes_reference(sc.data, sc.spec, *lanes,
+                                                   SEED)
+        stats = check_kernel(
+            megakernel, k_tree, sc.data, sc.spec, lanes, SEED,
+            f"{label}, stack instance {megakernel.tree_instance(cap)}", want)
         max_err[k_tree] = max(max_err[k_tree], stats["max_abs_err"])
+        print(f"    ({time.perf_counter() - t0:.2f} s)")
 
     # ---- phase 8: the showcase through the CLI at its own settings ----
     s = show.spec
     lanes, s_launch = cli_launch_lanes(s, device)
-    print(f"[8] the CLI's launch, {s.width}x{s.height} x {s_launch} aa x "
+    show_launch_lanes = [t.to(torch.int32) for t in lanes]
+    print(f"[8, {at()}] "
+          f"the CLI's launch, {s.width}x{s.height} x {s_launch} aa x "
           f"{s.cam_samples} lens samples:")
     t0 = time.perf_counter()
     stats = check_kernel(megakernel, k_tree, show.data, s, lanes, SEED,
@@ -647,13 +672,15 @@ def main() -> int:
     tree_launches = launches[k_tree]
     print(f"    CLI render of materials_showcase {s.width}x{s.height} x "
           f"{s.antialias} aa x {s.cam_samples} lens samples: {wall:.2f} s "
-          f"wall, {done['seconds']} s render, launches {launches}, mean "
+          f"wall, {done['seconds']} s render ("
+          f"{done['seconds_profiled']} s under the profiler, the device busy "
+          f"{done['device_busy']:.3f} of that), launches {launches}, mean "
           f"radiance {done['mean_radiance']:.6f}, BMP {size} B, on {smi}")
 
     # ---- phase 9: the lit kernels at 2,097,152 lanes per launch ----
-    print("[9] 2,097,152 lanes per launch:")
+    print(f"[9, {at()}] " "2,097,152 lanes per launch:")
     for kname, label, sc, k_reps, p_reps in (
-            (k_tree, "tree kernel, materials_showcase", show, 10, 2),
+            (k_tree, "tree kernel, materials_showcase", show, 10, 1),
             (k_lin, "linear kernel, lit mirror scene", lit, 20, 5)):
         lanes = [t.to(torch.int32)
                  for t in random_lanes(sc.spec, 1 << 21, SEED, device)]
@@ -669,18 +696,30 @@ def main() -> int:
         max_err[kname] = max(max_err[kname], stats["max_abs_err"])
         ms, plain_ms, times = time_pair(kernel, plain, k_reps, p_reps)
         k_dev = device_ms(kernel, k_reps, kname)
-        p_dev = device_ms(plain, 1)
         print(f"    {label}: kernel {ms:.4f} ms/call (runs "
               f"{[round(x, 4) for x in times['kernel']]}), {k_dev:.4f} ms on "
               f"the device; plain {plain_ms:.4f} ms/call (runs "
-              f"{[round(x, 4) for x in times['plain']]}), {p_dev:.4f} ms on "
-              f"the device; on {smi}")
+              f"{[round(x, 4) for x in times['plain']]}); on {smi}")
         if kname == k_tree:
             timing[k_tree] = (ms, plain_ms)
             work = path_work(sc.data, sc.spec, lanes, 0)
             bounds[k_tree] = render_bound(sc.spec, 1 << 21, work)
-            print(f"    needs {work['visits']:.3f} live nodes per lane; "
-                  f"bound {bounds[k_tree][0]:.4f} ms ({bounds[k_tree][1]})")
+            print(f"    needs {work['visits']:.3f} live nodes per lane, "
+                  f"{work['warp_visits']:.3f} the largest of a warp's 32 (the "
+                  f"rounds the warp takes); bound {bounds[k_tree][0]:.4f} ms "
+                  f"({bounds[k_tree][1]})")
+            n_cli = show_launch_lanes[0].shape[0]
+
+            def kernel_cli():
+                megakernel.radiance_lanes(sc.data, sc.spec,
+                                          *show_launch_lanes, 0)
+
+            cli_ms = [ms_per_launch(kernel_cli, 3, k_reps) for _ in range(2)]
+            work = path_work(sc.data, sc.spec, show_launch_lanes, 0)
+            print(f"    on the CLI's own launch, {n_cli} pixel-ordered lanes ("
+                  f"{work['visits']:.3f} live nodes per lane, "
+                  f"{work['warp_visits']:.3f} the largest of a warp): runs "
+                  f"{[round(x, 4) for x in cli_ms]} ms/call; on {smi}")
 
     # ---- phase 10: the scan kernel vs its plain version ----
     n_chk = 65536
@@ -693,7 +732,8 @@ def main() -> int:
         np.float32)).to(device) for _ in range(3)))
     rand_d = V3(*(torch.from_numpy(rs.normal(0, 1, n_chk).astype(
         np.float32)).to(device) for _ in range(3)))
-    print("[10] scan kernel vs plain, 65,536 rays (id and hit mismatch "
+    print(f"[10, {at()}] "
+          "scan kernel vs plain, 65,536 rays (id and hit mismatch "
           "shares, largest relative t error on agreeing hits; mean sphere "
           "chunks a ray enters):")
     for n_sph, (sc, tb) in fields.items():
@@ -710,10 +750,15 @@ def main() -> int:
                 raise AssertionError("scan_hit did not launch its kernel once")
             want = intersect_scan.scan_hit_reference(
                 tb.table, tb.ids, tb.n_sph_pad, o, d, tb.bounds,
-                return_entered=True)
-            print(f"    {n_sph + 6} objects, {label}, entering "
+                return_entered=True, return_mask=True)
+            union = want[4].reshape(-1, 32, tb.n_sph_pad // 32).any(dim=1)
+            staged = intersect_scan.fold_in_shared(tb.table.shape[0] // 32)
+            print(f"    {n_sph + 6} objects (the table "
+                  f"{'staged in shared' if staged else 'read from device'} "
+                  f"memory), {label}, entering "
                   f"{float(want[3].float().mean()):.2f} of "
-                  f"{tb.n_sph_pad // 32} sphere chunks:")
+                  f"{tb.n_sph_pad // 32} sphere chunks, the 32 rays of a warp "
+                  f"together {float(union.sum(dim=1).float().mean()):.2f}:")
             stats = compare_scan((t, gid, hit), want)
             max_err[k_scan] = max(max_err[k_scan], stats["max_abs_err"])
 
@@ -724,20 +769,35 @@ def main() -> int:
         1000, mix_materials=False).replace("lights: [ ]", """lights: [
         { model: PointLight { location: (0, 20, 10) }
           color: rgb(30, 28, 26) } ]""")), device=device)
-    print("[11] large scenes (1,006 objects), 65,536 random lanes:")
+    print(f"[11, {at()}] "
+          "large scenes (1,006 objects; 4,006, whose table the kernels "
+          "read from device memory), 65,536 random lanes:")
     for kname, row, label, sc in (
             (k_lin, k_lin_large, "linear field", lin),
             (k_tree, k_tree_large, "mixed field (m = 2, 63 nodes)", mixed),
             (k_lin, k_lin_large, "linear field with a point light",
-             lit_large)):
+             lit_large),
+            (k_lin, k_lin_large, "linear field, 4,006 objects",
+             fields[4000][0])):
         if not megakernel.is_large(sc.spec):
             raise AssertionError(f"{label}: not a large scene")
         t0 = time.perf_counter()
-        stats = check_kernel(megakernel, kname, sc.data, sc.spec,
-                             random_lanes(sc.spec, n_chk, SEED, device), SEED,
-                             label)
-        print(f"    ({time.perf_counter() - t0:.2f} s)")
+        lanes = random_lanes(sc.spec, n_chk, SEED, device)
+        want = megakernel.radiance_lanes_reference(sc.data, sc.spec, *lanes,
+                                                   SEED)
+        n_chunks = scene_tables(sc.data, sc.spec).table.shape[0] // 32
+        staged = intersect_scan.fold_in_shared(
+            n_chunks, megakernel.scene_shared_bytes(sc.spec))
+        stats = check_kernel(
+            megakernel, kname, sc.data, sc.spec, lanes, SEED,
+            f"{label} (its table of {intersect_scan.fold_bytes(n_chunks)} B "
+            f"{'staged in shared' if staged else 'read from device'} memory)",
+            want)
         max_err[row] = max(max_err[row], stats["max_abs_err"])
+        if stats["share_outside"] > 0:
+            raise AssertionError(f"{label}: a lane outside the rule")
+        print(f"    no lane outside the rule "
+              f"({time.perf_counter() - t0:.2f} s)")
     lanes = random_lanes(lin.spec, n_chk, SEED, device)
     before = dict(megakernel.LAUNCHES)
     split = megakernel.radiance_lanes_split(lin.data, lin.spec, *lanes, SEED)
@@ -752,7 +812,8 @@ def main() -> int:
                                              SEED))
 
     # ---- phase 12: large scenes through the CLI at their own settings ----
-    print("[12] the CLI on the 1,006-object fields, 1024x1024 x 4 spp:")
+    print(f"[12, {at()}] "
+          "the CLI on the 1,006-object fields, 1024x1024 x 4 spp:")
     large_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         for kname, row, label, mix in ((k_lin, k_lin_large, "linear", False),
@@ -778,11 +839,14 @@ def main() -> int:
                                                     path, [], sc.spec)
             large_launches[row] = launches[kname]
             print(f"    {label} field: {wall:.2f} s wall, {done['seconds']} s "
-                  f"render, launches {launches}, mean radiance "
+                  f"render ({done['seconds_profiled']} s under the profiler, "
+                  f"the device busy {done['device_busy']:.3f} of that), "
+                  f"launches {launches}, mean radiance "
                   f"{done['mean_radiance']:.6f}, BMP {size} B, on {smi}")
 
     # ---- phase 13: large scenes at 2,097,152 lanes per launch ----
-    print("[13] large scenes, 2,097,152 lanes per launch (pixel-ordered, "
+    print(f"[13, {at()}] "
+          "large scenes, 2,097,152 lanes per launch (pixel-ordered, "
           "1024x1024 x 2 spp):")
     n = 1 << 21
     lanes = [t.to(torch.int32) for t in pixel_lanes(1024, n // 2, 2, 1,
@@ -802,10 +866,13 @@ def main() -> int:
         work = path_work(sc.data, sc.spec, lanes, 0)
         b_ms, b_by = render_bound(sc.spec, n, work, tb)
         line = (f"    {label}: kernel {ms:.4f} ms/call, {k_dev:.4f} ms on the "
-                f"device; needs {work['visits']:.3f} live nodes per lane, "
+                f"device; needs {work['visits']:.3f} live nodes per lane ("
+                f"{work['warp_visits']:.3f} the largest of a warp), "
                 f"each entering {work['chunks'] / work['visits']:.2f} of "
                 f"{tb.n_sph_pad // 32} sphere chunks; bound {b_ms:.4f} ms "
-                f"({b_by})")
+                f"({b_by}); per depth, live lanes per lane x chunks a ray "
+                f"enters, and the union over a warp's live lanes: "
+                f"{by_depth(work)}")
         if plain_once:
             # the plain path takes seconds here: one run, not warmed up
             plain_ms, want = once_ms(
@@ -815,7 +882,7 @@ def main() -> int:
         print(f"{line}; on {smi}")
         if row is not None:
             print("    that launch vs the plain run:")
-            stats = compare(got, want)
+            stats = compare(got, want, exact=row == k_tree_large)
             max_err[row] = max(max_err[row], stats["max_abs_err"])
             timing[row] = (ms, plain_ms)
             bounds[row] = (b_ms, b_by)
@@ -852,21 +919,25 @@ def main() -> int:
         ms = min(ms_per_launch(scan, 2, 10) for _ in range(2))
         dev = device_ms(scan, 10, "scan_hit")
         plain_ms, want = once_ms(scan_plain)
-        entered = intersect_scan.scan_hit_reference(
-            tb.table, tb.ids, tb.n_sph_pad,
-            V3(*(work_sample(c, n_chk) for c in o)),
-            V3(*(work_sample(c, n_chk) for c in d)), tb.bounds,
-            return_entered=True)[3].float().mean().item()
         n_sph_chunks = tb.n_sph_pad // 32
+        counted = intersect_scan.scan_hit_reference(
+            tb.table, tb.ids, tb.n_sph_pad,
+            V3(*(warp_sample(c, n_chk // 32) for c in o)),
+            V3(*(warp_sample(c, n_chk // 32) for c in d)), tb.bounds,
+            return_entered=True, return_mask=True)
+        entered = counted[3].float().mean().item()
+        union = counted[4].reshape(-1, 32, n_sph_chunks).any(dim=1).sum(
+            dim=1).float().mean().item()
         b_ms, b_by = bound(
-            n * (entered * 32 * FLOPS_SPHERE + n_sph_chunks * FLOPS_BOUND
+            n * (entered * 32 * FLOPS_SPHERE_ROW + n_sph_chunks * FLOPS_BOUND
                  + 5 * FLOPS_PLANE), 33 * n + 20 * tb.table.shape[0])
         print(f"    scan kernel, {n_sph + 6} objects, the launch's camera "
               f"rays: {ms:.4f} ms/call, {dev:.4f} ms on the device; plain "
               f"{plain_ms:.1f} ms (one run); a ray enters {entered:.2f} of "
-              f"{n_sph_chunks} sphere chunks (every 32nd ray); bound "
-              f"{b_ms:.4f} ms ({b_by}); on {smi}; that launch vs the plain "
-              f"run:")
+              f"{n_sph_chunks} sphere chunks, the 32 rays of a warp together "
+              f"{union:.2f} (2,048 warps of the launch); bound "
+              f"{b_ms:.4f} ms ({b_by}); on {smi}; that launch vs the "
+              f"plain run:")
         stats = compare_scan(scan(), want)
         max_err[k_scan] = max(max_err[k_scan], stats["max_abs_err"])
         if n_sph == 1000:
@@ -940,7 +1011,7 @@ def main() -> int:
         "ties_black": bool(not got[:2048].any() and not want[:2048].any()),
         "finite": bool(torch.isfinite(got).all()),
         "mean": float(got.mean())}
-    print(f"[14] skybox kernel vs plain, six faces {FACE_SIZES}:\n"
+    print(f"[14, {at()}] skybox kernel vs plain, six faces {FACE_SIZES}:\n"
           f"  {sky_stats}")
     if not (sky_stats["share_within_1e-6"] >= 0.999 and sky_stats["finite"]
             and sky_stats["ties_black"] and sky_stats["mean"] > 0.1):
@@ -974,7 +1045,8 @@ def main() -> int:
         return (float(miss.float().mean()),
                 float((near & miss).float().sum() / miss.sum().clamp(min=1)))
 
-    print("[15] sky instances vs plain (65,536 random lanes, then the "
+    print(f"[15, {at()}] "
+          "sky instances vs plain (65,536 random lanes, then the "
           "CLI's own launch):")
     for name, kname, row, every in (
             ("cornell", k_lin, k_lin_sky, 1),
@@ -1004,7 +1076,8 @@ def main() -> int:
                 max_err[row] = max(max_err[row], stats["max_abs_err"])
 
     # ---- phase 16: skybox scenes through the CLI ----
-    print("[16] the CLI on the skybox scenes, from scene files and BMP "
+    print(f"[16, {at()}] "
+          "the CLI on the skybox scenes, from scene files and BMP "
           "faces:")
     sky_launches = {}
     for name, kname, row in (("cornell", k_lin, k_lin_sky),
@@ -1019,7 +1092,9 @@ def main() -> int:
         s_ = sc.spec
         print(f"    {name}: {s_.width}x{s_.height} x {s_.antialias} aa x "
               f"{s_.cam_samples} lens, {len(s_.live_objects())} objects: "
-              f"{wall:.2f} s wall, {done['seconds']} s render, launches "
+              f"{wall:.2f} s wall, {done['seconds']} s render ("
+              f"{done['seconds_profiled']} s under the profiler, the device "
+              f"busy {done['device_busy']:.3f} of that), launches "
               f"{launches}, mean radiance {done['mean_radiance']:.6f}, BMP "
               f"{size} B, on {smi}")
     # the skybox kernel through its wrapper, on the primary rays of the
@@ -1037,11 +1112,12 @@ def main() -> int:
     if not torch.isfinite(colors).all():
         raise AssertionError("background_color gave a non-finite color")
     print(f"    background_color, called directly on the {rd.shape[0]} "
-          f"primary rays of the cornell launch: launches {dict(megakernel.LAUNCHES)}, mean "
-          f"{float(colors.mean()):.6f}")
+          f"primary rays of the cornell launch: launches "
+          f"{dict(megakernel.LAUNCHES)}, mean {float(colors.mean()):.6f}")
 
     # ---- phase 17: the sky instances at 2,097,152 lanes per launch ----
-    print("[17] 2,097,152 lanes per launch, skybox scenes, and the solid "
+    print(f"[17, {at()}] "
+          "2,097,152 lanes per launch, skybox scenes, and the solid "
           "scenes again:")
     lanes_c = [t.to(torch.int32)
                for t in pixel_lanes(1024, (1 << 21) // 16, 16, 1, device)]
@@ -1051,7 +1127,7 @@ def main() -> int:
             (k_lin_sky, "linear kernel, cornell under the sky",
              sky_scenes["cornell"][1], lanes_c, 20, 5),
             (k_tree_sky, "tree kernel, showcase under the sky",
-             sky_scenes["showcase"][1], lanes_s, 10, 2)):
+             sky_scenes["showcase"][1], lanes_s, 10, 1)):
         def kernel():
             return megakernel.radiance_lanes(sc.data, sc.spec, *lanes, 0)
 
@@ -1060,7 +1136,7 @@ def main() -> int:
                                                        *lanes, 0)
 
         print(f"    {label}, that launch vs the plain run:")
-        stats = compare(kernel(), plain())
+        stats = compare(kernel(), plain(), exact=row == k_tree_sky)
         max_err[row] = max(max_err[row], stats["max_abs_err"])
         ms, plain_ms, times = time_pair(kernel, plain, k_reps, p_reps)
         k_dev = device_ms(kernel, k_reps, megakernel.kernel_for(sc.spec))
@@ -1103,7 +1179,8 @@ def main() -> int:
         return bool(torch.isfinite(g).all()
                     and torch.allclose(g, w, rtol=1e-5, atol=1e-6))
 
-    print("[18] gradients: forward through the kernel and backward through "
+    print(f"[18, {at()}] "
+          "gradients: forward through the kernel and backward through "
           "its plain version, vs the plain version alone (rtol 1e-5, atol "
           "1e-6):")
     for label, sc, n_lanes in (
@@ -1287,6 +1364,7 @@ def main() -> int:
         if launches[k] < 1:
             raise AssertionError(f"{k} was launched no time by "
                                  f"{direct.get(k, 'the CLI')}")
+    print(f"[all phases passed, {at()}]")
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": srcs[k.split(" ")[0]],
         "replaces": replaces[k], "launched_by": direct.get(k, "the CLI"),

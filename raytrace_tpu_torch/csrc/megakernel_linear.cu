@@ -30,15 +30,19 @@
 // (miss or no live child), which is exact: a dead lane adds nothing to its
 // radiance and never comes back to life.
 //
-// The large instances stage only the header and the lights.  Closest hit
-// and the shadow queries fold over the unified primitive table in device
-// memory (render_common.cuh, fold_closest and fold_any): 16 bytes per row
-// through the read-only cache, the same row for every thread of a warp, so
-// the table (64 KB at 4,006 objects) stays in L1 and L2 and the bound is
-// still FP32 issue, now times the rows each ray must test.  A thread skips
-// the sphere chunks whose bounding sphere its ray cannot enter before its
-// running best hit; a warp runs a chunk while any of its threads needs it.
-// The winner's 24-float row is one indexed load by object id.
+// The large instances stage the header, the lights and, when it fits a
+// block's shared memory, the scene's fold buffer (the unified primitive
+// table with its ids and chunk bounds, 20.5 bytes per row: 83 KB at 4,006
+// objects); a larger one is read from device memory through the read-only
+// cache.  Closest hit and the shadow queries are the folds of
+// render_common.cuh (fold_closest and fold_any), whose note says what bounds
+// them and what their design does about it: a ray skips the sphere chunks
+// whose bounding sphere it cannot enter before its running best hit, and a
+// warp folds its rays one at a time with a row per thread, so that it pays
+// for each ray's own chunks and not for the union of all 32.  These
+// instances run 256 threads a block, so that two blocks, which is what an
+// 83 KB table leaves room for on an SM, still keep 16 warps in flight.  The
+// winner's 24-float row is one indexed load by object id.
 
 #include "render_common.cuh"
 
@@ -46,23 +50,43 @@ namespace {
 
 using namespace rt;
 
-template <bool LIT, bool LARGE, bool SKY>
-__global__ void __launch_bounds__(THREADS)
+// LARGE as shade_node takes it: 0 a small scene, 1 and 2 a large one with
+// its fold buffer in device memory or staged in shared memory
+template <bool LIT, int LARGE, bool SKY>
+__global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS)
 megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                   const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                  const float* __restrict__ scene, Tables tb, Sky sky, int n_obj, int n_light,
+                  const float* __restrict__ scene, const void* __restrict__ fold,
+                  int n_sph_chunks, int n_chunks, Sky sky, int n_obj, int n_light,
                   int max_depth, int has_reflect, int has_refract, int n_indirect, int dof,
                   uint32_t seed, float* __restrict__ out, long long n) {
-  extern __shared__ float s[];
-  stage_scene(scene, s, LARGE ? 0 : n_obj, n_light);
+  extern __shared__ float4 smem[];
+  float* s = (float*)smem;
+  const void* fold_at = fold;
+  if constexpr (LARGE == 2) {
+    char* behind = (char*)smem + scene_bytes(0, n_light);
+    stage_fold(fold, behind, n_chunks);
+    fold_at = behind;
+  }
+  stage_scene(scene, s, LARGE != 0 ? 0 : n_obj, n_light);
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // the threads of this warp that have a lane (used by the large instances)
+  const unsigned warp = LARGE != 0 ? __ballot_sync(0xFFFFFFFFu, lane < n) : 0u;
   if (lane >= n) return;
-  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene, tb,
-                 sky};
+  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene,
+                 make_tables(fold_at, n_sph_chunks, n_chunks), sky};
 
-  Node e = primary_ray<LARGE>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, LIT && dof);
+  Node e = primary_ray<LARGE != 0>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed,
+                                   LIT && dof);
   float accx = 0.0f, accy = 0.0f, accz = 0.0f;
+  bool walking = true;
   for (int depth = 0; depth <= max_depth + 1; ++depth) {
+    if constexpr (LARGE != 0) {
+      // a large instance's threads start each round together, so that the
+      // folds find all their peers; a thread whose chain has ended waits
+      if (!__any_sync(warp, walking)) break;
+      if (!walking) continue;
+    }
     float cx, cy, cz;
     Node next;
     next.live = false;
@@ -74,7 +98,14 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
     accx += cx;
     accy += cy;
     accz += cz;
-    if (!next.live) break;
+    if (!next.live) {
+      if constexpr (LARGE != 0) {
+        walking = false;
+        continue;
+      } else {
+        break;
+      }
+    }
     e = next;
   }
   out[lane] = accx;
@@ -82,19 +113,22 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
   out[2 * n + lane] = accz;
 }
 
-template <bool LIT, bool LARGE, bool SKY>
+template <bool LIT, int LARGE, bool SKY>
 int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const uint32_t* cam,
-           const float* scene, const Tables& tb, const Sky& sky, int n_obj, int n_light, int max_depth,
-           int has_reflect, int has_refract, int n_indirect, int dof, uint32_t seed, float* out,
-           long long n, cudaStream_t stream) {
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  const size_t smem = scene_bytes(LARGE ? 0 : n_obj, n_light);
+           const float* scene, const void* fold, int n_sph_chunks, int n_chunks,
+           const Sky& sky, int n_obj, int n_light, int max_depth, int has_reflect,
+           int has_refract, int n_indirect, int dof, uint32_t seed, float* out, long long n,
+           cudaStream_t stream) {
+  const int threads = LARGE != 0 ? LARGE_THREADS : THREADS;
+  const long long blocks = (n + threads - 1) / threads;
+  const size_t smem = scene_bytes(LARGE != 0 ? 0 : n_obj, n_light)
+                      + (LARGE == 2 ? fold_bytes(n_chunks) : 0);
   cudaError_t err = cudaFuncSetAttribute(megakernel_linear<LIT, LARGE, SKY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  megakernel_linear<LIT, LARGE, SKY><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      pix, piy, aa, cam, scene, tb, sky, n_obj, n_light, max_depth, has_reflect, has_refract,
-      n_indirect, dof, seed, out, n);
+  megakernel_linear<LIT, LARGE, SKY><<<(unsigned)blocks, threads, smem, stream>>>(
+      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj, n_light,
+      max_depth, has_reflect, has_refract, n_indirect, dof, seed, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -106,30 +140,30 @@ extern "C" {
 // (x, then y, then z).  Returns the launch's cudaError_t.  `dof` is 1
 // for the depth-of-field camera.  Scenes with no light, no reflect or
 // refract slot and a pinhole camera take the instance without their code.
-// n_chunks > 0 selects the large instances: `table`, `ids` and `bounds` are
-// then the scene's unified table (n_chunks * 32 rows, the first
-// n_sph_chunks chunks spheres), and `scene` holds one row per object id.
+// n_chunks > 0 selects the large instances: `fold` is then the scene's fold
+// buffer (ops/intersect_scan.py::fold_buffer: n_chunks * 32 rows, the first
+// n_sph_chunks chunks spheres, 16-byte aligned), staged in shared memory
+// when `fold_shared` is set, and `scene` holds one row per object id.
 // A non-null `cube` selects the skybox instances: the (6, hmax, wmax, 3)
 // float32 faces in device memory, with `face_hw` 14 ints in host memory
 // (hmax, wmax, then each face's own height and width).
 int rt_megakernel_linear(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
-                         const uint32_t* cam, const float* scene, const float* table,
-                         const int* ids, const float* bounds, int n_sph_chunks, int n_chunks,
-                         const float* cube, const int* face_hw, int n_obj, int n_light, int max_depth, int has_reflect,
-                         int has_refract, int n_indirect, int dof, uint32_t seed, float* out,
-                         long long n, void* stream) {
+                         const uint32_t* cam, const float* scene, const void* fold,
+                         int n_sph_chunks, int n_chunks, int fold_shared,
+                         const float* cube, const int* face_hw, int n_obj, int n_light,
+                         int max_depth, int has_reflect, int has_refract, int n_indirect,
+                         int dof, uint32_t seed, float* out, long long n, void* stream) {
   const bool lit = n_light > 0 || has_reflect || has_refract || dof;
-  const Tables tb{(const float4*)table, ids, (const float4*)bounds, n_sph_chunks, n_chunks};
   const Sky sky = make_sky(cube, face_hw);
-  const bool large = n_chunks > 0;
-  const auto fn =
-      cube != nullptr
-          ? (large ? (lit ? launch<true, true, true> : launch<false, true, true>)
-                   : (lit ? launch<true, false, true> : launch<false, false, true>))
-          : (large ? (lit ? launch<true, true, false> : launch<false, true, false>)
-                   : (lit ? launch<true, false, false> : launch<false, false, false>));
-  return fn(pix, piy, aa, cam, scene, tb, sky, n_obj, n_light, max_depth, has_reflect, has_refract,
-            n_indirect, dof, seed, out, n, (cudaStream_t)stream);
+  const int large = n_chunks > 0 ? (fold_shared ? 2 : 1) : 0;
+#define RT_PICK(LIT, SKY) \
+  (large == 2 ? launch<LIT, 2, SKY> : large == 1 ? launch<LIT, 1, SKY> : launch<LIT, 0, SKY>)
+  const auto fn = cube != nullptr ? (lit ? RT_PICK(true, true) : RT_PICK(false, true))
+                                  : (lit ? RT_PICK(true, false) : RT_PICK(false, false));
+#undef RT_PICK
+  return fn(pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj,
+            n_light, max_depth, has_reflect, has_refract, n_indirect, dof, seed, out, n,
+            (cudaStream_t)stream);
 }
 
 const char* rt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -9,32 +9,47 @@
 // raytrace_tpu_torch/render/integrator.py::radiance_tree_loop_v (its plain
 // version), with the same running sum.  Scenes: float32, a solid
 // background or a skybox (looked up where a node's ray misses, in place of
-// the reference's per-node miss records and post-pass), any materials, lights and camera; at most 64 live objects in the small
-// instances, any number in the large ones (the reference's "large x
-// fan-out" regime: the table fold of raytrace_tpu/ops/intersect_inline.py
-// in the DFS's node body), which answer closest hit and the shadow queries
-// by the folds of render_common.cuh over the scene's tables in device
-// memory, as the linear kernel's large instances do.  The stack, the
-// schedule and the routing are the same in both.
+// the reference's per-node miss records and post-pass), any materials,
+// lights and camera; at most 64 live objects in the small instances, any
+// number in the large ones (the reference's "large x fan-out" regime: the
+// table fold of raytrace_tpu/ops/intersect_inline.py in the DFS's node
+// body), which answer closest hit and the shadow queries by the folds of
+// render_common.cuh over the scene's tables, as the linear kernel's large
+// instances do.  The walk is the same in all of them.
 //
-// Per lane: the primary ray, then a loop that pops a stack entry, runs one
-// node (closest hit, shading with shadow rays, render_common.cuh), adds
-// its contribution, and at an interior node pushes its m virtual children,
-// child j at sp + (m-1-j) so that they pop in order.  A node's b child
-// slots are routed to the m virtual children as in
-// integrator.tree_loop_node: slot j to child j when b <= m, else the j-th
-// live slot to child j.  Every child's RNG stream is derived from its
-// original slot.
+// Per lane: the primary ray, then a loop that runs one node (closest hit,
+// shading with shadow rays, render_common.cuh), adds its contribution and
+// takes its live children: the first stays in registers and is the next
+// node, the others go onto the thread's stack, deepest the last of them,
+// so that they pop in slot order.  When a node has no live child the
+// thread pops, and its walk ends when its stack is empty.  A node's b child
+// slots are routed to at most m children as in integrator.tree_loop_node:
+// slot j is child j when b <= m, else the first m live slots in slot order.
+// Every child's RNG stream is derived from its original slot.  The plain
+// version visits every node of the full m-ary tree and adds exact zeros at
+// the dead ones; leaving those out changes no bit of the sum, since the
+// live nodes are still added in preorder.
 //
-// What bounds it on an H100: FP32 issue and the special-function units, as
-// in the linear kernel, times up to sum_d m^d node visits; memory traffic
-// is still 16 B in and 12 B out per lane.  The stack is a per-thread local
-// array of CAP entries of 13 words (CAP = the next power of two at or
-// above 1 + (levels-1)(m-1); 8 entries, 416 B, for m = 2 and levels = 6).
-// The tree's shape is the same for every lane, so the stack pointer is
-// uniform across a warp and local-memory accesses coalesce.  A dead entry
-// is still popped (the pointer stays uniform) but skips its node: it would
-// add exact zeros, and its children are pushed dead.
+// What bounds it on an H100: instruction throughput in the node body (FP32 and
+// the special-function units, as in the linear kernel), times the largest
+// number of live nodes among a warp's 32 lanes, since a warp runs until
+// its last lane's stack is empty; memory traffic is 16 B in and 12 B out
+// per lane.  On the showcase 3.9 of the 63 nodes of a lane's tree are live,
+// and a walk that popped all 63 spent its time on dead entries: 18 words of
+// local-memory traffic per pop, and a node body whenever any lane of the
+// warp was live at that position of the tree.  Here a dead subtree is never
+// pushed, popped or initialised, the stack pointer is the thread's own, and
+// a warp iterates over the live nodes of its busiest lane.  Threads of a
+// warp sit at different depths of their trees; the node body's only
+// depth-dependent branch is the ambient return at the last level.
+//
+// The stack holds entries of 13 words (ray 6, significance, throughput 3,
+// two key words, depth) and never more than (levels - 1)(m - 1) of them,
+// the node in registers not counted.  It lies in local memory, a per-thread
+// array of CAP entries (CAP the power of two at or above 1 + (levels-1)(m-1),
+// render/megakernel.py::tree_instance).  With only live entries on it the
+// stack's traffic no longer counts: a stack laid thread-minor in shared
+// memory was the slower on every scene timed (PERF.md) and is not built.
 //
 // This file is compiled with -fmad=false (ops/_build.py, KERNEL_FLAGS).  A
 // lane of a wide tree visits hundreds of nodes (601 for 24 indirect samples
@@ -42,8 +57,7 @@
 // hits that sphere again or not by the last bit of the sphere test; with
 // contracted multiply-adds 1.7-2.1% of such a scene's lanes parted from the
 // plain version by more than 1e-4.  Uncontracted, every product and sum
-// rounds as the plain version's does and the lanes agree to the bit, for 7%
-// of the showcase's time (2.50 -> 2.69 ms per 2,097,152 lanes on an H100).
+// rounds as the plain version's does and the lanes agree to the bit.
 
 #include "render_common.cuh"
 
@@ -51,74 +65,159 @@ namespace {
 
 using namespace rt;
 
-template <int CAP, bool LARGE, bool SKY>
-__global__ void __launch_bounds__(THREADS)
+constexpr int ENTRY_WORDS = 13;
+
+// the stack in local memory: CAP entries of this thread's own
+template <int CAP>
+struct Stack {
+  uint32_t w[CAP][ENTRY_WORDS];
+  __device__ __forceinline__ uint32_t& at(int i, int k) { return w[i][k]; }
+};
+
+template <int CAP>
+__device__ __forceinline__ void put(Stack<CAP>& st, int i, const Node& e, int depth) {
+  st.at(i, 0) = __float_as_uint(e.ox);
+  st.at(i, 1) = __float_as_uint(e.oy);
+  st.at(i, 2) = __float_as_uint(e.oz);
+  st.at(i, 3) = __float_as_uint(e.dx);
+  st.at(i, 4) = __float_as_uint(e.dy);
+  st.at(i, 5) = __float_as_uint(e.dz);
+  st.at(i, 6) = __float_as_uint(e.sig);
+  st.at(i, 7) = __float_as_uint(e.tx);
+  st.at(i, 8) = __float_as_uint(e.ty);
+  st.at(i, 9) = __float_as_uint(e.tz);
+  st.at(i, 10) = e.k1;
+  st.at(i, 11) = e.k2;
+  st.at(i, 12) = (uint32_t)depth;
+}
+
+template <int CAP>
+__device__ __forceinline__ void get(Stack<CAP>& st, int i, Node& e, int& depth) {
+  e.ox = __uint_as_float(st.at(i, 0));
+  e.oy = __uint_as_float(st.at(i, 1));
+  e.oz = __uint_as_float(st.at(i, 2));
+  e.dx = __uint_as_float(st.at(i, 3));
+  e.dy = __uint_as_float(st.at(i, 4));
+  e.dz = __uint_as_float(st.at(i, 5));
+  e.sig = __uint_as_float(st.at(i, 6));
+  e.tx = __uint_as_float(st.at(i, 7));
+  e.ty = __uint_as_float(st.at(i, 8));
+  e.tz = __uint_as_float(st.at(i, 9));
+  e.k1 = st.at(i, 10);
+  e.k2 = st.at(i, 11);
+  e.live = true;
+  depth = (int)st.at(i, 12);
+}
+
+// blocks per SM that the register allocation must leave room for.  The
+// sparse walk is bound by latency more than by throughput, so warps in flight
+// count for more than registers: 8 blocks of 128 threads hold the small
+// instances with the 8-entry stack to 64 registers (left alone they took
+// 86 and ran 13% slower on the showcase; at 80 registers, 5% slower), 4
+// blocks of 256 the large ones to 64 (left alone 104-107 registers and 25%
+// slower on the mixed field; at 80 registers, 10% slower).  The deeper
+// stacks serve wide trees, most of whose nodes are live; those walks ran
+// 10-12% slower at 64 registers than at 80, so they keep room for 6 blocks.
+constexpr int TREE_MIN_BLOCKS = 8, TREE_LARGE_MIN_BLOCKS = 4;
+constexpr int tree_min_blocks(int cap, int large) {
+  return large != 0 ? TREE_LARGE_MIN_BLOCKS : cap <= 8 ? TREE_MIN_BLOCKS : 6;
+}
+
+// CAP: the entries of the stack.  LARGE as shade_node takes it.
+template <int CAP, int LARGE, bool SKY>
+__global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
+                                  tree_min_blocks(CAP, LARGE))
 megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                 const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                const float* __restrict__ scene, Tables tb, Sky sky, int n_obj, int n_light,
-                int max_depth, int has_reflect, int has_refract, int n_indirect, int dof, int m,
+                const float* __restrict__ scene, const void* __restrict__ fold, int n_sph_chunks,
+                int n_chunks, Sky sky, int n_obj, int n_light, int max_depth,
+                int has_reflect, int has_refract, int n_indirect, int dof, int m,
                 uint32_t seed, float* __restrict__ out, long long n) {
-  extern __shared__ float s[];
-  stage_scene(scene, s, LARGE ? 0 : n_obj, n_light);
+  extern __shared__ float4 smem[];
+  float* s = (float*)smem;
+  // shared memory: the scene's header and lights (and a small scene's
+  // rows), then a large scene's fold buffer when it is staged
+  char* behind = (char*)smem + scene_bytes(LARGE != 0 ? 0 : n_obj, n_light);
+  const void* fold_at = fold;
+  if constexpr (LARGE == 2) {
+    stage_fold(fold, behind, n_chunks);
+    fold_at = behind;
+  }
+  stage_scene(scene, s, LARGE != 0 ? 0 : n_obj, n_light);
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // the threads of this warp that have a lane: they stay in the loop below
+  // until the last of them is done, so that each round's node bodies start
+  // together and the folds of a large scene find all their peers
+  const unsigned warp = __ballot_sync(0xFFFFFFFFu, lane < n);
   if (lane >= n) return;
-  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene, tb,
-                 sky};
-  const int levels = max_depth + 2;
-  const bool direct = sc.slots() <= m;  // slot j is virtual child j
+  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene,
+                 make_tables(fold_at, n_sph_chunks, n_chunks), sky};
+  const bool direct = sc.slots() <= m;  // slot j is child j
 
-  Node stack[CAP];
-  int depth_of[CAP];
-  stack[0] = primary_ray<LARGE>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, dof);
-  depth_of[0] = 0;
-  int sp = 1;
+  Stack<CAP> stack;
+  int sp = 0;
+  Node e = primary_ray<LARGE != 0>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, dof);
+  int depth = 0;
   float accx = 0.0f, accy = 0.0f, accz = 0.0f;
-  while (sp > 0) {
-    --sp;
-    const Node e = stack[sp];
-    const int depth = depth_of[sp];
-    const bool interior = depth < levels - 1;
-    if (interior) {
-      for (int j = 0; j < m; ++j) {
-        stack[sp + j].live = false;
-        depth_of[sp + j] = depth + 1;
+  bool walking = true;
+  while (__any_sync(warp, walking)) {
+    if (!walking) continue;
+    float cx, cy, cz;
+    Node next;
+    int taken = 0;  // this node's live children so far
+    const int sp0 = sp;
+    shade_node<true, LARGE, SKY>(sc, e, depth, cx, cy, cz,
+               [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
+                   float sig, float wx, float wy, float wz) {
+                 if (!direct && taken >= m) return;
+                 const Node c = child_node(e, slot, ox, oy, oz, dx, dy, dz, sig, wx, wy, wz);
+                 if (taken++ == 0)
+                   next = c;
+                 else
+                   put(stack, sp++, c, depth + 1);
+               });
+    accx += cx;
+    accy += cy;
+    accz += cz;
+    // the pushed children lie in slot order: turn them round, so that the
+    // lowest slot pops first
+    for (int i = sp0, j = sp - 1; i < j; ++i, --j) {
+      for (int k = 0; k < ENTRY_WORDS; ++k) {
+        const uint32_t t = stack.at(i, k);
+        stack.at(i, k) = stack.at(j, k);
+        stack.at(j, k) = t;
       }
     }
-    if (e.live) {
-      float cx, cy, cz;
-      int routed = 0;
-      shade_node<true, LARGE, SKY>(sc, e, depth, cx, cy, cz,
-                 [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
-                     float sig, float wx, float wy, float wz) {
-                   const int v = direct ? slot : routed++;
-                   if (v < m)
-                     stack[sp + (m - 1 - v)] =
-                         child_node(e, slot, ox, oy, oz, dx, dy, dz, sig, wx, wy, wz);
-                 });
-      accx += cx;
-      accy += cy;
-      accz += cz;
+    if (taken > 0) {
+      e = next;
+      ++depth;
+    } else if (sp > 0) {
+      get(stack, --sp, e, depth);
+    } else {
+      walking = false;
     }
-    if (interior) sp += m;
   }
   out[lane] = accx;
   out[n + lane] = accy;
   out[2 * n + lane] = accz;
 }
 
-template <int CAP, bool LARGE, bool SKY>
+template <int CAP, int LARGE, bool SKY>
 int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const uint32_t* cam,
-           const float* scene, const Tables& tb, const Sky& sky, int n_obj, int n_light, int max_depth,
-           int has_reflect, int has_refract, int n_indirect, int dof, int m, uint32_t seed,
-           float* out, long long n, cudaStream_t stream) {
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  const size_t smem = scene_bytes(LARGE ? 0 : n_obj, n_light);
+           const float* scene, const void* fold, int n_sph_chunks, int n_chunks,
+           const Sky& sky, int n_obj, int n_light, int max_depth, int has_reflect,
+           int has_refract, int n_indirect, int dof, int m, uint32_t seed, float* out,
+           long long n, cudaStream_t stream) {
+  const int threads = LARGE != 0 ? LARGE_THREADS : THREADS;
+  const long long blocks = (n + threads - 1) / threads;
+  const size_t smem = scene_bytes(LARGE != 0 ? 0 : n_obj, n_light)
+                      + (LARGE == 2 ? fold_bytes(n_chunks) : 0);
   cudaError_t err = cudaFuncSetAttribute(megakernel_tree<CAP, LARGE, SKY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  megakernel_tree<CAP, LARGE, SKY><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      pix, piy, aa, cam, scene, tb, sky, n_obj, n_light, max_depth, has_reflect, has_refract,
-      n_indirect, dof, m, seed, out, n);
+  megakernel_tree<CAP, LARGE, SKY><<<(unsigned)blocks, threads, smem, stream>>>(
+      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj, n_light, max_depth,
+      has_reflect, has_refract, n_indirect, dof, m, seed, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -128,33 +227,36 @@ extern "C" {
 
 // Launches on `stream`; allocates nothing.  `out` holds 3 * n floats
 // (x, then y, then z).  `dof` is 1 for the depth-of-field camera, `m` the
-// virtual children per node.  Returns the launch's cudaError_t, or
-// cudaErrorInvalidValue when the stack 1 + (levels-1)(m-1) exceeds 64
-// entries (render/megakernel.py, MAX_TREE_STACK).  n_chunks > 0 selects the
-// large instances and a non-null `cube` the skybox instances, with `table`,
-// `ids`, `bounds`, `scene`, `cube` and `face_hw` as rt_megakernel_linear
-// takes them.
+// most children of a node.  `stack_cap` names the instance
+// (render/megakernel.py::tree_instance): 8, 16, 32 or 64 entries.  Returns
+// the launch's cudaError_t, or cudaErrorInvalidValue for another
+// `stack_cap` and for a stack that the scene's (max_depth + 1)(m - 1)
+// entries do not fit.  n_chunks > 0 selects the large instances and a
+// non-null `cube` the skybox instances, with `fold`, `fold_shared`,
+// `scene`, `cube` and `face_hw` as rt_megakernel_linear takes them.
 int rt_megakernel_tree(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
-                       const uint32_t* cam, const float* scene, const float* table,
-                       const int* ids, const float* bounds, int n_sph_chunks, int n_chunks,
-                       const float* cube, const int* face_hw, int n_obj, int n_light, int max_depth, int has_reflect, int has_refract,
-                       int n_indirect, int dof, int m, uint32_t seed, float* out, long long n,
-                       void* stream) {
-  const int cap = 1 + (max_depth + 1) * (m - 1);
+                       const uint32_t* cam, const float* scene, const void* fold,
+                       int n_sph_chunks, int n_chunks, int fold_shared, const float* cube,
+                       const int* face_hw, int n_obj, int n_light, int max_depth,
+                       int has_reflect, int has_refract, int n_indirect, int dof, int m,
+                       int stack_cap, uint32_t seed, float* out, long long n, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const Tables tb{(const float4*)table, ids, (const float4*)bounds, n_sph_chunks, n_chunks};
   const Sky sky = make_sky(cube, face_hw);
-#define RT_LAUNCH(C)                                                                        \
-  return (cube != nullptr ? (n_chunks > 0 ? launch<C, true, true> : launch<C, false, true>) \
-                          : (n_chunks > 0 ? launch<C, true, false>                          \
-                                          : launch<C, false, false>))(                      \
-      pix, piy, aa, cam, scene, tb, sky, n_obj, n_light, max_depth, has_reflect,            \
-      has_refract, n_indirect, dof, m, seed, out, n, st)
-  if (m < 1) return (int)cudaErrorInvalidValue;
-  if (cap <= 8) RT_LAUNCH(8);
-  if (cap <= 16) RT_LAUNCH(16);
-  if (cap <= 32) RT_LAUNCH(32);
-  if (cap <= 64) RT_LAUNCH(64);
+  if (m < 1 || (max_depth + 1) * (m - 1) > stack_cap)
+    return (int)cudaErrorInvalidValue;
+  const int large = n_chunks > 0 ? (fold_shared ? 2 : 1) : 0;
+#define RT_LAUNCH(C)                                                                          \
+  return (cube != nullptr                                                                     \
+              ? (large == 2 ? launch<C, 2, true> : large == 1 ? launch<C, 1, true>            \
+                                                              : launch<C, 0, true>)           \
+              : (large == 2 ? launch<C, 2, false> : large == 1 ? launch<C, 1, false>          \
+                                                               : launch<C, 0, false>))(       \
+      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj, n_light, max_depth, \
+      has_reflect, has_refract, n_indirect, dof, m, seed, out, n, st)
+  if (stack_cap == 8) RT_LAUNCH(8);
+  if (stack_cap == 16) RT_LAUNCH(16);
+  if (stack_cap == 32) RT_LAUNCH(32);
+  if (stack_cap == 64) RT_LAUNCH(64);
 #undef RT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

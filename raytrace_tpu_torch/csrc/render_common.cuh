@@ -3,8 +3,9 @@
 // buffer's layout, the counter-based RNG, the primary ray, closest hit and
 // the shadow any-hit query in their two forms (a loop over the object rows
 // in shared memory for small scenes, a fold over the unified primitive
-// table in device memory for large ones), light sampling, the skybox
-// lookup and the shading of one node.  One thread handles one lane.
+// table for large ones, which a warp runs one ray at a time with a table
+// row per thread), light sampling, the skybox lookup and the shading of
+// one node.  One thread handles one lane.
 //
 // The arithmetic follows the plain PyTorch version operation by operation
 // (raytrace_tpu_torch/render/integrator.py, models/materials.py,
@@ -123,17 +124,37 @@ struct Node {
   bool live;
 };
 
-// ---- the unified primitive table of a large scene, in device memory
-// (raytrace_tpu_torch/ops/intersect.py::_packed_tables): n_chunks chunks of
-// CHUNK rows, the sphere chunks first
+// ---- the unified primitive table of a large scene as the folds read it
+// (raytrace_tpu_torch/ops/intersect_scan.py::fold_buffer, made from
+// ops/intersect.py::_packed_tables): n_chunks chunks of CHUNK rows, the
+// sphere chunks first.  One buffer of 32-bit words: the rows (4 floats
+// each), then one object id per row, then one bounding sphere (4 floats)
+// per chunk.  A block stages the buffer into shared memory when it fits
+// (SH, below) and reads it from device memory through the read-only cache
+// when it does not.
 constexpr int CHUNK = 32;
 constexpr int ID_SENTINEL = 0x7FFFFFFF;  // the id of a lane that hit nothing
+constexpr int LARGE_THREADS = 256;       // threads per block of the large instances
 struct Tables {
-  const float4* tab;  // sphere row (cx, cy, cz, r), plane row (nx, ny, nz, p.n); pad rows zero
+  const float4* tab;  // sphere row (cx, cy, cz, r*r; -inf for r*r on pad rows and on a
+                      // radius that is not positive), plane row (nx, ny, nz, p.n; zeros on pad rows)
   const int* ids;     // object id of each row, -1 on pad rows
   const float4* bnd;  // one bounding sphere (cx, cy, cz, R) per chunk
   int n_sph_chunks, n_chunks;
 };
+
+__host__ __device__ __forceinline__ size_t fold_bytes(int n_chunks) {
+  return sizeof(float) * (size_t)n_chunks * (CHUNK * 5 + 4);
+}
+
+// the three parts of a fold buffer that starts at `buf`, in either memory
+__host__ __device__ __forceinline__ Tables make_tables(const void* buf, int n_sph_chunks,
+                                                       int n_chunks) {
+  const float4* tab = (const float4*)buf;
+  const int* ids = (const int*)(tab + (size_t)n_chunks * CHUNK);
+  return Tables{tab, ids, (const float4*)(ids + (size_t)n_chunks * CHUNK), n_sph_chunks,
+                n_chunks};
+}
 
 // ---- skybox (models/backgrounds.py::_skybox).  Replaces the skybox regime
 // of raytrace_tpu/render/megakernel.py::_kernel: there a miss leaves the
@@ -253,7 +274,17 @@ __device__ __forceinline__ void stage_scene(const float* __restrict__ scene, flo
   __syncthreads();
 }
 
-__host__ __forceinline__ size_t scene_bytes(int n_rows, int n_light) {
+// copies a large scene's fold buffer into shared memory at `dst` (16-byte
+// aligned, like the buffer); every thread of the block calls it, before
+// stage_scene and its barrier
+__device__ __forceinline__ void stage_fold(const void* __restrict__ src, void* dst,
+                                           int n_chunks) {
+  const int n = (int)(fold_bytes(n_chunks) / sizeof(int4));
+  for (int j = threadIdx.x; j < n; j += blockDim.x)
+    ((int4*)dst)[j] = __ldg((const int4*)src + j);
+}
+
+__host__ __device__ __forceinline__ size_t scene_bytes(int n_rows, int n_light) {
   return sizeof(float) * (HDR + LROW * (size_t)n_light + ROW * (size_t)n_rows);
 }
 
@@ -340,19 +371,16 @@ __device__ __forceinline__ Node primary_ray(const float* s, uint32_t px, uint32_
 }
 
 // ---- intersection (ops/intersect.py::_object_t): t and validity of one
-// sphere (center, radius), of one plane (normal, p.n), of one object row.
-// The folds over a large scene's table take RN (above): seen from tens of
-// units away a unit sphere's discriminant cancels, a contracted b*b - 4ac
-// then moves t by 1e-5 relative and the normal by 1e-4, and every later
-// bounce with it.
-template <bool RN>
+// sphere (center, radius), of one plane (normal, p.n), of one object row
+// of a small scene.  The folds over a large scene's table have their own
+// sphere test (sphere_row_t, below).
 __device__ __forceinline__ bool sphere_t(float cx, float cy, float cz, float rad, float ox,
                                          float oy, float oz, float dx, float dy, float dz,
                                          float a, float inv2a, float& t) {
   const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-  const float b = mul_<RN>(2.0f, dot_<RN>(dx, dy, dz, ocx, ocy, ocz));
-  const float cc = sub_<RN>(dot_<RN>(ocx, ocy, ocz, ocx, ocy, ocz), mul_<RN>(rad, rad));
-  const float disc = sub_<RN>(mul_<RN>(b, b), mul_<RN>(mul_<RN>(4.0f, a), cc));
+  const float b = 2.0f * dot_<false>(dx, dy, dz, ocx, ocy, ocz);
+  const float cc = dot_<false>(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
+  const float disc = b * b - (4.0f * a) * cc;
   const bool has = disc > 0.0f;
   const float sq = sqrtf(has ? disc : 1.0f);
   const float t1 = (-b - sq) * inv2a;
@@ -376,8 +404,8 @@ __device__ __forceinline__ bool object_t(const float* r, float ox, float oy, flo
                                          float dx, float dy, float dz, float a, float inv2a,
                                          float& t) {
   if (r[R_SPH] > 0.5f)
-    return sphere_t<false>(r[R_P], r[R_P + 1], r[R_P + 2], r[R_Q], ox, oy, oz, dx, dy, dz, a,
-                           inv2a, t);
+    return sphere_t(r[R_P], r[R_P + 1], r[R_P + 2], r[R_Q], ox, oy, oz, dx, dy, dz, a, inv2a,
+                    t);
   const float qx = r[R_Q], qy = r[R_Q + 1], qz = r[R_Q + 2];
   const float p_dot_n = r[R_P] * qx + r[R_P + 1] * qy + r[R_P + 2] * qz;
   return plane_t<false>(qx, qy, qz, p_dot_n, ox, oy, oz, dx, dy, dz, t);
@@ -425,96 +453,376 @@ __device__ __forceinline__ bool occluded(const Scene& sc, float ox, float oy, fl
 }
 
 // ---- the same two queries over the unified table of a large scene
-// (ops/intersect_scan.py::scan_hit_reference).  Every thread of a warp reads
-// the same row, so a load through the read-only cache is a broadcast.
+// (ops/intersect_scan.py::scan_hit_reference): the minimum of (t, object
+// id) over the valid rows, and whether any row is hit in range.
+//
+// What bounds them on an H100 is instruction throughput: a sphere test is some
+// thirty dependent float32 instructions per (ray, row), every product and
+// sum rounded on its own (RN, above: seen from tens of units away a unit
+// sphere's discriminant cancels, a contracted b*b - 4ac moves t by 1e-5
+// relative and every later bounce with it), and the table is a few tens of
+// KB that every ray reads.  Tensor cores do not serve it: the products have
+// depth 3 and must round as the plain float32 version's do.  What the
+// design does about it:
+//  - per row: 4a is made once per ray and r*r once per scene (the table's
+//    fourth column, the bits of float32(r) * float32(r)); the square root
+//    and the roots are behind the branch on disc > 0, so rows that no
+//    thread of the warp can hit skip them; the row's id is read only when
+//    it improves the minimum;
+//  - the table lies in shared memory when that leaves the SM its blocks
+//    (SH; ops/intersect_scan.py::fold_in_shared), staged once per block,
+//    and is read through the read-only cache when it does not;
+//  - a ray skips the sphere chunks whose bounding sphere it cannot enter
+//    before its running best hit (chunk_bound, chunk_may_enter);
+//  - the fold has two forms.  Every thread walks the table for its own ray
+//    (fold_closest_lane, fold_any_lane; every thread reads the same row, a
+//    broadcast): the warp then runs the union of the chunks its rays
+//    enter, which is a ray's own on camera rays and two to four times
+//    that after a diffuse bounce.  Or the warp folds its rays one at a time
+//    (fold_closest_warp, fold_any_warp): the ray goes to every thread by
+//    shuffle, thread j tests row j of a chunk (one conflict-free 16-byte
+//    load each), and a warp reduction takes the minimum; the work is then
+//    the sum of the rays' own chunks, at a few more instructions per
+//    chunk.  A probe of eight chunk bounds says per warp and query which
+//    form is the cheaper (warp_rays_part).  The minimum of (t, id) does not
+//    depend on the order of the rows, so both give the same result to the
+//    bit.
 
-// Whether a sphere chunk may hold a hit in front of the ray's origin and not
-// beyond t_limit: the ray enters the chunk's bounding sphere in that range.
-// A thread skips the chunks that fail, which changes no result: a hit of a
-// member sphere implies an earlier entry into the bound.  The three tests
-// take slack relative to the quantities that carry the rounding error of
-// b*b - 4ac, which keeps a far grazing ray from skipping a real hit.
-__device__ __forceinline__ bool chunk_may(const float4 bs, float ox, float oy, float oz,
-                                          float dx, float dy, float dz, float a, float inv2a,
-                                          float t_limit) {
-  const float ocx = ox - bs.x, ocy = oy - bs.y, ocz = oz - bs.z;
-  const float b = 2.0f * (dx * ocx + dy * ocy + dz * ocz);
-  const float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - bs.w * bs.w;
-  const float disc = b * b - 4.0f * a * cc;
-  const bool pos = disc > -1e-5f * (b * b);
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float margin = 1e-5f * fabsf(b) * inv2a + 1e-4f;
-  return pos && (-b + sq) * inv2a > -margin && (-b - sq) * inv2a <= t_limit + margin;
+// a word, a row or a bound of the table, from shared memory or through the
+// read-only cache
+template <bool SH, class T>
+__device__ __forceinline__ T tab_load(const T* p) {
+  if constexpr (SH) return *p;
+  else return __ldg(p);
+}
+template <bool SH>
+__device__ __forceinline__ float4 tab_row(const Tables& tb, int row) {
+  return tab_load<SH>(tb.tab + row);
+}
+template <bool SH>
+__device__ __forceinline__ float4 tab_bound(const Tables& tb, int c) {
+  return tab_load<SH>(tb.bnd + c);
 }
 
-// closest hit: the minimum of (t, object id) over the valid rows, so an
-// exact tie goes to the first object in scene order whatever the order of
-// the table; gid is ID_SENTINEL on a miss.  r > 0 masks the sphere pad
-// rows, a zero normal the plane pad rows.
-__device__ __forceinline__ bool fold_closest(const Tables& tb, float ox, float oy, float oz,
-                                             float dx, float dy, float dz, float& t_best,
-                                             int& gid) {
+// a ray and what the tests need of it once: a = d.d, 0.5 / a and 4a
+struct RayQ {
+  float ox, oy, oz, dx, dy, dz, a, inv2a, a4;
+};
+
+__device__ __forceinline__ RayQ make_ray(float ox, float oy, float oz, float dx, float dy,
+                                         float dz) {
   const float a = dot_<true>(dx, dy, dz, dx, dy, dz);
-  const float inv2a = safe_inv2a(a);
+  return RayQ{ox, oy, oz, dx, dy, dz, a, safe_inv2a(a), __fmul_rn(4.0f, a)};
+}
+
+// t and validity of one sphere row (cx, cy, cz, r*r), in the plain scan's
+// order of operations.  A pad row's -inf in place of r*r makes disc -inf
+// (NaN for a zero direction), never > 0.
+__device__ __forceinline__ bool sphere_row_t(const float4 r, const RayQ& q, float& t) {
+  const float ocx = q.ox - r.x, ocy = q.oy - r.y, ocz = q.oz - r.z;
+  const float b = __fmul_rn(2.0f, dot_<true>(q.dx, q.dy, q.dz, ocx, ocy, ocz));
+  const float cc = __fsub_rn(dot_<true>(ocx, ocy, ocz, ocx, ocy, ocz), r.w);
+  const float disc = __fsub_rn(__fmul_rn(b, b), __fmul_rn(q.a4, cc));
+  if (!(disc > 0.0f)) return false;
+  const float sq = sqrtf(disc);
+  const float t1 = (-b - sq) * q.inv2a;
+  t = t1 > 0.0f ? t1 : (-b + sq) * q.inv2a;
+  return t > 0.0f;
+}
+
+__device__ __forceinline__ bool plane_row_t(const float4 r, const RayQ& q, float& t) {
+  return plane_t<true>(r.x, r.y, r.z, r.w, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, t);
+}
+
+// the running minimum of (t, id): a valid row's t and the row it came from
+template <bool SH>
+__device__ __forceinline__ void take_min(const Tables& tb, int row, float t, float& t_best,
+                                         int& gid) {
+  if (t <= t_best) {
+    const int g = tab_load<SH>(tb.ids + row);
+    if (t < t_best || g < gid) {
+      t_best = t;
+      gid = g;
+    }
+  }
+}
+
+// Whether a sphere chunk may hold a hit in front of the ray's origin and
+// not beyond a limit: the ray enters the chunk's bounding sphere in that
+// range.  Skipping the chunks that fail changes no result: a hit of a
+// member sphere implies an earlier entry into the bound.  The tests take
+// slack relative to the quantities that carry the rounding error of
+// b*b - 4ac, which keeps a far grazing ray from skipping a real hit.
+// chunk_bound does the part that does not depend on the limit and gives
+// the entry distance and its slack; chunk_may_enter holds them against the
+// limit, which falls as the fold goes on.
+__device__ __forceinline__ bool chunk_bound(const float4 bs, const RayQ& q, float& t_enter,
+                                            float& margin) {
+  const float ocx = q.ox - bs.x, ocy = q.oy - bs.y, ocz = q.oz - bs.z;
+  const float b = 2.0f * (q.dx * ocx + q.dy * ocy + q.dz * ocz);
+  const float cc = (ocx * ocx + ocy * ocy + ocz * ocz) - bs.w * bs.w;
+  const float disc = b * b - 4.0f * q.a * cc;
+  const bool pos = disc > -1e-5f * (b * b);
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  margin = 1e-5f * fabsf(b) * q.inv2a + 1e-4f;
+  t_enter = (-b - sq) * q.inv2a;
+  return pos && (-b + sq) * q.inv2a > -margin;
+}
+__device__ __forceinline__ bool chunk_may_enter(float t_enter, float margin, float t_limit) {
+  return t_enter <= t_limit + margin;
+}
+
+// with a range (t*t < sq_range, uncontracted), sphere chunks entered only
+// beyond it are skipped: t*t < sq_range implies t < 1.00001 * sqrt(sq_range)
+__device__ __forceinline__ float shadow_limit(float sq_range, bool has_range) {
+  return has_range ? sqrtf(sq_range) * 1.00001f : INFINITY;
+}
+
+// closest hit, every thread for its own ray; gid is ID_SENTINEL on a miss
+template <bool SH>
+__device__ __forceinline__ void fold_closest_lane(const Tables& tb, const RayQ& q,
+                                                  float& t_best, int& gid) {
   t_best = INFINITY;
   gid = ID_SENTINEL;
   for (int c = 0; c < tb.n_sph_chunks; ++c) {
-    if (!chunk_may(__ldg(tb.bnd + c), ox, oy, oz, dx, dy, dz, a, inv2a, t_best)) continue;
+    float t_enter, margin;
+    if (!chunk_bound(tab_bound<SH>(tb, c), q, t_enter, margin)
+        || !chunk_may_enter(t_enter, margin, t_best))
+      continue;
     for (int row = c * CHUNK; row < (c + 1) * CHUNK; ++row) {
-      const float4 r = __ldg(tb.tab + row);
       float t;
-      if (sphere_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, a, inv2a, t) && r.w > 0.0f
-          && t <= t_best) {
-        const int g = __ldg(tb.ids + row);
-        if (t < t_best || g < gid) {
-          t_best = t;
-          gid = g;
-        }
-      }
+      if (sphere_row_t(tab_row<SH>(tb, row), q, t)) take_min<SH>(tb, row, t, t_best, gid);
     }
   }
   for (int row = tb.n_sph_chunks * CHUNK; row < tb.n_chunks * CHUNK; ++row) {
-    const float4 r = __ldg(tb.tab + row);
     float t;
-    if (plane_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, t) && t <= t_best) {
-      const int g = __ldg(tb.ids + row);
-      if (t < t_best || g < gid) {
-        t_best = t;
-        gid = g;
-      }
-    }
+    if (plane_row_t(tab_row<SH>(tb, row), q, t)) take_min<SH>(tb, row, t, t_best, gid);
   }
-  return gid != ID_SENTINEL;
 }
 
-// any hit, within range when the light has one (t*t < sq_range,
-// uncontracted): in range iff the closest hit is, so the first one found
-// answers.  With a range, sphere chunks entered only beyond it are skipped
-// (t*t < sq_range implies t < 1.00001 * sqrt(sq_range) in float32).
-__device__ __forceinline__ bool fold_any(const Tables& tb, float ox, float oy, float oz,
-                                         float dx, float dy, float dz, float sq_range,
-                                         bool has_range) {
-  const float a = dot_<true>(dx, dy, dz, dx, dy, dz);
-  const float inv2a = safe_inv2a(a);
-  const float t_limit = has_range ? sqrtf(sq_range) * 1.00001f : INFINITY;
+// any hit in range, every thread for its own ray: in range iff the closest
+// hit is, so the first one found answers
+template <bool SH>
+__device__ __forceinline__ bool fold_any_lane(const Tables& tb, const RayQ& q, float sq_range,
+                                              bool has_range) {
+  const float t_limit = shadow_limit(sq_range, has_range);
   for (int c = 0; c < tb.n_sph_chunks; ++c) {
-    if (!chunk_may(__ldg(tb.bnd + c), ox, oy, oz, dx, dy, dz, a, inv2a, t_limit)) continue;
+    float t_enter, margin;
+    if (!chunk_bound(tab_bound<SH>(tb, c), q, t_enter, margin)
+        || !chunk_may_enter(t_enter, margin, t_limit))
+      continue;
     for (int row = c * CHUNK; row < (c + 1) * CHUNK; ++row) {
-      const float4 r = __ldg(tb.tab + row);
       float t;
-      if (sphere_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, a, inv2a, t) && r.w > 0.0f
+      if (sphere_row_t(tab_row<SH>(tb, row), q, t)
           && (!has_range || __fmul_rn(t, t) < sq_range))
         return true;
     }
   }
   for (int row = tb.n_sph_chunks * CHUNK; row < tb.n_chunks * CHUNK; ++row) {
-    const float4 r = __ldg(tb.tab + row);
     float t;
-    if (plane_t<true>(r.x, r.y, r.z, r.w, ox, oy, oz, dx, dy, dz, t)
-        && (!has_range || __fmul_rn(t, t) < sq_range))
+    if (plane_row_t(tab_row<SH>(tb, row), q, t) && (!has_range || __fmul_rn(t, t) < sq_range))
       return true;
   }
   return false;
+}
+
+// the threads of the warp that are at this point together (`mask`), this
+// thread's rank among them and their number.  The warp folds work for any
+// such set: a render kernel's threads leave their paths at different
+// times.  FULL is the whole warp, whose ranks and size the compiler knows.
+template <bool FULL>
+struct Peers {
+  unsigned mask;
+  int lane, rank, size;
+  __device__ __forceinline__ explicit Peers(unsigned m) {
+    mask = FULL ? 0xFFFFFFFFu : m;
+    lane = threadIdx.x & 31;
+    rank = FULL ? lane : __popc(m & ((1u << lane) - 1u));
+    size = FULL ? 32 : __popc(m);
+  }
+  // the rank of the thread in lane `l`
+  __device__ __forceinline__ int rank_of(int l) const {
+    return FULL ? l : __popc(mask & ((1u << l) - 1u));
+  }
+};
+template <bool FULL>
+__device__ __forceinline__ RayQ ray_of(const Peers<FULL>& p, const RayQ& q, int src) {
+  return RayQ{__shfl_sync(p.mask, q.ox, src), __shfl_sync(p.mask, q.oy, src),
+              __shfl_sync(p.mask, q.oz, src), __shfl_sync(p.mask, q.dx, src),
+              __shfl_sync(p.mask, q.dy, src), __shfl_sync(p.mask, q.dz, src),
+              __shfl_sync(p.mask, q.a, src),  __shfl_sync(p.mask, q.inv2a, src),
+              __shfl_sync(p.mask, q.a4, src)};
+}
+
+// closest hit, the warp for one ray after the other.  For each ray: the
+// threads test one chunk bound each, a ballot names the chunks to enter;
+// for each of those in table order the threads test its 32 rows, a warp
+// minimum of the threads' running t gives the new limit, and the ballot is
+// taken again against it, so a ray enters exactly the chunks it would
+// enter alone.  Each thread keeps the minimum of (t, id) over the rows it
+// tested; two warp reductions at the end give the ray's.  t > 0 on every
+// valid row, so floats compare as their bits.
+template <bool SH, bool FULL>
+__device__ __forceinline__ void fold_closest_warp(const Tables& tb, unsigned mask,
+                                                  const RayQ& mine, float& t_best, int& gid) {
+  const Peers<FULL> p(mask);
+  t_best = INFINITY;
+  gid = ID_SENTINEL;
+  for (unsigned todo = p.mask; todo != 0u; todo &= todo - 1u) {
+    const int src = __ffs(todo) - 1;
+    const RayQ q = ray_of(p, mine, src);
+    float tj = INFINITY, t_warp = INFINITY;
+    int gj = ID_SENTINEL;
+    for (int base = 0; base < tb.n_sph_chunks; base += p.size) {
+      const int c = base + p.rank;
+      float t_enter = 0.0f, margin = 0.0f;
+      const bool may = c < tb.n_sph_chunks
+                       && chunk_bound(tab_bound<SH>(tb, c), q, t_enter, margin);
+      unsigned cand = __ballot_sync(p.mask, may && chunk_may_enter(t_enter, margin, t_warp));
+      while (cand != 0u) {
+        const int owner = __ffs(cand) - 1;
+        const int first = (base + p.rank_of(owner)) * CHUNK;
+        bool got = false;
+        for (int k = p.rank; k < CHUNK; k += p.size) {
+          float t;
+          if (sphere_row_t(tab_row<SH>(tb, first + k), q, t)) {
+            take_min<SH>(tb, first + k, t, tj, gj);
+            got = true;
+          }
+        }
+        cand &= ~((2u << owner) - 1u);  // the chunks behind this one
+        if (__any_sync(p.mask, got)) {  // most chunks a ray enters hold no hit
+          t_warp = __uint_as_float(__reduce_min_sync(p.mask, __float_as_uint(tj)));
+          cand &= __ballot_sync(p.mask, chunk_may_enter(t_enter, margin, t_warp));
+        }
+      }
+    }
+    for (int row = tb.n_sph_chunks * CHUNK + p.rank; row < tb.n_chunks * CHUNK; row += p.size) {
+      float t;
+      if (plane_row_t(tab_row<SH>(tb, row), q, t)) take_min<SH>(tb, row, t, tj, gj);
+    }
+    const unsigned t_bits = __reduce_min_sync(p.mask, __float_as_uint(tj));
+    const int g = __reduce_min_sync(p.mask, __float_as_uint(tj) == t_bits ? gj : ID_SENTINEL);
+    if (p.lane == src) {
+      t_best = __uint_as_float(t_bits);
+      gid = g;
+    }
+  }
+}
+
+// any hit in range, the warp for one ray after the other; a ray's fold
+// stops at the first chunk in which any thread found a hit
+template <bool SH, bool FULL>
+__device__ __forceinline__ bool fold_any_warp(const Tables& tb, unsigned mask, const RayQ& mine,
+                                              float sq_range, bool has_range) {
+  const Peers<FULL> p(mask);
+  bool blocked = false;
+  for (unsigned todo = p.mask; todo != 0u; todo &= todo - 1u) {
+    const int src = __ffs(todo) - 1;
+    const RayQ q = ray_of(p, mine, src);
+    const float sq_r = __shfl_sync(p.mask, sq_range, src);
+    const bool has_r = __shfl_sync(p.mask, (int)has_range, src) != 0;
+    const float t_limit = shadow_limit(sq_r, has_r);
+    bool found = false;
+    for (int base = 0; base < tb.n_sph_chunks && !found; base += p.size) {
+      const int c = base + p.rank;
+      float t_enter = 0.0f, margin = 0.0f;
+      const bool may = c < tb.n_sph_chunks
+                       && chunk_bound(tab_bound<SH>(tb, c), q, t_enter, margin)
+                       && chunk_may_enter(t_enter, margin, t_limit);
+      for (unsigned cand = __ballot_sync(p.mask, may); cand != 0u && !found; cand &= cand - 1u) {
+        const int owner = __ffs(cand) - 1;
+        const int first = (base + p.rank_of(owner)) * CHUNK;
+        bool f = false;
+        for (int k = p.rank; k < CHUNK; k += p.size) {
+          float t;
+          f = f || (sphere_row_t(tab_row<SH>(tb, first + k), q, t)
+                    && (!has_r || __fmul_rn(t, t) < sq_r));
+        }
+        found = __any_sync(p.mask, f);
+      }
+    }
+    if (!found) {
+      bool f = false;
+      for (int row = tb.n_sph_chunks * CHUNK + p.rank; row < tb.n_chunks * CHUNK;
+           row += p.size) {
+        float t;
+        f = f || (plane_row_t(tab_row<SH>(tb, row), q, t)
+                  && (!has_r || __fmul_rn(t, t) < sq_r));
+      }
+      found = __any_sync(p.mask, f);
+    }
+    if (p.lane == src) blocked = found;
+  }
+  return blocked;
+}
+
+// Whether the rays of the threads that are here together part, so that the
+// warp does better to fold them one at a time.  Every thread holds its own
+// ray against a sample of up to PROBE_CHUNKS chunk bounds spread over the
+// table; of the sampled chunks that any ray may enter, the rays that may
+// enter it are counted.  Rays that run together (a launch's camera rays)
+// enter the same chunks, and the share is near 1; rays that part (after a
+// diffuse bounce) leave it near the share of the table that one ray
+// crosses.  Folding every thread's own ray costs the union of the chunks,
+// folding them in turn their sum, so the warp folds together when the
+// share is at most PROBE_SHARE_NUM / PROBE_SHARE_DEN (measured: near 1 on
+// camera rays, 0.2-0.6 after a bounce), and when at least PROBE_MIN_RAYS
+// rays are here: the union of fewer is hardly smaller than their sum, and
+// the warp's fold pays for its ballots and reductions.
+constexpr int PROBE_CHUNKS = 8;
+constexpr int PROBE_SHARE_NUM = 3, PROBE_SHARE_DEN = 4;
+constexpr int PROBE_MIN_RAYS = 4;
+template <bool SH>
+__device__ __forceinline__ bool warp_rays_part(const Tables& tb, unsigned mask, const RayQ& q) {
+  if (__popc(mask) < PROBE_MIN_RAYS) return false;
+  const int probes = min(tb.n_sph_chunks, PROBE_CHUNKS);
+  int entering = 0, entered = 0;
+  for (int k = 0; k < probes; ++k) {
+    float t_enter, margin;
+    const unsigned who = __ballot_sync(
+        mask, chunk_bound(tab_bound<SH>(tb, k * tb.n_sph_chunks / probes), q, t_enter, margin));
+    entering += __popc(who);
+    entered += who != 0u;
+  }
+  return entered > 0 && PROBE_SHARE_DEN * entering <= PROBE_SHARE_NUM * entered * __popc(mask);
+}
+
+// the two queries as the kernels call them.  The threads that fold together
+// are those that arrive together (__activemask), whoever they are: a ray's
+// result never depends on which rays share its fold, nor on their number,
+// since each thread's ray is folded whole by either form and the minimum of
+// (t, id) does not depend on the order of the rows.  That must stay so: an
+// early exit taken across rays, or a result read from a peer that may not
+// be there, would make correctness hang on the compiler keeping the warp
+// converged.  Only the speed does now (the render kernels start each round
+// together, so that a fold finds the warp's live threads and not a part).
+template <bool SH>
+__device__ __forceinline__ bool fold_closest(const Tables& tb, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float& t_best,
+                                             int& gid) {
+  const RayQ q = make_ray(ox, oy, oz, dx, dy, dz);
+  const unsigned mask = __activemask();
+  if (warp_rays_part<SH>(tb, mask, q)) {
+    if (mask == 0xFFFFFFFFu)
+      fold_closest_warp<SH, true>(tb, mask, q, t_best, gid);
+    else
+      fold_closest_warp<SH, false>(tb, mask, q, t_best, gid);
+  } else {
+    fold_closest_lane<SH>(tb, q, t_best, gid);
+  }
+  return gid != ID_SENTINEL;
+}
+template <bool SH>
+__device__ __forceinline__ bool fold_any(const Tables& tb, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float sq_range,
+                                         bool has_range) {
+  const RayQ q = make_ray(ox, oy, oz, dx, dy, dz);
+  const unsigned mask = __activemask();
+  if (warp_rays_part<SH>(tb, mask, q))
+    return mask == 0xFFFFFFFFu ? fold_any_warp<SH, true>(tb, mask, q, sq_range, has_range)
+                               : fold_any_warp<SH, false>(tb, mask, q, sq_range, has_range);
+  return fold_any_lane<SH>(tb, q, sq_range, has_range);
 }
 
 // ---- shading of one node (integrator.tree_loop_node without the routing):
@@ -529,19 +837,22 @@ __device__ __forceinline__ bool fold_any(const Tables& tb, float ox, float oy, f
 // specular light and the reflect child, the only children, indirect ones,
 // keep their parent's significance, which starts at 1, and a linear scene
 // has at most one slot.  It keeps the IndirectPhong-only chain short.
-// LARGE answers closest hit and the shadow queries by the folds over the
-// scene's tables and reads the winner's row from device memory by object
-// id; the small instances keep the loops over shared memory.  SKY takes a
+// LARGE (1: the table in device memory, 2: staged in shared memory; 0 for a
+// small scene) answers closest hit and the shadow queries by the folds over
+// the scene's tables and reads the winner's row from device memory by
+// object id; the small instances keep the loops over shared memory.  Every
+// thread of a warp whose path is still alive calls this together, whatever
+// its depth: the folds share their work across the warp.  SKY takes a
 // miss's radiance from the skybox (sky_lookup); the instances without it
 // carry none of its code.
-template <bool LIT, bool LARGE, bool SKY, class Emit>
+template <bool LIT, int LARGE, bool SKY, class Emit>
 __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int depth,
                                            float& cx, float& cy, float& cz, Emit&& emit) {
   float t_best;
   int best;
   bool hit;
-  if constexpr (LARGE)
-    hit = fold_closest(sc.tb, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
+  if constexpr (LARGE != 0)
+    hit = fold_closest<LARGE == 2>(sc.tb, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
   else
     hit = closest_hit(sc, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
   if (!hit) {  // background; a miss spawns nothing
@@ -559,7 +870,7 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     return;
   }
   const float* r;  // the one load of the winner's row
-  if constexpr (LARGE)
+  if constexpr (LARGE != 0)
     r = sc.row_by_id(best);
   else
     r = sc.row(best);
@@ -573,7 +884,7 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
 
   // hit record: point, normal, snap onto the surface; RN in the large
   // instances, like the origins of the shadow and child rays
-  constexpr bool RN = LARGE;
+  constexpr bool RN = LARGE != 0;
   float ptx = add_<RN>(e.ox, mul_<RN>(e.dx, t_best));
   float pty = add_<RN>(e.oy, mul_<RN>(e.dy, t_best));
   float ptz = add_<RN>(e.oz, mul_<RN>(e.dz, t_best));
@@ -678,8 +989,8 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     }
     const float sx = off(ptx, lx), sy = off(pty, ly), sz = off(ptz, lz);
     bool blocked;
-    if constexpr (LARGE)
-      blocked = fold_any(sc.tb, sx, sy, sz, lx, ly, lz, sq, has_range);
+    if constexpr (LARGE != 0)
+      blocked = fold_any<LARGE == 2>(sc.tb, sx, sy, sz, lx, ly, lz, sq, has_range);
     else
       blocked = occluded(sc, sx, sy, sz, lx, ly, lz, sq, has_range);
     if (blocked) continue;

@@ -5,8 +5,10 @@ PyTorch counterpart of :mod:`raytrace_tpu.ops.intersect_pallas`.
 :func:`scan_hit` launches ``csrc/scan_hit.cu`` on CUDA tensors (one
 thread per ray, the fold of ``csrc/render_common.cuh`` that the render
 kernels also call) or raises; on CPU tensors it runs the plain version,
-:func:`scan_hit_reference`.  Gradients of ``t`` with respect to the
-table and the rays come from the plain version
+:func:`scan_hit_reference`.  The kernels read the table in a layout of
+their own, :func:`fold_buffer`, staged in a block's shared memory when
+:func:`fold_in_shared` says that it fits.  Gradients of ``t`` with respect
+to the table and the rays come from the plain version
 (:mod:`raytrace_tpu_torch.ops.kernel_grad`); the forward pass is still
 the kernel.
 
@@ -35,6 +37,16 @@ from raytrace_tpu_torch.ops.vec import V3
 
 OBJ_CHUNK = 32               # table rows per chunk (one bounding sphere each)
 ID_SENTINEL = 2 ** 31 - 1    # id of a lane that hit nothing
+
+# bytes of a fold buffer per table row and per chunk
+FOLD_ROW_BYTES, FOLD_CHUNK_BYTES = 20, 16
+# the largest fold buffer, with whatever else the block keeps in shared
+# memory, that a kernel stages there: a fifth of what an H100's SM can give
+# its blocks (228 KB, 1 KB of it reserved per block), so that the five
+# blocks of 256 threads that the kernels' 48 registers allow stay resident;
+# a larger table is read from device memory through the read-only cache
+# (at 83 KB, 4,006 objects, staging it left two blocks an SM and cost 17%)
+FOLD_SHARED_MAX_BYTES = 44 * 1024
 
 
 def _chunk_bounds(table: torch.Tensor, n_sph_pad: int,
@@ -74,8 +86,61 @@ def _may_enter(bound, ro: V3, rd: V3, a, inv2a, t_best):
     return enters & ((-b - sq) * inv2a <= t_best + margin)
 
 
+def fold_buffer(table, ids, n_sph_pad: int, bounds) -> torch.Tensor:
+    """The table as the kernels' folds read it, one flat int32 tensor of
+    ``(C*32) * 5 + C * 4`` words on the table's device (the float parts
+    bit-cast): the rows ``(C*32, 4)``, then the ids ``(C*32,)``, then the
+    bounds ``(C, 4)``.  A sphere row's fourth column holds ``r * r``, the
+    float32 product that the plain scan squares for every ray, in place of
+    ``r``, and ``-inf`` where the plain scan rejects the row whatever the
+    ray (a pad row, a radius that is not positive): the test's discriminant
+    is then never positive.  Plane rows are the table's own."""
+    table = table.detach()
+    n_rows = table.shape[0]
+    r = table[:n_sph_pad, 3]
+    r2 = torch.where((r > 0) & (ids[:n_sph_pad] >= 0), r * r, float("-inf"))
+    rows = torch.cat([torch.cat([table[:n_sph_pad, :3], r2[:, None]], dim=1),
+                      table[n_sph_pad:]])
+    if bounds.shape != (n_rows // OBJ_CHUNK, 4):
+        raise ValueError("bounds must hold one row per chunk")
+    return torch.cat([rows.contiguous().view(torch.int32).reshape(-1),
+                      ids.to(torch.int32),
+                      bounds.contiguous().view(torch.int32).reshape(-1)])
+
+
+def fold_bytes(n_chunks: int) -> int:
+    """Bytes of the fold buffer of a table of ``n_chunks`` chunks."""
+    return n_chunks * (OBJ_CHUNK * FOLD_ROW_BYTES + FOLD_CHUNK_BYTES)
+
+
+def fold_in_shared(n_chunks: int, other_bytes: int = 0) -> bool:
+    """Whether a kernel stages the fold buffer of ``n_chunks`` chunks in
+    shared memory, beside ``other_bytes`` that its block keeps there
+    anyway (the scene's header and lights)."""
+    return fold_bytes(n_chunks) + other_bytes <= FOLD_SHARED_MAX_BYTES
+
+
+# the last fold buffer made, reused while the same tensors come unmodified
+_fold_last = None
+
+
+def cached_fold_buffer(table, ids, n_sph_pad: int, bounds) -> torch.Tensor:
+    """:func:`fold_buffer`, made anew only when a tensor is another one or
+    was modified (a scene's tables are themselves cached per scene)."""
+    global _fold_last
+    key = (table, ids, bounds)
+    versions = (n_sph_pad, *(t._version for t in key))
+    if (_fold_last is not None and _fold_last[1] == versions
+            and all(a is b for a, b in zip(_fold_last[0], key))):
+        return _fold_last[2]
+    buf = fold_buffer(table, ids, n_sph_pad, bounds)
+    _fold_last = (key, versions, buf)
+    return buf
+
+
 def scan_hit_reference(table, ids, n_sph_pad: int, ro: V3, rd: V3,
-                       bounds=None, return_entered: bool = False):
+                       bounds=None, return_entered: bool = False,
+                       return_mask: bool = False):
     """The plain PyTorch version of the kernel, on any device: ``(t_best,
     global id, hit)`` of (N,) rays, folded chunk by chunk with each row
     broadcast against the lanes; every element's arithmetic is the
@@ -84,7 +149,8 @@ def scan_hit_reference(table, ids, n_sph_pad: int, ro: V3, rd: V3,
     With ``bounds`` (:func:`_chunk_bounds`) a lane skips the sphere chunks
     it cannot be improved by, as the kernel does; the result is the same
     bit for bit.  ``return_entered`` adds the number of sphere chunks each
-    lane folded."""
+    lane folded, ``return_mask`` (after it) which ones: an ``(N, sphere
+    chunks)`` bool tensor."""
     a = rd.x * rd.x + rd.y * rd.y + rd.z * rd.z
     inv2a = 0.5 / torch.where(a > 0, a, 1.0)
     n_rows = table.shape[0]
@@ -95,6 +161,7 @@ def scan_hit_reference(table, ids, n_sph_pad: int, ro: V3, rd: V3,
                      device=ro.x.device)
     hit = torch.zeros(ro.x.shape, dtype=torch.bool, device=ro.x.device)
     entered = torch.zeros(ro.x.shape, dtype=torch.int64, device=ro.x.device)
+    mask = []
     ox, oy, oz = ro.x[:, None], ro.y[:, None], ro.z[:, None]
     dx, dy, dz = rd.x[:, None], rd.y[:, None], rd.z[:, None]
     a_, inv2a_ = a[:, None], inv2a[:, None]
@@ -132,14 +199,20 @@ def scan_hit_reference(table, ids, n_sph_pad: int, ro: V3, rd: V3,
             may = _may_enter(bounds[r0 // OBJ_CHUNK], ro, rd, a, inv2a,
                              t_best)
             entered = entered + may
+            mask.append(may)
             better = better & may
             any_valid = any_valid & may
         t_best = torch.where(better, t_c, t_best)
         obj = torch.where(better, g_c, obj)
         hit = hit | any_valid
+    out = (t_best, obj, hit)
     if return_entered:
-        return t_best, obj, hit, entered
-    return t_best, obj, hit
+        out += (entered,)
+    if return_mask:
+        out += (torch.stack(mask, dim=1) if mask else
+                torch.zeros((ro.x.shape[0], 0), dtype=torch.bool,
+                            device=ro.x.device),)
+    return out
 
 
 _lib_ready: ctypes.CDLL | None = None
@@ -150,7 +223,7 @@ def _lib() -> ctypes.CDLL:
     if _lib_ready is None:
         lib = _build.load(_build.KERNEL_SCAN)
         lib.rt_scan_hit.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            [ctypes.c_void_p] + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p])
         lib.rt_scan_hit.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -206,10 +279,10 @@ def _launch(table, ids, bounds, n_sph_pad: int, rays):
     device = table.device
     n = rays[0].shape[0]
     n_chunks = table.shape[0] // OBJ_CHUNK
-    table = table.detach().contiguous()
+    fold = cached_fold_buffer(table, ids, n_sph_pad, bounds)
     rays = [t.detach().contiguous() for t in rays]
-    if table.data_ptr() % 16 or bounds.data_ptr() % 16:
-        raise ValueError("table and bounds must be 16-byte aligned")
+    if fold.data_ptr() % 16:
+        raise ValueError("the fold buffer must be 16-byte aligned")
 
     t_out = torch.empty(n, dtype=torch.float32, device=device)
     gid = torch.empty(n, dtype=torch.int32, device=device)
@@ -219,9 +292,9 @@ def _launch(table, ids, bounds, n_sph_pad: int, rays):
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.rt_scan_hit(table.data_ptr(), ids.data_ptr(),
-                             bounds.data_ptr(), n_sph_pad // OBJ_CHUNK,
-                             n_chunks, *(t.data_ptr() for t in rays),
+        rc = lib.rt_scan_hit(fold.data_ptr(), n_sph_pad // OBJ_CHUNK,
+                             n_chunks, int(fold_in_shared(n_chunks)),
+                             *(t.data_ptr() for t in rays),
                              t_out.data_ptr(), gid.data_ptr(), hit.data_ptr(),
                              n, stream)
     if rc != 0:

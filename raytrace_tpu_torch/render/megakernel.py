@@ -9,7 +9,10 @@ tensors it launches a hand-written kernel or raises: linear scenes
 scenes to ``csrc/megakernel_tree.cu``, one thread per lane each.  Above
 ``LARGE_SCENE_THRESHOLD`` live objects both kernels answer closest-hit
 and shadow queries by folding over the scene's unified primitive table
-in device memory (their large instances), and a skybox scene takes the
+(their large instances; the table staged in shared memory when it fits,
+:func:`raytrace_tpu_torch.ops.intersect_scan.fold_in_shared`), the tree
+kernel takes the stack instance that :func:`tree_instance` names, and a
+skybox scene takes the
 instances that look the cube up where a ray misses.  On CPU tensors it
 runs their plain PyTorch version, :func:`radiance_lanes_reference`.
 Gradients: the forward pass is the kernel, the backward pass
@@ -30,7 +33,7 @@ import dataclasses
 import torch
 
 from raytrace_tpu_torch.models.backgrounds import face_sizes_arg
-from raytrace_tpu_torch.ops import _build
+from raytrace_tpu_torch.ops import _build, intersect_scan
 from raytrace_tpu_torch.ops.intersect import (LARGE_SCENE_THRESHOLD,
                                               object_table, per_scene_cache,
                                               scene_tables)
@@ -50,10 +53,12 @@ LAUNCHES = _build.LAUNCHES
 
 # the largest DFS stack csrc/megakernel_tree.cu takes (its largest CAP)
 MAX_TREE_STACK = 64
+# its stack instances: entries of a thread's stack in local memory
+TREE_STACK_CAPS = (8, 16, 32, 64)
 
 # floats per object row in the scene buffer: object_table()'s 22 columns
-# and a pad (csrc/render_common.cuh, ROW)
-_ROW = 24
+# and a pad (csrc/render_common.cuh, ROW), of the header and per light
+_ROW, _HDR, _LROW = 24, 24, 16
 
 
 def kernel_for(spec: SceneSpec) -> str:
@@ -64,6 +69,30 @@ def kernel_for(spec: SceneSpec) -> str:
 def is_large(spec: SceneSpec) -> bool:
     """Whether the scene takes the kernels' table-fold instances."""
     return len(spec.live_objects()) > LARGE_SCENE_THRESHOLD
+
+
+def tree_instance(cap: int) -> int:
+    """The tree kernel's stack instance, one of ``TREE_STACK_CAPS``, for a
+    tree whose plain walk needs ``cap`` entries (``tree_loop_stack``:
+    ``1 + (levels - 1)(m - 1)``): the smallest that holds them.  The kernel
+    keeps the node it runs in registers, so its own stack, a per-thread
+    array in local memory, never holds more than ``cap - 1``; it takes no
+    shared memory."""
+    if cap < 1:
+        raise ValueError(f"a DFS stack of {cap} entries")
+    if cap > MAX_TREE_STACK:
+        raise NotImplementedError(
+            f"fan-out trees whose DFS stack exceeds {MAX_TREE_STACK} entries "
+            f"({cap}) are not ported (ROADMAP item 9)")
+    return min(c for c in TREE_STACK_CAPS if c >= cap)
+
+
+def scene_shared_bytes(spec: SceneSpec) -> int:
+    """Bytes of the scene buffer that a block stages in shared memory: the
+    header, the lights, and a small scene's object rows
+    (csrc/render_common.cuh, scene_bytes)."""
+    rows = 0 if is_large(spec) else len(spec.live_objects())
+    return 4 * (_HDR + _LROW * spec.n_lights + _ROW * rows)
 
 
 def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
@@ -183,17 +212,18 @@ def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
 _scene_buffer = per_scene_cache(pack_scene)
 
 
-# lane ids, scene buffer, table, row ids, chunk bounds; sphere chunks,
-# chunks; cube, face sizes; objects, lights, max_depth, reflect, refract,
-# indirect, dof
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+# lane ids, scene buffer, fold buffer; sphere chunks, chunks, fold in
+# shared memory; cube, face sizes; objects, lights, max_depth, reflect,
+# refract, indirect, dof
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7)
 
 
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, f"rt_{name}")
-    extra = [ctypes.c_int] if name == KERNEL_TREE else []
+    # the tree kernel: m, stack instance
+    extra = [ctypes.c_int] * 2 if name == KERNEL_TREE else []
     fn.argtypes = _ARGTYPES + extra + [ctypes.c_uint32, ctypes.c_void_p,
                                        ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -218,19 +248,23 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
            else (t.to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
            for t in (pix, piy, aa, cam)]
     scene = _scene_buffer(data, spec)
-    if is_large(spec):
+    large = is_large(spec)
+    if large:
         # the large instances: n_chunks > 0, rows indexed by object id
         tb = scene_tables(data, spec)
+        if tb.table.dtype != torch.float32:
+            raise ValueError("the scene's tables must be float32")
+        fold = intersect_scan.cached_fold_buffer(tb.table, tb.ids,
+                                                  tb.n_sph_pad, tb.bounds)
         n_chunks = tb.table.shape[0] // OBJ_CHUNK
-        tables = [tb.table.data_ptr(), tb.ids.data_ptr(),
-                  tb.bounds.data_ptr(), tb.n_sph_pad // OBJ_CHUNK, n_chunks]
+        tables = [fold.data_ptr(), tb.n_sph_pad // OBJ_CHUNK, n_chunks,
+                  int(intersect_scan.fold_in_shared(
+                      n_chunks, scene_shared_bytes(spec)))]
         n_obj = spec.n_objects
-        if (tb.table.dtype != torch.float32 or tables[0] % 16
-                or tables[2] % 16):
-            raise ValueError("the scene's tables must be float32 and "
-                             "16-byte aligned")
+        if tables[0] % 16:
+            raise ValueError("the fold buffer must be 16-byte aligned")
     else:
-        tables = [None, None, None, 0, 0]
+        tables = [None, 0, 0, 0]
         n_obj = len(spec.live_objects())
     if spec.bg_type == BG_SKYBOX:
         # the skybox instances: a non-null cube, which stays where it is in
@@ -245,7 +279,8 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             int(spec.has_reflect), int(spec.has_refract), spec.n_indirect,
             int(spec.cam_type == CAM_DEPTH_OF_FIELD)]
     if name == KERNEL_TREE:
-        args.append(tree_loop_stack(spec)[0])
+        m, _, _, cap = tree_loop_stack(spec)
+        args += [m, tree_instance(cap)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"rt_{name}")(*args, int(seed) & 0xFFFFFFFF,

@@ -1,0 +1,115 @@
+"""What a launch's paths need of the render kernels, counted by walking
+the plain version: live nodes per lane and per warp, skybox lookups, and
+for a large scene the sphere chunks that the rays enter, per lane and as
+the union over a warp.  ``chip_smoke.py`` makes the kernels' bounds from
+these counts and prints them beside the kernels' times; nothing on the
+render path calls this module.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raytrace_tpu_torch.ops import intersect_scan
+from raytrace_tpu_torch.ops.intersect import closest_hit, scene_tables
+from raytrace_tpu_torch.ops.vec import V3
+from raytrace_tpu_torch.render import megakernel
+from raytrace_tpu_torch.render.integrator import (_dfs_schedule, primary_rays,
+                                                  tree_loop_entry,
+                                                  tree_loop_node,
+                                                  tree_loop_stack)
+from raytrace_tpu_torch.scene.schema import BG_SKYBOX, SceneData, SceneSpec
+
+WARP = 32
+
+
+def warp_sample(t: torch.Tensor, n_warps: int = 512) -> torch.Tensor:
+    """``n_warps`` whole warps of ``t`` (32 consecutive elements each, as a
+    launch hands them to its threads), drawn without replacement from a
+    fixed seed and kept in order: the same warps for every tensor of one
+    length.  An even stride would not do: in a pixel-ordered launch it
+    falls into step with the image's width and samples a few columns.  A
+    ragged tail is left out."""
+    warps = t[:t.shape[0] // WARP * WARP].reshape(-1, WARP)
+    if warps.shape[0] <= n_warps:
+        return warps.reshape(-1)
+    pick = np.sort(np.random.RandomState(0).choice(warps.shape[0], n_warps,
+                                                   replace=False))
+    return warps[torch.from_numpy(pick).to(t.device)].reshape(-1)
+
+
+def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
+    """The work of these lanes' paths; their number must be a multiple of
+    32, and each 32 consecutive ones count as a warp.  Returns
+
+    * ``visits``: live nodes per lane (the nodes a live-only walk runs);
+    * ``warp_visits``: the largest number of live nodes among a warp's
+      lanes, averaged over the warps (the rounds a warp of the tree kernel
+      takes);
+    * ``misses``: live nodes per lane whose ray hits nothing (each a
+      skybox lookup in a skybox scene; 0 for a solid background);
+    * ``chunks``: for a large scene, sphere chunks entered per lane, summed
+      over its live nodes (the others are culled); else 0;
+    * ``by_depth``: for a large scene, per depth of the tree ``(live lanes
+      per lane, chunks a live lane enters, chunks in the union over a
+      warp's live lanes)``, the union taken among the lanes at the same
+      position of the tree and averaged over the warps that have a live
+      lane there.
+
+    Shadow rays are not counted, so a bound made from this is a lower
+    one."""
+    n = lanes[0].shape[0]
+    if n == 0 or n % WARP:
+        raise ValueError(f"{n} lanes are not whole warps")
+    ro, rd, k1, k2 = primary_rays(data, spec, *lanes, seed)
+    m, levels, _, cap = tree_loop_stack(spec)
+    one = torch.ones_like(ro.x)
+    stack = [None] * cap
+    stack[0] = tree_loop_entry(ro, rd, one, V3(one, one, one), one, k1, k2,
+                               ro.x.dtype)
+    large = megakernel.is_large(spec)
+    tb = scene_tables(data, spec) if large else None
+    per_lane = torch.zeros(n, dtype=torch.int64, device=ro.x.device)
+    chunks = misses = 0
+    depth_live = [0] * levels
+    depth_chunks = [0] * levels
+    depth_union = [0] * levels
+    depth_warps = [0] * levels
+    sp = 1
+    for depth in _dfs_schedule(m, levels):
+        sp -= 1
+        e = stack[sp]
+        live = e[10] > 0.5
+        per_lane += live
+        depth_live[depth] += int(live.sum())
+        if spec.bg_type == BG_SKYBOX:
+            hit = closest_hit(data, spec, V3(*e[0:3]), V3(*e[3:6])).hit
+            misses += int((live & ~hit).sum())
+        if large:
+            mask = intersect_scan.scan_hit_reference(
+                tb.table, tb.ids, tb.n_sph_pad, V3(*e[0:3]), V3(*e[3:6]),
+                tb.bounds, return_mask=True)[3] & live[:, None]
+            entered = int(mask.sum())
+            chunks += entered
+            depth_chunks[depth] += entered
+            depth_union[depth] += int(
+                mask.reshape(n // WARP, WARP, -1).any(dim=1).sum())
+            depth_warps[depth] += int(live.reshape(-1, WARP).any(dim=1).sum())
+        _, virt = tree_loop_node(data, spec, m, e, depth)
+        if depth < levels - 1:
+            if len(virt) < m:  # no child slot at all: the walk ends here
+                break
+            for j, entry in enumerate(virt):
+                stack[sp + (m - 1 - j)] = entry
+            sp += m
+    by_depth = {}
+    if large:
+        by_depth = {d: (depth_live[d] / n,
+                        depth_chunks[d] / max(depth_live[d], 1),
+                        depth_union[d] / max(depth_warps[d], 1))
+                    for d in range(levels) if depth_live[d]}
+    return {"visits": float(per_lane.sum()) / n,
+            "warp_visits": float(per_lane.reshape(-1, WARP).amax(dim=1)
+                                 .double().mean()),
+            "misses": misses / n, "chunks": chunks / n, "by_depth": by_depth}

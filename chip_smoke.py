@@ -6,8 +6,14 @@ Builds the port's four CUDA kernels from ``raytrace_tpu_torch/csrc`` (one
 nvcc each, in parallel) and holds each against its plain PyTorch version
 on the card.  The linear kernel: on ``examples/cornell_indirect.txt``,
 which it renders at 512x512 with 16 samples per pixel through the port's
-CLI on ``--device cuda`` and times at 2,097,152 lanes per launch
-(phases 3-5), and on a lit mirror scene with depth of field (phase 6).
+CLI on ``--device cuda`` and times at 2,097,152 lanes per launch, and on
+a scene of exact ties, where its winners must equal the plain version's
+on every lane (phases 3-5); phase 5 also prints its SASS by kind
+(``cuobjdump -sass``), the instructions a lane issues by that count and
+the time they take at the card's issue rate (the issue figure), beside a
+bound recounted from every operation a lane needs; phases 9 and 17 print
+the same for its lit and skybox instances.  Then on a lit mirror scene
+with depth of field (phase 6).
 The tree kernel: on ``examples/materials_showcase.txt``, on a
 4-sample IndirectPhong scene (1,365 nodes per lane) and on two scenes
 that take its two largest stack sizes (phase 7), then on the lanes of the
@@ -144,6 +150,248 @@ FLOPS_SPHERE, FLOPS_SPHERE_ROW, FLOPS_PLANE, FLOPS_BOUND = 28, 19, 14, 34
 # clamps and floors of u and v, nine blends of two products and a sum)
 SKY_TEXEL_BYTES, FLOPS_SKY = 48, 40
 
+# The linear kernel (K1), recounted: every operation a lane needs, by the
+# unit that runs it.  Per SM and clock on compute capability 9.0 (the CUDA
+# C++ Programming Guide's table of arithmetic instruction throughput): 128
+# FP32 adds, multiplies or fused multiply-adds; 16 special-function
+# operations (reciprocal, square root, reciprocal square root, sine, cosine,
+# and the logarithm and exponential of powf); 64 32-bit integer adds,
+# multiplies, shifts or logical operations.  At the H100 SXM's 1,980 MHz
+# boost clock on 132 SMs the first is PEAK_FLOPS (a fused multiply-add
+# counting two operations), the others these:
+N_SM, BOOST_HZ = 132, 1.98e9
+PEAK_SFU, PEAK_INT = N_SM * 16 * BOOST_HZ, N_SM * 64 * BOOST_HZ
+# (FP32, special-function, integer) operations of each part, counted from
+# csrc/render_common.cuh as FLOPS_* are (a division, a square root, a sine
+# counts one special-function operation; mix32 counts 8 integer ones:
+# three shifts, three exclusive ors, two multiplies).  The keys: two seed
+# words, each two xors, four absorptions of two adds and six mix32.  A
+# draw: an add, two mix32, an xor and a shift, then a conversion and a
+# scaling.  The primary ray: the pixel's position (8), the camera matrix
+# (12), the normalization (8 and a reciprocal square root).  Depth of
+# field: two draws, the focal point (6), the lens point (a square root, a
+# sine and a cosine, 3) and the new origin and direction (15 and 6).  Per
+# node, closest hit: the ray's a, 4a and 0.5 / a; each sphere 19 and its
+# compare with the running minimum (the roots run where disc > 0 only and
+# are left out, as in FLOPS_SPHERE_ROW); each plane FLOPS_PLANE and its
+# compare, its division among the special-function operations.  A hit
+# node, at the cheaper of its two shadings, a plane's: the hit point (6),
+# n.n (5), the distance (7 and a division), the snap (6), n.d (5), the
+# gates (5), the emission and the sum (6).  A node at the last depth that
+# hits adds its ambient color (6); one that misses the background (6).  A
+# child: indirect, two draws, the direction (11, a sine, a cosine), its
+# test against the normal (6), the weight (7 and a division), the origin
+# (6), weights and throughput (6); reflect, the direction (12), the origin
+# (6), significance, weights and throughput (8); each then its stream (two
+# mix32 and three operations).  A light, per shaded node: its direction
+# (12 and two special-function operations for a point light), the shadow
+# ray's origin and a (13 and a division), Lambert (16) and Phong (29, a
+# reciprocal square root and powf's two); its shadow tests are not
+# counted, so the bound stays a lower one.
+K1_KEYS = (0, 0, 2 * (2 + 4 * 2 + 6 * 8))
+K1_DRAW = (2, 0, 19)
+K1_PRIMARY = (28, 1, 0)
+K1_DOF = (27, 3, 0)
+K1_RAY = (7, 1, 0)
+K1_SPHERE, K1_PLANE = (20, 0, 0), (14, 1, 0)
+K1_HIT, K1_LAST, K1_MISS = (40, 1, 0), (6, 0, 0), (6, 0, 0)
+K1_INDIRECT, K1_REFLECT, K1_STREAM = (37, 3, 0), (26, 0, 0), (0, 0, 19)
+K1_LIGHT = (70, 6, 0)
+
+
+def k1_lane_ops(spec, work) -> np.ndarray:
+    """(FP32, special-function, integer) operations per lane of the linear
+    kernel on a small scene, for lanes whose paths need ``work``
+    (``render.work.path_work``)."""
+    from raytrace_tpu_torch.scene.schema import CAM_DEPTH_OF_FIELD
+
+    live = spec.live_objects()
+    n_sph = sum(spec.shape_type[i] == 0 for i in live)
+    v = np.array
+    ops = (v(K1_KEYS) + 2 * v(K1_DRAW) + v(K1_PRIMARY)
+           + (v(K1_DOF) + 2 * v(K1_DRAW)
+              if spec.cam_type == CAM_DEPTH_OF_FIELD else 0))
+    shaded = work["hits"] - work["last_hits"]
+    child = v(K1_INDIRECT) + 2 * v(K1_DRAW) if spec.n_indirect else v(K1_REFLECT)
+    ops = ops + work["visits"] * (v(K1_RAY) + n_sph * v(K1_SPHERE)
+                                  + (len(live) - n_sph) * v(K1_PLANE))
+    ops = ops + shaded * (v(K1_HIT) + spec.n_lights * v(K1_LIGHT))
+    ops = ops + work["last_hits"] * v(K1_LAST)
+    ops = ops + (work["visits"] - work["hits"]) * v(K1_MISS)
+    # every node but the first is some node's child
+    return ops + (work["visits"] - 1) * (child + v(K1_STREAM))
+
+
+def k1_bound(spec, n_lanes: int, work: dict):
+    """(ms, "operations" or "bytes", per-unit ms) of one launch of the
+    linear kernel: the lanes' operations over each unit's peak, and 28 B a
+    lane and the scene once over the memory rate; the largest."""
+    fp, sfu, ints = k1_lane_ops(spec, work) * n_lanes
+    nbytes = (28 + SKY_TEXEL_BYTES * work["misses"]) * n_lanes + 96 * len(
+        spec.live_objects())
+    units = {"fp32": fp / PEAK_FLOPS * 1e3, "sfu": sfu / PEAK_SFU * 1e3,
+             "int32": ints / PEAK_INT * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    worst = max(units, key=units.get)
+    return (units[worst], "bytes" if worst == "bytes" else "operations",
+            units)
+
+
+# SASS opcodes by kind, for sass_loops
+_SASS_CONTROL = {"BRA", "BRX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "JMP",
+                 "JMX", "BREAK", "WARPSYNC", "BPT", "YIELD", "KILL", "BAR"}
+_SASS_INT = {"LOP3", "SHF", "LEA", "POPC", "FLO", "BMSK", "PRMT", "SEL",
+             "SGXT", "BREV", "VIADD", "VIMNMX"}
+
+
+def sass_kind(op: str) -> str:
+    """The kind of a SASS opcode: shared load, MUFU, control, integer,
+    float or other."""
+    base = op.split(".")[0]
+    if base == "LDS":
+        return "lds"
+    if base == "MUFU":
+        return "mufu"
+    if base in _SASS_CONTROL:
+        return "control"
+    if base in ("I2F", "F2I", "I2FP", "F2IP", "F2F", "FRND"):
+        return "float"
+    if base in _SASS_INT or (base.startswith("I") and base != "IDE"):
+        return "int"
+    if base.startswith("F") or base.startswith("H"):
+        return "float"
+    return "other"
+
+
+def sass_function(sass: str, name: str) -> list:
+    """The (address, opcode, text) of each instruction of the function
+    whose mangled name holds ``name``, in ``cuobjdump -sass`` output; NOPs
+    left out."""
+    body, inside, labels = [], False, {}
+    pending = []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = name in line.split("Function :")[1]
+            continue
+        if not inside:
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        text = m.group(2).strip()
+        op = re.sub(r"^@!?U?P[T0-9]+\s+", "", text).split()[0]
+        if op != "NOP":
+            body.append((addr, op, text))
+    return [(a, op, re.sub(r"`\((\.L_x_\d+)\)",
+                           lambda m_: hex(labels.get(m_.group(1), -1)), t))
+            for a, op, t in body]
+
+
+def sass_loops(sass: str, name: str):
+    """The loops of one kernel instance in its SASS: for each backward
+    branch, the addresses [target, branch], merged per target; for each
+    loop the counts by kind of the instructions that lie in it and in no
+    loop inside it, and its parent.  Returns (instructions, loops), loops
+    a list of dicts sorted by start."""
+    body = sass_function(sass, name)
+    if not body:
+        raise AssertionError(f"no SASS for {name}")
+    ends = {}
+    for addr, op, text in body:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+            tgt = int(m.group(1), 16)
+            ends[tgt] = max(ends.get(tgt, 0), addr)
+    loops = sorted(({"start": a, "end": b} for a, b in ends.items()),
+                   key=lambda l: (l["start"], -l["end"]))
+    for i, lp in enumerate(loops):
+        outer = [j for j, o in enumerate(loops) if j != i
+                 and o["start"] <= lp["start"] and lp["end"] <= o["end"]
+                 and (o["end"] - o["start"]) > (lp["end"] - lp["start"])]
+        lp["parent"] = min(outer, key=lambda j: loops[j]["end"]
+                           - loops[j]["start"]) if outer else None
+        lp["counts"], lp["text"] = {}, []
+    top = {}
+    for addr, op, text in body:
+        inner = [j for j, lp in enumerate(loops)
+                 if lp["start"] <= addr <= lp["end"]]
+        j = min(inner, key=lambda j: loops[j]["end"] - loops[j]["start"]) \
+            if inner else None
+        counts = top if j is None else loops[j]["counts"]
+        kind = sass_kind(op)
+        counts[kind] = counts.get(kind, 0) + 1
+        counts["all"] = counts.get("all", 0) + 1
+        if j is not None:
+            loops[j]["text"].append(text)
+    return top, loops
+
+
+def k1_issue(sass: str, name: str, spec, work: dict):
+    """The instructions a lane of the linear kernel issues, estimated from
+    its SASS: the loop whose body derives a child's stream (0xbb67ae85) is
+    the node loop, run ``visits`` times a lane; the loops inside it run
+    once per sphere (a body with MUFU.RSQ, the square root, and no
+    MUFU.RCP), once per plane (MUFU.RCP, the division, and no MUFU.RSQ),
+    once per object (both: a loop over both kinds) or once per light (a
+    loop with loops inside); code outside the node loop runs once.  Every
+    instruction of a body counts on every trip, those that a branch
+    skips included, so this is an upper estimate.  A loop inside a loop
+    body that fits none of these (a slow path for huge arguments) counts
+    0.  Returns (instructions per lane, node-loop report)."""
+    top, loops = sass_loops(sass, name)
+    live = spec.live_objects()
+    n_sph = sum(spec.shape_type[i] == 0 for i in live)
+    nodes = [i for i, lp in enumerate(loops)
+             if any("0xbb67ae85" in t for t in lp["text"])]
+    if not nodes:
+        raise AssertionError(f"{name}: no node loop in the SASS")
+    node = max(nodes, key=lambda i: loops[i]["start"])
+
+    def children(i):
+        return [j for j, lp in enumerate(loops) if lp["parent"] == i]
+
+    def trips(j):
+        if children(j):
+            return spec.n_lights
+        text = " ".join(loops[j]["text"])
+        rsq, rcp = "MUFU.RSQ" in text, "MUFU.RCP" in text
+        return (len(live) if rsq and rcp else n_sph if rsq
+                else len(live) - n_sph if rcp else 0)
+
+    def per_trip(i):
+        return loops[i]["counts"].get("all", 0) + sum(
+            trips(j) * per_trip(j) for j in children(i))
+
+    def kinds(i):
+        out = dict(loops[i]["counts"])
+        for j in children(i):
+            for k, c in kinds(j).items():
+                out[k] = out.get(k, 0) + trips(j) * c
+        return out
+
+    # everything outside the node loop once: the loops that hold it, and
+    # the code around them
+    outside = top.get("all", 0) + sum(
+        lp["counts"].get("all", 0) for i, lp in enumerate(loops)
+        if lp["end"] - lp["start"] > loops[node]["end"] - loops[node]["start"]
+        and lp["start"] <= loops[node]["start"])
+    per_lane = outside + work["visits"] * per_trip(node)
+    report = {"node_body": loops[node]["counts"],
+              "node_executed": {k: round(c, 1) for k, c in kinds(node).items()},
+              "inner_loops": [{"trips": trips(j), **loops[j]["counts"]}
+                              for j in children(node)],
+              "outside": outside}
+    return per_lane, report
+
+
 FACES = ("px", "nx", "py", "ny", "pz", "nz")
 # each face's (height, width): one smaller than the others, so that the
 # padded cube holds faces of two sizes
@@ -215,6 +463,95 @@ def render_bound(spec, n_lanes: int, work: dict, tables=None):
                                      + n_pln * FLOPS_PLANE))
         nbytes += 20 * tables.table.shape[0]
     return bound(flops * n_lanes, nbytes)
+
+
+# the linear kernel's three small instances, as their mangled names hold
+# the template arguments <LIT, LARGE, SKY>
+K1_INSTANCES = {"lean": "megakernel_linearILb0ELi0ELb0E",
+                "lit": "megakernel_linearILb1ELi0ELb0E",
+                "sky": "megakernel_linearILb0ELi0ELb1E"}
+
+# exact ties: the plane z = -3 (object 0) and its copy (object 2) around
+# the sphere at (0, 0, -4) of radius 1 (object 1), which the ray from the
+# origin along -z meets at t = 3 as it meets the planes; the floor twice
+# (3, 4); a sphere at (5, 0, 0) (5) before the plane x = 4 (6), which the
+# ray from the origin along +x meets at t = 4.  Object k has the ambient
+# color (k + 1) / 16 in red, so that at max_depth -1, where a lane's
+# radiance is its winner's ambient color, the radiance names the winner.
+TIES = ("{ objects: [ " + " ".join(
+    f"{{ bounds: {b} material: PhongMaterial {{ diffuse: rgb(0.5,0.5,0.5) "
+    f"specular: rgb(0,0,0) exponent: 1 ambient: rgb({(k + 1) / 16},0,0) }} }}"
+    for k, b in enumerate((
+        "Plane { point: (0, 0, -3) normal: (0, 0, 1) }",
+        "Sphere { center: (0, 0, -4) radius: 1 }",
+        "Plane { point: (0, 0, -3) normal: (0, 0, 1) }",
+        "Plane { point: (0, -1, 0) normal: (0, 1, 0) }",
+        "Plane { point: (0, -1, 0) normal: (0, 1, 0) }",
+        "Sphere { center: (5, 0, 0) radius: 1 }",
+        "Plane { point: (4, 0, 0) normal: (1, 0, 0) }"))) + """ ]
+  lights: [ ]
+  camera: SimplePerspectiveCamera new((0,0,0), (0,0,-1), (0,1,0), 2)
+  background: SolidColorBackground { color: rgb(0, 0, 0) }
+  options: { width: 32 height: 32 antialias: 2 }
+}""")
+
+
+def ambient_ids(rad_x: torch.Tensor) -> torch.Tensor:
+    """The object ids behind radiance of TIES at max_depth -1; -1 where a
+    lane missed."""
+    return torch.round(rad_x * 16).long() - 1
+
+
+def cuobjdump_sass(path: str) -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    r = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass",
+                        path], check=True, capture_output=True, text=True,
+                       timeout=300)
+    return r.stdout
+
+
+def ptxas_registers(log: str, instance: str):
+    """The registers ptxas gave the kernel instance ``instance`` (a part
+    of its mangled name), from the build's -v report; None without one
+    (a library built by an earlier process)."""
+    m = re.search(re.escape(instance) + r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used "
+                  r"(\d+) registers", log)
+    return int(m.group(1)) if m else None
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], check=True,
+                       capture_output=True, text=True, timeout=60)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def k1_report(label, instance, spec, n_lanes, work, ms, sass, log, smi):
+    """Print what K1's instance ``instance`` (a key of K1_INSTANCES) issues
+    on this launch beside its recounted bound and its time: the SASS of
+    its node loop by kind, its registers, the instructions a lane issues
+    (``k1_issue``) and the issue figure, those instructions over the
+    card's 4 x 32 a clock per SM.  Returns the recounted bound as
+    (ms, "operations" or "bytes")."""
+    name = K1_INSTANCES[instance]
+    per_lane, rep = k1_issue(sass, name, spec, work)
+    hz = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_ms = per_lane * n_lanes / (sms * 128 * hz) * 1e3
+    b_ms, b_by, units = k1_bound(spec, n_lanes, work)
+    print(f"    K1 {instance} ({label}): {ptxas_registers(log, name)} "
+          f"registers; SASS of one node's body by kind {rep['node_body']}, "
+          f"its inner loops {rep['inner_loops']}, executed per node "
+          f"{rep['node_executed']}, {rep['outside']} outside the node loop; "
+          f"{per_lane:.0f} instructions a lane (upper estimate), an issue "
+          f"figure of {issue_ms:.4f} ms at {hz / 1e6:.0f} MHz on {sms} SMs; "
+          f"recounted bound {b_ms:.4f} ms ({b_by}; by unit "
+          f"{ {k: round(v, 4) for k, v in units.items()} }); time {ms:.4f} "
+          f"ms, {b_ms / ms:.3f} of the bound, {issue_ms / ms:.3f} of the "
+          f"issue figure; on {smi}")
+    return b_ms, b_by
 
 
 def nvidia_smi() -> str:
@@ -563,11 +900,36 @@ def main() -> int:
     rand_lanes = random_lanes(spec, 65536, SEED, device)
     main_lanes = pixel_lanes(spec.width, spec.width * spec.height, 16, 1,
                              device)
-    print(f"[3, {at()}] " "kernel vs plain on cornell_indirect:")
+    print(f"[3, {at()}] " "kernel vs plain on cornell_indirect, then on a "
+          "scene of exact ties:")
     for name, lanes in (("random cornell lanes", rand_lanes),
                         ("the CLI's launch, 512x512 x 16 spp", main_lanes)):
         stats = check_kernel(megakernel, k_lin, data, spec, lanes, SEED, name)
         max_err[k_lin] = max(max_err[k_lin], stats["max_abs_err"])
+
+    # exact ties: the winner's object id, which the radiance names at
+    # max_depth -1, equal on every lane
+    ties = build_scene(dsl.parse(TIES), device=device)
+    ties_spec = dataclasses.replace(ties.spec, max_depth=-1)
+    for name, lanes in (("random lanes", random_lanes(ties_spec, 65536, SEED,
+                                                       device)),
+                        ("every pixel x 2 aa", pixel_lanes(
+                            32, 32 * 32, 2, 1, device))):
+        before = megakernel.LAUNCHES[k_lin]
+        got = ambient_ids(megakernel.radiance_lanes(
+            ties.data, ties_spec, *lanes, SEED).x)
+        want = ambient_ids(megakernel.radiance_lanes_reference(
+            ties.data, ties_spec, *lanes, SEED).x)
+        torch.cuda.synchronize()
+        if megakernel.LAUNCHES[k_lin] != before + 1:
+            raise AssertionError("the tie scene did not launch the kernel")
+        counts = torch.bincount(want + 1, minlength=8).tolist()
+        print(f"    tie scene (coincident planes), {name}: winners by object "
+              f"id (misses first) {counts}; equal on "
+              f"{float((got == want).float().mean()):.6f} of "
+              f"{got.shape[0]} lanes")
+        if not torch.equal(got, want):
+            raise AssertionError("K1's winners differ on the tie scene")
 
     # ---- phase 4: the main path, the CLI on the card ----
     done, wall, launches, size = cli_render(cli, megakernel, k_lin, SCENE,
@@ -613,9 +975,13 @@ def main() -> int:
           f"on {smi}")
     timing = {k_lin: (ms, plain_ms)}
     work = path_work(data, spec_b, lanes, 0)
-    bounds = {k_lin: render_bound(spec_b, n, work)}
-    print(f"    needs {work['visits']:.3f} live nodes per lane; bound "
-          f"{bounds[k_lin][0]:.4f} ms ({bounds[k_lin][1]})")
+    old_ms, old_by = render_bound(spec_b, n, work)
+    print(f"    needs {work['visits']:.3f} live nodes per lane; the object "
+          f"tests alone bound it at {old_ms:.4f} ms ({old_by})")
+    lin_log = _build.build_logs.get(k_lin, "")
+    lin_sass = cuobjdump_sass(_build.library_path(k_lin))
+    bounds = {k_lin: k1_report("cornell", "lean", spec_b, n, work, ms,
+                               lin_sass, lin_log, smi)}
 
     # ---- phase 6: the linear kernel with lights, mirror and DoF ----
     lit = build_scene(dsl.parse(LIT_MIRROR), device=device)
@@ -700,6 +1066,10 @@ def main() -> int:
               f"{[round(x, 4) for x in times['kernel']]}), {k_dev:.4f} ms on "
               f"the device; plain {plain_ms:.4f} ms/call (runs "
               f"{[round(x, 4) for x in times['plain']]}); on {smi}")
+        if kname == k_lin:
+            k1_report("lit mirror scene", "lit", sc.spec, 1 << 21,
+                      path_work(sc.data, sc.spec, lanes, 0), ms, lin_sass,
+                      lin_log, smi)
         if kname == k_tree:
             timing[k_tree] = (ms, plain_ms)
             work = path_work(sc.data, sc.spec, lanes, 0)
@@ -1143,6 +1513,10 @@ def main() -> int:
         work = path_work(sc.data, sc.spec, lanes, 0)
         timing[row] = (ms, plain_ms)
         bounds[row] = render_bound(sc.spec, 1 << 21, work)
+        if row == k_lin_sky:
+            bounds[row] = k1_report("open cornell under the sky", "sky",
+                                    sc.spec, 1 << 21, work, ms, lin_sass,
+                                    lin_log, smi)
         print(f"    {label}: kernel {ms:.4f} ms/call (runs "
               f"{[round(x, 4) for x in times['kernel']]}), {k_dev:.4f} ms on "
               f"the device; plain {plain_ms:.4f} ms/call; needs "

@@ -5,6 +5,9 @@ Same positional argument and flags as ``raytrace_tpu.cli``, plus
 megakernel (the linear one or the tree one; a skybox scene's faces are
 loaded from the image files it names, relative to the scene file), and
 a machine without a usable GPU is an error, never a silent CPU render.
+``--device cpu`` renders every scene through the kernels' plain
+version, ``--f64`` (float64, CPU only, as in the JAX package's CLI) and
+fan-out trees of any depth included.
 
     python -m raytrace_tpu_torch.cli examples/materials_showcase.txt \\
         -o out.bmp --device cuda
@@ -23,7 +26,6 @@ import numpy as np
 _UNPORTED = {
     "shard": "--shard is not ported yet (ROADMAP item 13)",
     "shard_objects": "--shard-objects is not ported yet (ROADMAP item 13)",
-    "f64": "--f64 is not ported yet (ROADMAP item 12)",
     "profile": "--profile is not ported yet (ROADMAP item 5)",
 }
 
@@ -44,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override render height")
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
     p.add_argument("--f64", action="store_true",
-                   help="render in float64 (not ported yet)")
+                   help="render in float64 (--device cpu only)")
     p.add_argument("--max-lanes", type=int, default=1 << 22,
                    help="lane budget per launch (memory knob)")
     p.add_argument("--shard", action="store_true",
@@ -69,6 +71,10 @@ def main(argv=None) -> int:
         if getattr(args, flag):
             print(f"error: {msg}", file=sys.stderr)
             return 2
+    if args.f64 and args.device == "cuda":
+        print("error: --f64 on --device cuda is not ported yet (ROADMAP "
+              "item 12); use --device cpu", file=sys.stderr)
+        return 2
 
     import torch
 
@@ -90,7 +96,9 @@ def main(argv=None) -> int:
 
     try:
         with log.phase("load_scene", path=args.scene):
-            scene = load_scene_file(args.scene, device=device)
+            scene = load_scene_file(
+                args.scene, device=device,
+                dtype=torch.float64 if args.f64 else torch.float32)
     except (OSError, SceneSyntaxError) as e:
         print(f"error: {e}", file=sys.stderr)  # main.rs:18,28 shape
         return 1
@@ -102,7 +110,7 @@ def main(argv=None) -> int:
         spec = dataclasses.replace(spec, **overrides)
         scene = dataclasses.replace(scene, spec=spec)
     reason = megakernel.unsupported_reason(scene.data, spec)
-    if reason is not None:
+    if reason is not None and device.type == "cuda":
         print(f"error: {reason}", file=sys.stderr)
         return 1
 

@@ -18,13 +18,19 @@
 // summed radiance (integrator.radiance_linear_v).  The device code is in
 // render_common.cuh, shared with the tree kernel.
 //
-// What bounds it on an H100: FP32 issue and the special-function units
-// (sqrt, rsqrt, division, sinf, cosf, powf), plus one shadow loop over the
-// objects per light per level; memory traffic is 16 B in (four 32-bit lane
-// ids) and 12 B out per lane.  All ray state stays in registers for the
-// whole chain.  The scene (header, lights, one 24-float row per live
-// object) is staged once per block into shared memory, where every thread
-// of a warp reads the same address (a broadcast).  The closest-hit loop
+// What bounds it on an H100: the issue of its instructions, some thousands
+// a lane (the object tests of every node, the shading, the RNG's integer
+// hashes), and the latency that its warps in flight hide; memory traffic is
+// 16 B in (four 32-bit lane ids) and 12 B out per lane.  All ray state stays
+// in registers for the whole chain, so registers decide the blocks an SM
+// holds: the object loops stay rolled, each row carries the constant of its
+// test (a sphere's r * r, a plane's p.n) so that no lane recomputes it, the
+// two key hashes of a lane share their common prefix, one sincosf serves
+// the indirect sample, and the launch bounds keep the lit instances at 72
+// registers and the large ones at 64 (linear_min_blocks).  The scene
+// (header, lights, one 24-float row per live object) is staged once per
+// block into shared memory, where every thread of a warp reads the same
+// address (a broadcast).  The closest-hit loop
 // keeps only the running minimum and the winner's index; the winner's row
 // is read once after the loop.  A lane leaves the chain as soon as it dies
 // (miss or no live child), which is exact: a dead lane adds nothing to its
@@ -50,10 +56,25 @@ namespace {
 
 using namespace rt;
 
+// The launch bounds: the blocks an SM must have room for, and so the
+// registers a thread may take, of the small lean and sky instances, of the
+// small lit ones (blocks of THREADS threads) and of the large lean and sky
+// ones (blocks of LARGE_THREADS).  Held to 7 blocks, the small lit ones
+// keep 72 registers, where they would take 76 and lose a block an SM; held
+// to 4, the large ones keep 64, where they would take 69-72 and lose one
+// (tools/torch_kernel_variants.py times these and others).
+constexpr int LINEAR_MIN_BLOCKS = 1, LINEAR_LIT_MIN_BLOCKS = 7;
+constexpr int LINEAR_LARGE_MIN_BLOCKS = 4;
+constexpr int linear_min_blocks(bool lit, int large) {
+  return large != 0 ? (lit ? 1 : LINEAR_LARGE_MIN_BLOCKS)
+                    : (lit ? LINEAR_LIT_MIN_BLOCKS : LINEAR_MIN_BLOCKS);
+}
+
 // LARGE as shade_node takes it: 0 a small scene, 1 and 2 a large one with
 // its fold buffer in device memory or staged in shared memory
 template <bool LIT, int LARGE, bool SKY>
-__global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS)
+__global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
+                                  linear_min_blocks(LIT, LARGE))
 megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                   const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
                   const float* __restrict__ scene, const void* __restrict__ fold,

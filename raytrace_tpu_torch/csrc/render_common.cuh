@@ -59,6 +59,11 @@ constexpr int R_FRE = 18;      // 1 = Fresnel
 constexpr int R_TRA = 19;      // 1 = Transparent
 constexpr int R_IND = 20;      // 1 = IndirectPhong
 constexpr int R_SPH = 21;      // 1 = sphere, 0 = plane
+// a small scene's rows only (0 in a large scene's; 23 is a pad): what the
+// object test would recompute in every lane, with the plain version's
+// rounding, a sphere's r * r and a plane's p.n (its three products summed
+// left to right)
+constexpr int R_PRE = 22;
 
 constexpr int LIGHT_DIRECTIONAL = 1;
 constexpr int LIGHT_AREA = 2;
@@ -85,20 +90,17 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// ops/rng.py::hash_words with a seed word s
-template <int N>
-__device__ __forceinline__ uint32_t hash_words(uint32_t s, const uint32_t (&w)[N]) {
+// ops/rng.py::hash_words with a seed word s, of (px, py, aa) into k3 and
+// of (px, py, aa, cam) into k4: the common prefix is absorbed once
+__device__ __forceinline__ void primary_keys(uint32_t s, uint32_t px, uint32_t py,
+                                             uint32_t aa, uint32_t cam, uint32_t& k3,
+                                             uint32_t& k4) {
   uint32_t h = s ^ 0x243F6A88u;
-#pragma unroll
-  for (int i = 0; i < N; ++i) h = mix32(h + w[i] + GAMMA * (2u * i + 1u));
-  return mix32(h);
-}
-
-template <int N>
-__device__ __forceinline__ void make_keys(uint32_t seed, const uint32_t (&w)[N],
-                                          uint32_t& k1, uint32_t& k2) {
-  k1 = hash_words(seed ^ 0x243F6A88u, w);
-  k2 = hash_words(seed ^ 0x85A308D3u, w);
+  h = mix32(h + px + GAMMA * 1u);
+  h = mix32(h + py + GAMMA * 3u);
+  h = mix32(h + aa + GAMMA * 5u);
+  k3 = mix32(h);
+  k4 = mix32(mix32(h + cam + GAMMA * 7u));
 }
 
 // ops/rng.py::draw, float32: 24 random bits scaled by 2**-24
@@ -326,16 +328,16 @@ template <bool RN>
 __device__ __forceinline__ Node primary_ray(const float* s, uint32_t px, uint32_t py,
                                             uint32_t a_id, uint32_t c_id, uint32_t seed,
                                             bool dof) {
+  // the jitter's keys hash (px, py, aa), the path's (px, py, aa, cam):
+  // both sponges of a seed word share their first three absorptions
   uint32_t jk1, jk2;
-  const uint32_t w3[3] = {px, py, a_id};
-  make_keys(seed, w3, jk1, jk2);
+  Node e;
+  primary_keys(seed ^ 0x243F6A88u, px, py, a_id, c_id, jk1, e.k1);
+  primary_keys(seed ^ 0x85A308D3u, px, py, a_id, c_id, jk2, e.k2);
   const float u = draw(jk1, jk2, PURPOSE_AA_X);
   const float v = draw(jk1, jk2, PURPOSE_AA_Y);
   const float pos_x = (((float)(int)px + u) - s[H_HALFW]) * s[H_SCALE];
   const float pos_y = (((float)(int)py + v) - s[H_HALFH]) * s[H_SCALE];
-  Node e;
-  const uint32_t w4[4] = {px, py, a_id, c_id};
-  make_keys(seed, w4, e.k1, e.k2);
 
   const float* m = s + H_CAM_M;
   float dx = add_<RN>(add_<RN>(mul_<RN>(m[0], pos_x), mul_<RN>(m[1], pos_y)), m[2]);
@@ -371,22 +373,21 @@ __device__ __forceinline__ Node primary_ray(const float* s, uint32_t px, uint32_
 }
 
 // ---- intersection (ops/intersect.py::_object_t): t and validity of one
-// sphere (center, radius), of one plane (normal, p.n), of one object row
-// of a small scene.  The folds over a large scene's table have their own
-// sphere test (sphere_row_t, below).
-__device__ __forceinline__ bool sphere_t(float cx, float cy, float cz, float rad, float ox,
+// sphere (center, r * r), of one plane (normal, p.n).  The folds over a
+// large scene's table have their own sphere test (sphere_row_t, below).
+__device__ __forceinline__ bool sphere_t(float cx, float cy, float cz, float rr, float ox,
                                          float oy, float oz, float dx, float dy, float dz,
-                                         float a, float inv2a, float& t) {
+                                         float a4, float inv2a, float& t) {
   const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
   const float b = 2.0f * dot_<false>(dx, dy, dz, ocx, ocy, ocz);
-  const float cc = dot_<false>(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
-  const float disc = b * b - (4.0f * a) * cc;
-  const bool has = disc > 0.0f;
-  const float sq = sqrtf(has ? disc : 1.0f);
+  const float cc = dot_<false>(ocx, ocy, ocz, ocx, ocy, ocz) - rr;
+  const float disc = b * b - a4 * cc;
+  // the root and its square root only where a thread of the warp may hit
+  if (!(disc > 0.0f)) return false;
+  const float sq = sqrtf(disc);
   const float t1 = (-b - sq) * inv2a;
-  const float t2 = (-b + sq) * inv2a;
-  t = t1 > 0.0f ? t1 : t2;
-  return has && t > 0.0f;
+  t = t1 > 0.0f ? t1 : (-b + sq) * inv2a;
+  return t > 0.0f;
 }
 
 template <bool RN>
@@ -400,35 +401,41 @@ __device__ __forceinline__ bool plane_t(float qx, float qy, float qz, float p_do
   return ok && t > 0.0f;
 }
 
+// t and validity of one object row of a small scene
 __device__ __forceinline__ bool object_t(const float* r, float ox, float oy, float oz,
-                                         float dx, float dy, float dz, float a, float inv2a,
+                                         float dx, float dy, float dz, float a4, float inv2a,
                                          float& t) {
   if (r[R_SPH] > 0.5f)
-    return sphere_t(r[R_P], r[R_P + 1], r[R_P + 2], r[R_Q], ox, oy, oz, dx, dy, dz, a, inv2a,
-                    t);
-  const float qx = r[R_Q], qy = r[R_Q + 1], qz = r[R_Q + 2];
-  const float p_dot_n = r[R_P] * qx + r[R_P + 1] * qy + r[R_P + 2] * qz;
-  return plane_t<false>(qx, qy, qz, p_dot_n, ox, oy, oz, dx, dy, dz, t);
+    return sphere_t(r[R_P], r[R_P + 1], r[R_P + 2], r[R_PRE], ox, oy, oz, dx, dy, dz, a4,
+                    inv2a, t);
+  return plane_t<false>(r[R_Q], r[R_Q + 1], r[R_Q + 2], r[R_PRE], ox, oy, oz, dx, dy, dz, t);
 }
 
 __device__ __forceinline__ float safe_inv2a(float a) { return 0.5f / (a > 0.0f ? a : 1.0f); }
 
+// The two queries over a small scene's rows in shared memory, one loop over
+// the rows in scene order (every thread of a warp tests the same object, a
+// broadcast, so the instructions of one test times the objects are the
+// work).  A sphere's r * r and a plane's p.n come ready (R_PRE), rounded as
+// the plain version rounds them.  The loops stay rolled: an unrolled body
+// with its remainder costs registers, and with them blocks an SM.
+//
 // closest hit: running minimum, the first minimum in scene order wins; a
 // miss leaves `best` at the first live object (the reference's miss row)
 __device__ __forceinline__ bool closest_hit(const Scene& sc, float ox, float oy, float oz,
                                             float dx, float dy, float dz, float& t_best,
                                             int& best) {
   const float a = dx * dx + dy * dy + dz * dz;
-  const float inv2a = safe_inv2a(a);
+  const float inv2a = safe_inv2a(a), a4 = 4.0f * a;
   t_best = INFINITY;
   best = 0;
   bool hit = false;
+#pragma unroll 1
   for (int o = 0; o < sc.n_obj; ++o) {
     float t;
-    const bool valid = object_t(sc.row(o), ox, oy, oz, dx, dy, dz, a, inv2a, t);
-    const float ti = valid ? t : INFINITY;
-    if (ti < t_best) {
-      t_best = ti;
+    const bool valid = object_t(sc.row(o), ox, oy, oz, dx, dy, dz, a4, inv2a, t);
+    if (valid && t < t_best) {
+      t_best = t;
       best = o;
     }
     hit = hit || valid;
@@ -442,10 +449,11 @@ __device__ __forceinline__ bool occluded(const Scene& sc, float ox, float oy, fl
                                          float dx, float dy, float dz, float sq_range,
                                          bool has_range) {
   const float a = dx * dx + dy * dy + dz * dz;
-  const float inv2a = safe_inv2a(a);
+  const float inv2a = safe_inv2a(a), a4 = 4.0f * a;
+#pragma unroll 1
   for (int o = 0; o < sc.n_obj; ++o) {
     float t;
-    if (object_t(sc.row(o), ox, oy, oz, dx, dy, dz, a, inv2a, t)
+    if (object_t(sc.row(o), ox, oy, oz, dx, dy, dz, a4, inv2a, t)
         && (!has_range || __fmul_rn(t, t) < sq_range))
       return true;
   }
@@ -888,11 +896,11 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
   float ptx = add_<RN>(e.ox, mul_<RN>(e.dx, t_best));
   float pty = add_<RN>(e.oy, mul_<RN>(e.dy, t_best));
   float ptz = add_<RN>(e.oz, mul_<RN>(e.dz, t_best));
-  const float relx = ptx - r[R_P], rely = pty - r[R_P + 1], relz = ptz - r[R_P + 2];
-  const float nrm2 = dot_<RN>(relx, rely, relz, relx, rely, relz);
-  const float inv = rsqrtf(nrm2 > 0.0f ? nrm2 : 1.0f);
   float nx, ny, nz;
   if (r[R_SPH] > 0.5f) {
+    const float relx = ptx - r[R_P], rely = pty - r[R_P + 1], relz = ptz - r[R_P + 2];
+    const float nrm2 = dot_<RN>(relx, rely, relz, relx, rely, relz);
+    const float inv = rsqrtf(nrm2 > 0.0f ? nrm2 : 1.0f);
     nx = relx * inv;
     ny = rely * inv;
     nz = relz * inv;
@@ -905,8 +913,10 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     ny = r[R_Q + 1];
     nz = r[R_Q + 2];
     const float nn = dot_<RN>(nx, ny, nz, nx, ny, nz);
-    const float dist = sub_<RN>(dot_<RN>(ptx, pty, ptz, nx, ny, nz),
-                                dot_<RN>(r[R_P], r[R_P + 1], r[R_P + 2], nx, ny, nz))
+    // p.n: ready in a small scene's row, in the same rounding as RN's
+    const float p_dot_n =
+        LARGE != 0 ? dot_<RN>(r[R_P], r[R_P + 1], r[R_P + 2], nx, ny, nz) : r[R_PRE];
+    const float dist = sub_<RN>(dot_<RN>(ptx, pty, ptz, nx, ny, nz), p_dot_n)
                        / (nn > 0.0f ? nn : 1.0f);
     const float sc_ = nn > 0.0f ? dist : 0.0f;
     ptx = sub_<RN>(ptx, mul_<RN>(nx, sc_));
@@ -1047,7 +1057,9 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
         const float r1 = draw(e.k1, e.k2, PURPOSE_INDIRECT_R1 + 2u * k) * 2.0f - 1.0f;
         const float phi = draw(e.k1, e.k2, PURPOSE_INDIRECT_R2 + 2u * k) * TWO_PI;
         const float sw = sub_<RN>(1.0f, mul_<RN>(r1, r1));
-        float ddx = sw * cosf(phi), ddy = r1, ddz = sw * sinf(phi);
+        float sin_p, cos_p;
+        sincosf(phi, &sin_p, &cos_p);  // one range reduction, sinf's and cosf's bits
+        float ddx = sw * cos_p, ddy = r1, ddz = sw * sin_p;
         if (!(dot_<RN>(ddx, ddy, ddz, nfx, nfy, nfz) >= 0.0f)) {
           ddx = -ddx;
           ddy = -ddy;

@@ -261,17 +261,14 @@ def sample_pixels(data: SceneData, spec: SceneSpec, px, py, sample_ids,
                   seed: int) -> torch.Tensor:
     """Mean radiance of samples ``sample_ids`` (S,) for pixels (px, py)
     (P,) each, as a (P, 3) tensor (main.rs:45-55 x raytrace.rs:270-276).
-    y counts from the bottom row.  Every float32 lane goes through
-    :func:`raytrace_tpu_torch.render.megakernel.radiance_lanes`.  The
-    kernels are float32: a float64 scene on CPU tensors takes their plain
-    version (as the JAX package's float64 scenes go off its kernel), and
-    on CUDA tensors it raises, naming ROADMAP item 12."""
+    y counts from the bottom row.  Every lane goes through
+    :func:`raytrace_tpu_torch.render.megakernel.radiance_lanes`: on CUDA
+    tensors a kernel (a scene the kernels do not take, float64 or a DFS
+    stack above 64 entries, raises there, naming its ROADMAP item), on CPU
+    tensors the kernels' plain version, for every scene."""
     p, s = px.shape[0], sample_ids.shape[0]
     lanes = lane_ids(px, py, sample_ids, spec.cam_samples)
-    plain = data.dtype == torch.float64 and px.device.type == "cpu"
-    radiance = (megakernel.radiance_lanes_reference if plain
-                else megakernel.radiance_lanes)
-    rad = radiance(data, spec, *lanes, seed)
+    rad = megakernel.radiance_lanes(data, spec, *lanes, seed)
     return vec.pack(V3(*(r.reshape(p, -1).mean(dim=1) for r in rad)))
 
 

@@ -20,9 +20,11 @@ differentiates the plain version on the same lanes
 (:mod:`raytrace_tpu_torch.ops.kernel_grad`).
 :func:`radiance_lanes_split` is the plain chain with a large scene's
 scans answered by the CUDA scan kernel
-(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  Scenes outside
-:func:`usable` (float64, DFS stacks above 64 entries) raise
-``NotImplementedError`` naming the ROADMAP item on every device.
+(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  On CPU tensors every
+scene renders, float64 and DFS stacks of any depth included; on CUDA
+tensors a scene outside :func:`usable` (float64, DFS stacks above 64
+entries) raises ``NotImplementedError`` naming the ROADMAP item, and
+nothing there gives way to the plain version.
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ MAX_TREE_STACK = 64
 # its stack instances: entries of a thread's stack in local memory
 TREE_STACK_CAPS = (8, 16, 32, 64)
 
-# floats per object row in the scene buffer: object_table()'s 22 columns
-# and a pad (csrc/render_common.cuh, ROW), of the header and per light
+# floats per object row in the scene buffer: object_table()'s 22 columns,
+# a small scene's precomputed constant and a pad (csrc/render_common.cuh,
+# ROW), of the header and per light
 _ROW, _HDR, _LROW = 24, 24, 16
 
 
@@ -100,9 +103,8 @@ def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
     from raytrace_tpu_torch.render.integrator import tree_loop_stack
 
     if data.dtype != torch.float32:
-        return ("the kernels are float32: call radiance_lanes_reference "
-                "for a float64 scene, as sample_pixels does on CPU tensors "
-                "(double kernels: ROADMAP item 12)")
+        return ("the kernels are float32; a float64 scene renders on CPU "
+                "tensors only (double kernels: ROADMAP item 12)")
     if kernel_for(spec) == KERNEL_TREE:
         m, levels, _, cap = tree_loop_stack(spec)
         if cap > MAX_TREE_STACK:
@@ -113,25 +115,30 @@ def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
 
 
 def usable(data: SceneData, spec: SceneSpec) -> bool:
-    """Whether this scene renders through :func:`radiance_lanes`."""
+    """Whether this scene renders through the kernels (on CPU tensors
+    :func:`radiance_lanes` renders every scene)."""
     return unsupported_reason(data, spec) is None
 
 
 def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
                    seed: int) -> V3:
     """Radiance of each lane, given (N,) integer identity tensors on the
-    scene's device.  Returns a V3 of (N,) float32 tensors, differentiable
-    in every float leaf of the scene."""
-    reason = unsupported_reason(data, spec)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    scene's device.  Returns a V3 of (N,) tensors of the scene's dtype,
+    differentiable in every float leaf of the scene.  CPU tensors take the
+    plain version whatever the scene; CUDA tensors a kernel, or
+    ``NotImplementedError`` for a scene outside :func:`usable`."""
     device = pix.device
     for t in (pix, piy, aa, cam):
         if t.device != device or t.shape != pix.shape or t.ndim != 1:
             raise ValueError("lane ids must be (N,) tensors on one device")
     if data.device != device:
         raise ValueError(f"scene on {data.device}, lanes on {device}")
+    if device.type == "cpu":
+        return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed)
     if device.type == "cuda":
+        reason = unsupported_reason(data, spec)
+        if reason is not None:
+            raise NotImplementedError(reason)
         # the kernel forward; backward through the plain version
         leaves = [getattr(data, f.name) for f in dataclasses.fields(data)]
         return V3(*kernel_forward(
@@ -140,8 +147,6 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             lambda *ls: radiance_lanes_reference(SceneData(*ls), spec, pix,
                                                  piy, aa, cam, seed),
             *leaves))
-    if device.type == "cpu":
-        return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed)
     raise ValueError(f"no megakernel for device {device}")
 
 
@@ -176,14 +181,17 @@ def radiance_lanes_split(data: SceneData, spec: SceneSpec, pix, piy, aa,
 
 def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
     """The kernels' float32 scene buffer on the scene's device
-    (csrc/render_common.cuh): a 24-float header (camera
-    position, row-major camera matrix, background color, half width, half
-    height, NDC scale, minimum significance, focal distance, aperture,
-    image distance, two pads), then 16 floats per light (type, position,
-    first and second edge, color, three pads), then 24-float object rows
-    (the columns of ``object_table``, pad): one per live object in scene
-    order, or for a large scene one per object, indexed by object id
-    (the large instances read them from device memory and fold over
+    (csrc/render_common.cuh): a 24-float header (camera position,
+    row-major camera matrix, background color, half width, half height,
+    NDC scale, minimum significance, focal distance, aperture, image
+    distance, two pads), then 16 floats per light (type, position, first
+    and second edge, color, three pads), then 24-float object rows: the
+    columns of ``object_table``, the constant of the object's intersection
+    test as the plain version rounds it (a sphere's ``r * r``, a plane's
+    ``p.n``: three products summed left to right) and a pad.  A small
+    scene has one row per live object in scene order; a large scene one
+    per object, indexed by object id, with the constant left 0 (the large
+    instances read these rows from device memory and fold over
     :func:`raytrace_tpu_torch.ops.intersect.scene_tables`)."""
     halfw, halfh = spec.width / 2.0, spec.height / 2.0
     # every number taken from the spec, in one host-to-device copy
@@ -197,10 +205,16 @@ def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
                         data.light_color[:n_l],
                         torch.zeros_like(data.light_p[:n_l])], dim=1)
     rows = object_table(data, spec)
+    pre = torch.zeros_like(rows[:, :_ROW - rows.shape[1]])
     if not is_large(spec):
         rows = rows[spec.live_objects()]
-    rows = torch.cat([rows, torch.zeros_like(rows[:, :_ROW - rows.shape[1]])],
-                     dim=1)
+        p, q = rows[:, 0:3], rows[:, 3:6]
+        # the plain version's roundings: r * r; (p0 q0 + p1 q1) + p2 q2
+        pre = torch.stack([torch.where(
+            rows[:, 21] > 0.5, q[:, 0] * q[:, 0],
+            p[:, 0] * q[:, 0] + p[:, 1] * q[:, 1] + p[:, 2] * q[:, 2]),
+            torch.zeros_like(rows[:, 0])], dim=1)
+    rows = torch.cat([rows, pre], dim=1)
     parts = [data.cam_position, data.cam_matrix.reshape(9), data.bg_color,
              host[:4], data.cam_focus.reshape(1), data.cam_aperture.reshape(1),
              data.cam_im_dist.reshape(1), host[4:6], lights.reshape(-1),

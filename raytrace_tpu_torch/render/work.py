@@ -49,6 +49,9 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
       takes);
     * ``misses``: live nodes per lane whose ray hits nothing (each a
       skybox lookup in a skybox scene; 0 for a solid background);
+    * ``hits``: live nodes per lane whose ray hits an object, and
+      ``last_hits`` those of them at the last depth, which add their
+      ambient color and nothing else;
     * ``chunks``: for a large scene, sphere chunks entered per lane, summed
       over its live nodes (the others are culled); else 0;
     * ``by_depth``: for a large scene, per depth of the tree ``(live lanes
@@ -71,7 +74,7 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
     large = megakernel.is_large(spec)
     tb = scene_tables(data, spec) if large else None
     per_lane = torch.zeros(n, dtype=torch.int64, device=ro.x.device)
-    chunks = misses = 0
+    chunks = misses = hits = last_hits = 0
     depth_live = [0] * levels
     depth_chunks = [0] * levels
     depth_union = [0] * levels
@@ -83,8 +86,11 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
         live = e[10] > 0.5
         per_lane += live
         depth_live[depth] += int(live.sum())
+        hit = closest_hit(data, spec, V3(*e[0:3]), V3(*e[3:6])).hit & live
+        hits += int(hit.sum())
+        if depth == levels - 1:
+            last_hits += int(hit.sum())
         if spec.bg_type == BG_SKYBOX:
-            hit = closest_hit(data, spec, V3(*e[0:3]), V3(*e[3:6])).hit
             misses += int((live & ~hit).sum())
         if large:
             mask = intersect_scan.scan_hit_reference(
@@ -112,4 +118,6 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
     return {"visits": float(per_lane.sum()) / n,
             "warp_visits": float(per_lane.reshape(-1, WARP).amax(dim=1)
                                  .double().mean()),
-            "misses": misses / n, "chunks": chunks / n, "by_depth": by_depth}
+            "misses": misses / n, "hits": hits / n,
+            "last_hits": last_hits / n, "chunks": chunks / n,
+            "by_depth": by_depth}

@@ -5,6 +5,7 @@ logging module."""
 import dataclasses
 import io
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -61,14 +62,41 @@ def test_cli_cpu_bmp_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [(["--shard"], 13),
                                        (["--shard-objects"], 13),
-                                       (["--f64"], 12),
+                                       (["--f64", "--device", "cuda"], 12),
                                        (["--profile", "trace"], 5)])
 def test_cli_unported_flags(tmp_path, flag, item):
+    """Refused before any device is looked at.  ``--f64`` is refused on
+    ``--device cuda`` alone (the last ``--device`` wins)."""
     r = _run([CORNELL, "-o", str(tmp_path / "x.bmp"), "--device", "cpu",
               *flag])
     assert r.returncode == 2
     assert f"not ported yet (ROADMAP item {item})" in r.stderr
     assert not (tmp_path / "x.bmp").exists()
+
+
+def test_cli_f64_cpu_matches_jax_cli_bytes(tmp_path):
+    """``--f64 --device cpu`` renders cornell in float64 through the plain
+    path; its BMP equals, byte for byte, the JAX package's CLI with
+    ``--f64`` (float64 on the CPU there too)."""
+    common = [CORNELL, "--width", "16", "--height", "16", "--spp", "2",
+              "--seed", "1", "--f64", "-q"]
+    ours, theirs = tmp_path / "torch.bmp", tmp_path / "jax.bmp"
+    log = tmp_path / "log.jsonl"
+    r = _run([*common, "-o", str(ours), "--device", "cpu", "--log-json",
+              str(log)])
+    assert r.returncode == 0, r.stderr
+    done = [json.loads(x) for x in log.read_text().splitlines()
+            if '"render_done"' in x][-1]
+    assert done["kernel_launches"] == 0 and done["nonfinite"] == 0
+    env = dict(os.environ, JAX_ENABLE_X64="1", RAYTRACE_TPU_FORCE_CPU="1",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    r = subprocess.run([sys.executable, "-m", "raytrace_tpu.cli", *common,
+                        "-o", str(theirs)], cwd=REPO_ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    blob = ours.read_bytes()
+    assert len(blob) == 122 + 48 * 16 and any(blob[122:])
+    assert blob == theirs.read_bytes()
 
 
 def test_cli_errors(tmp_path):

@@ -75,11 +75,12 @@ def _variant(**spec_changes):
 
 def _out_of_slice():
     """Scenes the kernels do not take: float64, and a fan-out tree whose
-    DFS stack exceeds 64 entries (4 indirect samples at max_depth 21)."""
+    DFS stack exceeds 64 entries (65 indirect slots at max_depth 0: a
+    stack of 65, 66 nodes per lane)."""
     f64 = torch_load(CORNELL, device="cpu", dtype=torch.float64)
     return {
         "f64": (f64.data, f64.spec, 12),
-        "deep tree": (*_variant(n_indirect=4, max_depth=21), 9),
+        "deep tree": (*_variant(n_indirect=65, max_depth=0), 9),
     }
 
 
@@ -91,11 +92,20 @@ def test_usable_takes_skybox_scenes():
 
 @pytest.mark.parametrize("feature", list(_out_of_slice()))
 def test_usable_refuses_out_of_slice(feature):
+    """Outside the kernels' slice, and so refused on the card (the
+    ``cuda``-marked test below); on CPU tensors radiance_lanes renders it
+    all the same, through the plain version."""
     data, spec, item = _out_of_slice()[feature]
     assert not megakernel.usable(data, spec)
-    lanes = [torch.zeros(4, dtype=torch.int64)] * 4
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}\\b"):
-        megakernel.radiance_lanes(data, spec, *lanes, 0)
+    assert f"ROADMAP item {item}" in megakernel.unsupported_reason(data, spec)
+    lanes = [torch.from_numpy(a.astype(np.int64)) for a in _lanes(64, 6)]
+    before = dict(megakernel.LAUNCHES)
+    got = megakernel.radiance_lanes(data, spec, *lanes, 6)
+    want = megakernel.radiance_lanes_reference(data, spec, *lanes, 6)
+    assert megakernel.LAUNCHES == before
+    for g, w in zip(got, want):
+        assert g.dtype == data.dtype and torch.equal(g, w)
+    assert float(got.x.max()) > 0.0
 
 
 # a Phong mirror floor and a Phong sphere under a point and a directional
@@ -248,7 +258,9 @@ def test_cpu_dispatch_is_the_plain_version():
 
 def test_pack_scene_layout():
     """The buffer the CUDA kernels read (csrc/render_common.cuh): a
-    24-float header, 16 floats per light, 24 per live object."""
+    24-float header, 16 floats per light, 24 per live object
+    (tests/test_torch_k1_layout.py holds the column a small scene's row
+    precomputes)."""
     ts = torch_load(SHOWCASE, device="cpu")
     d = ts.data
     buf = megakernel.pack_scene(d, ts.spec)
@@ -271,7 +283,7 @@ def test_pack_scene_layout():
     assert not lights[:, 13:].any()
     rows = buf[24 + 48:].reshape(4, 24)
     assert torch.equal(rows[:, :22], object_table(d, ts.spec))
-    assert not rows[:, 22:].any()
+    assert rows[:, 22].all() and not rows[:, 23].any()
     # cornell: no lights, simple camera, every row IndirectPhong
     tc = torch_load(CORNELL, device="cpu")
     buf = megakernel.pack_scene(tc.data, tc.spec)
@@ -401,7 +413,12 @@ def test_tree_kernel_deep_stacks_on_card(cuda_device, samples, max_depth):
 
 @pytest.mark.cuda
 def test_card_raises_out_of_slice(cuda_device):
-    data, spec, _ = _out_of_slice()["deep tree"]
+    """On CUDA tensors a scene outside the slice raises, naming its ROADMAP
+    item; nothing there gives way to the plain version."""
     lanes = [torch.zeros(4, dtype=torch.int64, device=cuda_device)] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        megakernel.radiance_lanes(data.to(cuda_device), spec, *lanes, 0)
+    for data, spec, item in _out_of_slice().values():
+        before = dict(megakernel.LAUNCHES)
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP item {item}\\b"):
+            megakernel.radiance_lanes(data.to(cuda_device), spec, *lanes, 0)
+        assert megakernel.LAUNCHES == before

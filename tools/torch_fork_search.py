@@ -8,8 +8,10 @@ are not touched) and holds each against the plain PyTorch path on the
 scene of ``tests/test_torch_megakernel.py::
 test_tree_kernel_deep_stacks_on_card[24-1]`` (a 24-sample IndirectPhong
 sphere over a Phong floor at max_depth 1: 601 nodes per lane), on the
-test's own 2,048 lanes (seed 10) and on ``--lanes`` random ones.  For each
-variant it prints the share of lanes outside the per-lane rule
+test's own 2,048 lanes (seed 10) and on ``--lanes`` random ones, and the
+linear kernel on cornell_indirect's 4,194,304-lane CLI launch (512x512 x
+16 spp, seed 3).  For each variant it prints the share of lanes outside
+the per-lane rule
 (``|d| <= 1e-4 * max(1, |ref|)``), the ptxas registers, and the time per
 2,097,152-lane launch on cornell_indirect (the linear kernel's lean
 instance) and on materials_showcase (the tree kernel), so that a cure's
@@ -39,18 +41,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 # (old, new) replacements in render_common.cuh and the two megakernel
-# sources, cumulative from one variant to the next
-RN_SHADE = [("constexpr bool RN = LARGE;", "constexpr bool RN = true;")]
+# sources, cumulative from one variant to the next; each must occur
+RN_SHADE = [("constexpr bool RN = LARGE != 0;", "constexpr bool RN = true;")]
 RN_TESTS = RN_SHADE + [
-    ("return sphere_t<false>(", "return sphere_t<true>("),
-    ("return plane_t<false>(", "return plane_t<true>("),
-    ("const float p_dot_n = r[R_P] * qx + r[R_P + 1] * qy + r[R_P + 2] * qz;",
-     "const float p_dot_n = dot_<true>(r[R_P], r[R_P + 1], r[R_P + 2], qx, "
-     "qy, qz);"),
+    ("const float b = 2.0f * dot_<false>(dx, dy, dz, ocx, ocy, ocz);",
+     "const float b = 2.0f * dot_<true>(dx, dy, dz, ocx, ocy, ocz);"),
+    ("const float cc = dot_<false>(ocx, ocy, ocz, ocx, ocy, ocz) - rr;",
+     "const float cc = __fsub_rn(dot_<true>(ocx, ocy, ocz, ocx, ocy, ocz), rr);"),
+    ("const float disc = b * b - a4 * cc;",
+     "const float disc = __fsub_rn(__fmul_rn(b, b), __fmul_rn(a4, cc));"),
+    ("plane_t<false>(", "plane_t<true>("),
     ("const float a = dx * dx + dy * dy + dz * dz;",
      "const float a = dot_<true>(dx, dy, dz, dx, dy, dz);"),
 ]
-RN_PRIMARY = RN_TESTS + [("primary_ray<LARGE>(", "primary_ray<true>(")]
+RN_PRIMARY = RN_TESTS + [("primary_ray<LARGE != 0>(", "primary_ray<true>(")]
 # (name, edits, flags of every kernel beside the common ones; None: the
 # per-kernel flags of ops/_build.py, the tree as it is)
 VARIANTS = (("contracted everywhere", [], ()),
@@ -63,11 +67,15 @@ VARIANTS = (("contracted everywhere", [], ()),
 
 def patched_sources(src_dir: str, dst_dir: str, edits) -> None:
     os.makedirs(dst_dir)
+    texts = {}
     for name in os.listdir(src_dir):
         with open(os.path.join(src_dir, name)) as f:
-            text = f.read()
-        for old, new in edits:
-            text = text.replace(old, new)
+            texts[name] = f.read()
+    for old, new in edits:
+        if not any(old in t for t in texts.values()):
+            raise AssertionError(f"the sources no longer hold {old!r}")
+        texts = {k: t.replace(old, new) for k, t in texts.items()}
+    for name, text in texts.items():
         with open(os.path.join(dst_dir, name), "w") as f:
             f.write(text)
 
@@ -123,6 +131,9 @@ def main() -> int:
                                                     *more_lanes, 10)
 
     cornell = load_scene_file(chip_smoke.SCENE, device=device)
+    launch = chip_smoke.pixel_lanes(512, 512 * 512, 16, 1, device)
+    want_launch = megakernel.radiance_lanes_reference(cornell.data,
+                                                      cornell.spec, *launch, 3)
     spec_c = dataclasses.replace(cornell.spec, width=1024, height=1024)
     lanes_c = [t.to(torch.int32) for t in chip_smoke.pixel_lanes(
         1024, (1 << 21) // 16, 16, 1, device)]
@@ -147,6 +158,8 @@ def main() -> int:
                                                  10)
             out_t, eq_t = share_outside(got_test, want_test)
             out_m, eq_m = share_outside(got_more, want_more)
+            out_c, eq_c = share_outside(megakernel.radiance_lanes(
+                cornell.data, cornell.spec, *launch, 3), want_launch)
             times = []
             for _ in range(2):
                 times.append((
@@ -170,6 +183,8 @@ def main() -> int:
             res = {"variant": name,
                    "test_lanes_outside": out_t, "test_bit_equal": eq_t,
                    "more_lanes_outside": out_m, "more_bit_equal": eq_m,
+                   "cornell_launch_outside": out_c,
+                   "cornell_launch_bit_equal": eq_c,
                    "cornell_ms": [round(t[0], 4) for t in times],
                    "showcase_ms": [round(t[1], 4) for t in times],
                    "registers": regs}

@@ -1,11 +1,30 @@
-"""Times variants of the port's tree kernel and table fold beside what
-the port ships, on one NVIDIA GPU, each held against its plain PyTorch
-version.
+"""Times variants of the port's linear kernel, tree kernel and table fold
+beside what the port ships, on one NVIDIA GPU, each held against its plain
+PyTorch version.
 
-    python3 tools/torch_kernel_variants.py [--only tree|fold]
+    python3 tools/torch_kernel_variants.py [--only k1|tree|fold]
+        [--parent DIR] [--sass-dir DIR]
+
+The linear kernel (K1, ``--only k1``): the steps of its redesign one after
+the other, from the sources of the parent tree (``--parent``, a checkout
+of the commit before them; its ``raytrace_tpu_torch/csrc`` is used) to the
+port's own: the parent; the parent reading a sphere's r * r and a plane's
+p.n from the rows (``K1_PRE``); the port's sources as they are; and beside
+these the port's other forms (``K1_FORMS``): a persistent grid, the sphere
+test without its branch, the winner's row read as six 128-bit words, the
+object loops unrolled as nvcc chooses, sinf and cosf in place of sincosf,
+sincosf in the lens sample too, and other blocks an SM for the small
+instances' launch bounds.  ``--sass-dir`` keeps each one's ``cuobjdump
+-sass``.  Each is timed in turns (the steps forward, then everything
+backward) at 2,097,152 lanes on cornell (lean), the lit mirror scene
+(lit), the open cornell under the sky (sky) and, beside them, the tree
+kernel on materials_showcase, which shares the small-scene device code;
+each is held against the plain version on cornell's 4,194,304-lane CLI
+launch, where the share of lanes outside the per-lane rule and of lanes
+equal to the bit are its forks.
 
 The port itself has one form of each choice.  A variant is built here from
-a copy of ``raytrace_tpu_torch/csrc`` with one line of the source replaced
+a copy of ``raytrace_tpu_torch/csrc`` with lines of the source replaced
 (``patched_sources``), or by setting the size up to which the wrappers
 stage the table in shared memory.  The tree kernel
 (``csrc/megakernel_tree.cu``): the blocks an SM that its launch bounds leave
@@ -27,6 +46,7 @@ and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import re
 import shutil
@@ -62,31 +82,99 @@ def instance_report(build_logs) -> None:
 
 
 TREE_BLOCKS = "constexpr int TREE_MIN_BLOCKS = 8, TREE_LARGE_MIN_BLOCKS = 4;"
-FOLD_CHOICE = "if (warp_rays_part<SH>(tb, mask, q))"
+K1_BLOCKS = "constexpr int LINEAR_MIN_BLOCKS = 1, LINEAR_LIT_MIN_BLOCKS = 7;"
+# the parent's object test, reading the constants that pack_scene now puts
+# in column 22 of a row (R_PRE) instead of computing them
+K1_PRE = [("r[R_P + 2], r[R_Q], ox, oy, oz", "r[R_P + 2], r[22], ox, oy, oz"),
+          ("ocz, ocx, ocy, ocz) - rad * rad;", "ocz, ocx, ocy, ocz) - rad;"),
+          ("const float p_dot_n = r[R_P] * qx + r[R_P + 1] * qy + r[R_P + 2] * qz;",
+           "const float p_dot_n = r[22];")]
+# the small instances' grid persistent: as many blocks as the SMs hold
+# at once, each thread walking lanes first, first + stride, ...
+K1_PERSISTENT = [
+    ("  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;\n",
+     "  for (long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x; lane < n;\n"
+     "       lane += (long long)gridDim.x * blockDim.x) {\n"),
+    ("  out[2 * n + lane] = accz;\n}\n", "  out[2 * n + lane] = accz;\n  }\n}\n"),
+    ("  megakernel_linear<LIT, LARGE, SKY><<<(unsigned)blocks,",
+     "  long long grid = blocks;\n"
+     "  int device = 0, sms = 0, per_sm = 0;\n"
+     "  cudaGetDevice(&device);\n"
+     "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);\n"
+     "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
+     "      &per_sm, megakernel_linear<LIT, LARGE, SKY>, threads, smem);\n"
+     "  if (LARGE == 0 && per_sm > 0 && grid > (long long)sms * per_sm)\n"
+     "    grid = (long long)sms * per_sm;\n"
+     "  megakernel_linear<LIT, LARGE, SKY><<<(unsigned)grid,")]
+# the sphere test without its branch: the root and the square root on
+# every lane, as the parent computes them
+K1_BRANCHLESS = [(
+    """  // the root and its square root only where a thread of the warp may hit
+  if (!(disc > 0.0f)) return false;
+  const float sq = sqrtf(disc);
+  const float t1 = (-b - sq) * inv2a;
+  t = t1 > 0.0f ? t1 : (-b + sq) * inv2a;
+  return t > 0.0f;""",
+    """  const bool has = disc > 0.0f;
+  const float sq = sqrtf(has ? disc : 1.0f);
+  const float t1 = (-b - sq) * inv2a;
+  const float t2 = (-b + sq) * inv2a;
+  t = t1 > 0.0f ? t1 : t2;
+  return has && t > 0.0f;""")]
+K1_VEC_ROW = [(
+    """  const float* r;  // the one load of the winner's row
+  if constexpr (LARGE != 0)
+    r = sc.row_by_id(best);
+  else
+    r = sc.row(best);
+""", """  const float* r;
+  float4 row4[ROW / 4];
+  if constexpr (LARGE != 0) {
+    r = sc.row_by_id(best);
+  } else {
+    for (int k = 0; k < ROW / 4; ++k)
+      row4[k] = reinterpret_cast<const float4*>(sc.row(best))[k];
+    r = reinterpret_cast<const float*>(row4);
+  }
+""")]
+K1_UNROLLED = [("#pragma unroll 1\n", "")]
+K1_NO_SINCOS = [
+    ("sincosf(phi, &sin_p, &cos_p);", "sin_p = sinf(phi), cos_p = cosf(phi);")]
+K1_LENS_SINCOS = [
+    ("    const float lx = cosf(theta) * r, ly = sinf(theta) * r;",
+     "    float sin_t, cos_t;\n    sincosf(theta, &sin_t, &cos_t);\n"
+     "    const float lx = cos_t * r, ly = sin_t * r;")]
 
 
-def patched_sources(old: str | None = None, new: str = "") -> None:
-    """Points the build at a copy of the kernel sources in which every
-    ``old`` reads ``new`` (it must occur), or back at the port's own
+OWN_CSRC = os.path.join(REPO, "raytrace_tpu_torch", "csrc")
+
+
+def patched_sources(old: str | None = None, new: str = "", base: str = OWN_CSRC,
+                    edits=()) -> None:
+    """Points the build at a copy of the kernel sources ``base`` in which
+    every ``old`` reads ``new``, and each (old, new) of ``edits`` likewise
+    (each must occur), or with no edit at all back at the port's own
     sources, and drops the loaded libraries so that the next launch builds
     and loads that version."""
     from raytrace_tpu_torch.ops import _build, intersect_scan
 
-    own = os.path.join(REPO, "raytrace_tpu_torch", "csrc")
-    if old is None:
-        _build.CSRC_DIR = own
+    edits = list(edits) + ([(old, new)] if old is not None else [])
+    if not edits and base == OWN_CSRC:
+        _build.CSRC_DIR = OWN_CSRC
     else:
         copy = os.path.join(tempfile.mkdtemp(prefix="rt_variant_"), "csrc")
-        shutil.copytree(own, copy)
-        hits = 0
+        shutil.copytree(base, copy)
+        texts = {}
         for fname in os.listdir(copy):
             with open(os.path.join(copy, fname)) as f:
-                text = f.read()
-            hits += text.count(old)
+                texts[fname] = f.read()
+        for o, n in edits:
+            if not any(o in t for t in texts.values()):
+                raise AssertionError(f"the sources no longer hold {o!r}")
+            texts = {k: t.replace(o, n) for k, t in texts.items()}
+        for fname, text in texts.items():
             with open(os.path.join(copy, fname), "w") as f:
-                f.write(text.replace(old, new))
-        if hits == 0:
-            raise AssertionError(f"the sources no longer hold {old!r}")
+                f.write(text)
         _build.CSRC_DIR = copy
     _build._libs.clear()
     intersect_scan._lib_ready = None
@@ -115,9 +203,162 @@ def probe_share(tb, ro, rd, probes: int = 8):
                             device=share.device))]
 
 
+def k1_steps(parent: str | None):
+    """(name, source directory, edits) of each step of K1's redesign."""
+    steps = []
+    if parent is not None:
+        base = os.path.join(parent, "raytrace_tpu_torch", "csrc")
+        steps += [("parent", base, []),
+                  ("+ r*r and p.n from the rows", base, K1_PRE)]
+    return steps + [("+ the keys' prefix, sincosf, rolled loops (ships)",
+                     OWN_CSRC, [])]
+
+
+def _blocks(lean: int, lit: int):
+    return [(K1_BLOCKS, K1_BLOCKS.replace("= 1,", f"= {lean},").replace(
+        "= 7;", f"= {lit};"))]
+
+
+# other forms of the port's K1, each timed once beside what ships
+K1_FORMS = (("a persistent grid", K1_PERSISTENT),
+            ("the sphere test without its branch", K1_BRANCHLESS),
+            ("the winner's row in 128-bit loads", K1_VEC_ROW),
+            ("object loops unrolled", K1_UNROLLED),
+            ("sinf and cosf, not sincosf", K1_NO_SINCOS),
+            ("sincosf in the lens sample too", K1_LENS_SINCOS),
+            ("the lit instance without its bound", _blocks(1, 1)),
+            ("lean and sky held to 12 blocks an SM", _blocks(12, 7)))
+
+
+def k1_variants(parent: str | None, smi: str, sass_dir: str | None) -> None:
+    """The steps of K1's redesign and its register budgets, in turns."""
+    import chip_smoke as cs
+
+    from raytrace_tpu_torch.ops import _build
+    from raytrace_tpu_torch.render import megakernel, work
+    from raytrace_tpu_torch.scene import dsl
+    from raytrace_tpu_torch.scene.builder import build_scene, load_scene_file
+
+    device = torch.device("cuda", 0)
+    cornell = load_scene_file(cs.SCENE, device=device)
+    spec_c = dataclasses.replace(cornell.spec, width=1024, height=1024)
+    lit = build_scene(dsl.parse(cs.LIT_MIRROR), device=device)
+    show = load_scene_file(cs.SHOWCASE, device=device)
+    tmp = tempfile.TemporaryDirectory()
+    cs.write_sky_faces(tmp.name, cs.SEED)
+    path = os.path.join(tmp.name, "cornell_sky.txt")
+    with open(cs.SCENE) as f:
+        text = cs.under_the_sky(f.read(), ("(0, 0, -4)", "(0, 7, 0)",
+                                           "(-3.5, 0, 0)", "(3.5, 0, 0)"))
+    with open(path, "w") as f:
+        f.write(text)
+    sky = load_scene_file(path, device=device)
+    spec_s = dataclasses.replace(sky.spec, width=1024, height=1024)
+    pix = [t.to(torch.int32) for t in cs.pixel_lanes(1024, (1 << 21) // 16, 16,
+                                                      1, device)]
+    cases = (("lean, cornell", cornell.data, spec_c, pix),
+             ("lit, mirror scene", lit.data, lit.spec,
+              [t.to(torch.int32) for t in cs.random_lanes(
+                  lit.spec, 1 << 21, cs.SEED, device)]),
+             ("sky, open cornell", sky.data, spec_s, pix),
+             ("tree, materials_showcase", show.data, show.spec,
+              [t.to(torch.int32) for t in cs.random_lanes(
+                  show.spec, 1 << 21, cs.SEED, device)]))
+    # the forks: cornell's CLI launch, against one plain run
+    launch = cs.pixel_lanes(512, 512 * 512, 16, 1, device)
+    want = torch.stack(list(megakernel.radiance_lanes_reference(
+        cornell.data, cornell.spec, *launch, cs.SEED)))
+    works = {}
+    for label, data, spec, lanes in cases[:3]:
+        w = works[label] = work.path_work(
+            data, spec, [work.warp_sample(t) for t in lanes], 0)
+        print(f"{label}: {w['visits']:.3f} live nodes per lane, "
+              f"{w['hits']:.3f} hits; recounted bound "
+              f"{cs.k1_bound(spec, 1 << 21, w)[0]:.4f} ms; on {smi}")
+
+    steps = k1_steps(parent)
+    n_steps = len(steps)
+    steps += [(name, OWN_CSRC, edits) for name, edits in K1_FORMS]
+    # the steps forward, then everything backward
+    order = list(range(n_steps)) + list(range(len(steps) - 1, -1, -1))
+    regs = {}
+    times = {i: {c[0]: [] for c in cases} for i in range(len(steps))}
+    failed = []
+    for i in order:
+        name, base, edits = steps[i]
+        if name in failed:
+            continue
+        patched_sources(base=base, edits=edits)
+        _build.build_logs.clear()  # a library built earlier leaves no report
+        t0 = time.perf_counter()
+        errors = []
+
+        def build(k):
+            try:
+                _build.load(k)
+            except _build.KernelBuildError as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=build, args=(k,))
+                   for k in (megakernel.KERNEL_LINEAR, megakernel.KERNEL_TREE)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:  # a form nvcc refuses: say so and go on with the others
+            print(f"{name}: not built: {errors[0]}", flush=True)
+            failed.append(name)
+            continue
+        built = time.perf_counter() - t0
+        got = torch.stack(list(megakernel.radiance_lanes(
+            cornell.data, cornell.spec, *launch, cs.SEED)))
+        d = (got.double() - want.double()).abs()
+        outside = float(1 - (d <= cs.LANE_RTOL * want.double().abs().clamp(
+            min=1)).all(dim=0).float().mean())
+        equal = float((got == want).all(dim=0).float().mean())
+        for label, data, spec, lanes in cases:
+            times[i][label] += [round(cs.ms_per_launch(
+                lambda: megakernel.radiance_lanes(data, spec, *lanes, 0),
+                3, 10 if label.startswith("tree") else 20), 4)
+                for _ in range(2)]
+        if i not in regs:  # a fresh build's report
+            log = _build.build_logs.get(megakernel.KERNEL_LINEAR, "")
+            regs[i] = {k: cs.ptxas_registers(log, v)
+                       for k, v in cs.K1_INSTANCES.items()}
+        sass = cs.cuobjdump_sass(_build.library_path(megakernel.KERNEL_LINEAR))
+        if sass_dir is not None:
+            os.makedirs(sass_dir, exist_ok=True)
+            with open(os.path.join(sass_dir, f"k1_{i}.sass"), "w") as f:
+                f.write(sass)
+        for (label, _, spec, _), inst in zip(cases, cs.K1_INSTANCES):
+            per_lane, rep = cs.k1_issue(sass, cs.K1_INSTANCES[inst], spec,
+                                        works[label])
+            print(f"  {label}: {per_lane:.0f} instructions a lane (upper "
+                  f"estimate), executed per node {rep['node_executed']}")
+        print(f"{name}: built in {built:.1f} s; {regs[i]} registers; cornell's "
+              f"CLI launch, {got.shape[1]} lanes: {outside:.5f} outside the "
+              f"rule, {equal:.5f} equal to the bit; ms per 2097152 lanes "
+              f"so far {times[i]}; on {smi}", flush=True)
+        if outside > 1 - cs.MIN_LANES_OK:
+            raise AssertionError(f"{name}: outside the rule")
+    patched_sources()
+    tmp.cleanup()
+    print(f"K1's steps, the best of each step's runs, ms per 2097152 lanes; "
+          f"on {smi}:")
+    for i, (name, _, _) in enumerate(steps):
+        if name in failed:
+            continue
+        print(f"  {name} ({regs[i]} registers): " + ", ".join(
+            f"{label} {min(v):.4f}" for label, v in times[i].items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("tree", "fold"))
+    ap.add_argument("--only", choices=("k1", "tree", "fold"))
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent tree, for K1's steps")
+    ap.add_argument("--sass-dir", default=None,
+                    help="where to keep the SASS of each of K1's forms")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs an NVIDIA GPU")
@@ -144,6 +385,12 @@ def main() -> int:
         t.join()
     print(f"built in {time.perf_counter() - t0:.1f} s")
     instance_report(_build.build_logs)
+
+    if args.only in (None, "k1"):
+        k1_variants(args.parent, smi, args.sass_dir)
+    if args.only == "k1":
+        print(f"on {smi}")
+        return 0
 
     def timed(fn, reps):
         return [round(cs.ms_per_launch(fn, 2, reps), 4) for _ in range(2)]

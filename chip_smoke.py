@@ -2,60 +2,65 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``raytrace_tpu_torch/csrc`` (one
-nvcc each, in parallel) and holds each against its plain PyTorch version
-on the card.  The linear kernel: on ``examples/cornell_indirect.txt``,
-which it renders at 512x512 with 16 samples per pixel through the port's
-CLI on ``--device cuda`` and times at 2,097,152 lanes per launch, and on
-a scene of exact ties, where its winners must equal the plain version's
-on every lane (phases 3-5); phase 5 also prints its SASS by kind
-(``cuobjdump -sass``), the instructions a lane issues by that count and
-the time they take at the card's issue rate (the issue figure), beside a
-bound recounted from every operation a lane needs; phases 9 and 17 print
-the same for its lit and skybox instances.  Then on a lit mirror scene
-with depth of field (phase 6).
-The tree kernel: on ``examples/materials_showcase.txt``, on a
-4-sample IndirectPhong scene (1,365 nodes per lane) and on two scenes
-that take its two largest stack sizes (phase 7), then on the lanes of the
-CLI's launch of the showcase, which the CLI then renders at its own
-640x400, 64 x 4 samples per pixel (phase 8); both kernels with lights
-are timed at 2,097,152 lanes per launch (phase 9).  Large scenes, the
-procedural sphere fields of 1,006 and 4,006 objects: the scan kernel
-against its plain version on camera rays and on random rays (phase 10);
-the large instances of the linear and tree kernels, which fold over the
-scene's tables, against the plain path, also with a point light, and the
-split path (the plain chain with the scan kernel) against the fused
-kernel (phase 11); the CLI's own launch of the 1,006-object linear and
-mixed fields (4,194,304 lanes) against the plain path, then the CLI's
-renders of them at 1024x1024 with 4 samples per pixel (phase 12); timing
-at 2,097,152 lanes per launch, where each timed launch of a large
-instance, of the scan kernel and of the split path is again held against
-its plain run (phase 13).  Skybox scenes, with six faces of 1024x1024
-(one of 512x768) made from a seed and written as BMPs beside the scene
-files: the skybox kernel alone against its plain version on 2,097,152
-directions (phase 14); the sky instances of both render kernels, small
-and large, against the plain path on random lanes and on the CLI's own
-launch lanes (phase 15); the CLI on the four skybox scenes (phase 16);
-timing at 2,097,152 lanes per launch, with the solid scenes again beside
-them (phase 17).  Gradients: forward through each kernel and backward
-through its plain version against the plain version alone, then two fits
-at 256x256 with 4 samples per pixel, which recover a perturbed diffuse
-row and ambient row with Adam at betas 0.8/0.99, and the same fits with
-``fit``'s default optimiser beside them (phase 18).  The tree kernel is
-held to the plain version bit for bit in each of its four stack sizes; the
-table fold with the table staged in shared memory (1,006 objects) and read
-from device memory (4,006), on camera rays, which every thread folds for
-itself, and on rays that part, which a warp folds one at a time, through
-the scan kernel and through both render kernels' large instances; phases 9
-and 13 print what the paths need (live nodes per lane and the largest of a
+Builds the port's four CUDA kernels from ``raytrace_tpu_torch/csrc``
+(one nvcc each, in parallel) and holds each against its plain PyTorch
+version on the card. The linear kernel: on
+``examples/cornell_indirect.txt``, which it renders at 512x512 with 16
+samples per pixel through the port's CLI on ``--device cuda`` and times
+at 2,097,152 lanes per launch, and on a scene of exact ties, where its
+winners must equal the plain version's on every lane (phases 3-5); phase
+5 also prints its SASS by kind (``cuobjdump -sass``), the instructions a
+lane issues by that count and the time they take at the card's issue
+rate (the issue figure), beside a bound recounted from every operation a
+lane needs; phases 9 and 17 print the same for its lit and skybox
+instances. Then on a lit mirror scene with depth of field (phase 6). The
+tree kernel: on ``examples/materials_showcase.txt``, on a 4-sample
+IndirectPhong scene (1,365 nodes per lane) and on two scenes that take
+its two largest stack sizes (phase 7), then on the lanes of the CLI's
+launch of the showcase, which the CLI then renders at its own 640x400,
+64 x 4 samples per pixel (phase 8); both kernels with lights are timed
+at 2,097,152 lanes per launch (phase 9). Large scenes, the procedural
+sphere fields of 1,006 and 4,006 objects: the scan kernel against its
+plain version on camera rays and on random rays (phase 10); the large
+instances of the linear and tree kernels, which fold over the scene's
+tables, against the plain path, also with a point light, and the split
+path (the plain chain with the scan kernel) against the fused kernel
+(phase 11); the CLI's own launch of the 1,006-object linear and mixed
+fields (4,194,304 lanes) against the plain path, then the CLI's renders
+of them at 1024x1024 with 4 samples per pixel (phase 12); timing at
+2,097,152 lanes per launch, where each timed launch of a large instance,
+of the scan kernel and of the split path is again held against its plain
+run (phase 13). Skybox scenes, with six faces of 1024x1024 (one of
+512x768) made from a seed and written as BMPs beside the scene files:
+the skybox kernel alone against its plain version on 2,097,152 random
+directions and on the primary-ray directions of the cornell sky launch,
+also after the cube changed in place (the linear kernel's sky instance
+too), with its SASS loads and the library's yardstick, one grid_sample
+over the six faces stacked (phase 14; phase 2 prints what the faces
+packed for the lookup take and what packing them costs); the sky
+instances of both render kernels, small and large, against the plain
+path on random lanes and on the CLI's own launch lanes (phase 15); the
+CLI on the four skybox scenes (phase 16); timing at 2,097,152 lanes per
+launch, with the solid scenes again beside them (phase 17). Gradients:
+forward through each kernel and backward through its plain version
+against the plain version alone, then two fits at 256x256 with 4 samples
+per pixel, which recover a perturbed diffuse row and ambient row with
+Adam at betas 0.8/0.99, and the same fits with ``fit``'s default
+optimiser beside them (phase 18). The tree kernel is held to the plain
+version bit for bit in each of its four stack sizes; the table fold with
+the table staged in shared memory (1,006 objects) and read from device
+memory (4,006), on camera rays, which every thread folds for itself, and
+on rays that part, which a warp folds one at a time, through the scan
+kernel and through both render kernels' large instances; phases 9 and 13
+print what the paths need (live nodes per lane and the largest of a
 warp; sphere chunks a ray enters and the union over a warp, per depth)
-beside the times.  Each CLI render checks that it went through its kernel;
-a second render of it runs under the profiler, and the device time of that
-run over that run's own seconds is the share the device was busy.  Phase
-headers carry the seconds since the start.  Every phase succeeds or
-raises; the last line is ``{"ok": true, ...}`` only when all of them
-passed.  Without a CUDA device it fails at once.  It imports nothing of
-JAX.
+beside the times. Each CLI render checks that it went through its
+kernel; a second render of it runs under the profiler, and the device
+time of that run over that run's own seconds is the share the device was
+busy. Phase headers carry the seconds since the start. Every phase
+succeeds or raises; the last line is ``{"ok": true, ...}`` only when all
+of them passed. Without a CUDA device it fails at once. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -431,6 +436,125 @@ def under_the_sky(text: str, open_planes=()) -> str:
         if n != 1:
             raise AssertionError(f"no plane through {point}")
     return text
+
+
+# the planes taken out to open scenes to the sky: cornell keeps its floor
+# and its two spheres (its walls are infinite planes, and any two of them
+# that face each other close the box); the sphere fields keep their floor
+OPEN_BOX = ("(0, 0, -4)", "(0, 7, 0)", "(-3.5, 0, 0)", "(3.5, 0, 0)")
+OPEN_FIELD = ("(0, 30, 0)", "(-30, 0, 0)", "(30, 0, 0)")
+SKY_SCENES = ("cornell", "showcase", "field_linear", "field_mixed")
+
+
+def sky_scene_text(name: str) -> str:
+    """The skybox scene ``name`` of SKY_SCENES: cornell opened, at
+    1024x1024 x 16 aa; the showcase; the 1,006-object fields, linear and
+    mixed, opened; each under the sky of ``write_sky_faces``."""
+    from raytrace_tpu_torch.scene.procedural import sphere_field_source
+
+    if name == "cornell":
+        with open(SCENE) as f:
+            return under_the_sky(f.read(), OPEN_BOX).replace(
+                "width: 512", "width: 1024").replace(
+                "height: 512", "height: 1024").replace(
+                "antialias: 256", "antialias: 16")
+    if name == "showcase":
+        with open(SHOWCASE) as f:
+            return under_the_sky(f.read())
+    return under_the_sky(sphere_field_source(
+        1000, mix_materials=name == "field_mixed"), OPEN_FIELD)
+
+
+def sky_random_directions(n: int, seed: int, device) -> torch.Tensor:
+    """``n`` unit directions (N, 3) from a seed: random ones, after 1,024
+    exact ties of x and y and 1,024 of y and z for the largest component
+    (black), 1,024 axis-aligned directions and 1,024 with a zero
+    component."""
+    rs = np.random.RandomState(seed)
+    dirs = rs.normal(0, 1, (n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dirs[:1024, 1] = dirs[:1024, 0]
+    dirs[:1024, 2] = 0.25 * dirs[:1024, 0]
+    dirs[1024:2048, 2] = -dirs[1024:2048, 1]
+    dirs[1024:2048, 0] = 0.25 * dirs[1024:2048, 1]
+    dirs[2048:3072] = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 1024)] * (
+        rs.choice([-1.0, 1.0], 1024)[:, None].astype(np.float32))
+    dirs[np.arange(3072, 4096), rs.randint(0, 3, 1024)] = 0.0
+    return torch.from_numpy(dirs).to(device)
+
+
+def sky_coherent_directions(sky, device) -> torch.Tensor:
+    """The primary-ray directions (N, 3) of the CLI's launch of the skybox
+    scene ``sky``, in the launch's pixel order: neighbouring directions
+    are neighbours on a face, as a render's misses out of an open box."""
+    from raytrace_tpu_torch.render.integrator import primary_rays
+
+    lanes, _ = cli_launch_lanes(sky.spec, device)
+    _, rd, _, _ = primary_rays(sky.data, sky.spec, *lanes, SEED)
+    return torch.stack(list(rd), dim=1).contiguous()
+
+
+def sky_library_grid(cube: torch.Tensor, face_sizes, rd: torch.Tensor):
+    """The first half of ``sky_library_call``: the face choice and the UV
+    as PyTorch elementwise operations, into the (1, 1, N, 2) grid of
+    ``grid_sample`` over the six faces stacked into a (1, 3, 6 H, W) image,
+    each face's rows offset by face * H and its coordinates scaled to its
+    own size; and the directions that have a dominant axis."""
+    dx, dy, dz = rd[:, 0], rd[:, 1], rd[:, 2]
+    ax, ay, az = dx.abs(), dy.abs(), dz.abs()
+    x_dom = (ax > az) & (ax > ay)
+    y_dom = (ay > ax) & (ay > az)
+    z_dom = (az > ax) & (az > ay)
+    face = torch.where(x_dom, torch.where(dx > 0, 0, 1), torch.where(
+        y_dom, torch.where(dy > 0, 2, 3), torch.where(dz > 0, 4, 5)))
+    u = torch.where(x_dom, -dz, dx) / torch.where(
+        x_dom, dx, torch.where(y_dom, ay, dz))
+    v = torch.where(y_dom, dz, -dy) / torch.where(
+        x_dom, ax, torch.where(y_dom, dy, az))
+    sizes = torch.tensor(face_sizes, dtype=torch.float32, device=rd.device)
+    fh, fw = sizes[face, 0], sizes[face, 1]
+    hmax, wmax = cube.shape[1], cube.shape[2]
+    x = (u * 0.5 + 0.5).clamp(0.0, 1.0) * (fw - 1.0)
+    y = (v * 0.5 + 0.5).clamp(0.0, 1.0) * (fh - 1.0) + face * hmax
+    grid = torch.stack([x * (2.0 / (wmax - 1)) - 1.0,
+                        y * (2.0 / (6 * hmax - 1)) - 1.0], -1)[None, None]
+    return grid, x_dom | y_dom | z_dom
+
+
+def sky_grid_sample(stacked: torch.Tensor, grid: torch.Tensor):
+    """One bilinear ``grid_sample`` of the stacked faces, align_corners and
+    border padding: (3, 1, N) colors."""
+    return torch.nn.functional.grid_sample(
+        stacked, grid, mode="bilinear", padding_mode="border",
+        align_corners=True)[0]
+
+
+def sky_library_call(cube: torch.Tensor, face_sizes, rd: torch.Tensor,
+                     stacked: torch.Tensor) -> torch.Tensor:
+    """The function of ``_skybox`` through the library
+    (``sky_library_grid``, then ``sky_grid_sample`` over ``stacked``, the
+    faces as one (1, 3, 6 H, W) image), ties black.  grid_sample forms
+    its weights from coordinates normalised to the whole image, so it
+    rounds them its own way."""
+    grid, dom = sky_library_grid(cube, face_sizes, rd)
+    out = sky_grid_sample(stacked, grid)[:, 0].t()
+    return torch.where(dom[:, None], out, 0.0)
+
+
+def k4_sass(sass: str) -> dict:
+    """skybox_kernel's SASS (``cuobjdump -sass`` of its library): its
+    instructions, its loads from memory by opcode (global, texture and
+    constant), and its integer and float instructions."""
+    body = sass_function(sass, "skybox_kernel")
+    loads, kinds = {}, {}
+    for _, op, _ in body:
+        if op.split(".")[0] in ("LDG", "LD", "TEX", "TLD", "TLD4", "LDC",
+                                "ULDC"):
+            loads[op] = loads.get(op, 0) + 1
+        kind = sass_kind(op)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return {"instructions": len(body), "loads": loads,
+            "int": kinds.get("int", 0), "float": kinds.get("float", 0)}
 
 
 def bound(flops: float, nbytes: float):
@@ -885,6 +1009,18 @@ def main() -> int:
                 print(f"    {inst.group(1)}<{', '.join(args)}>:")
             elif "registers" in line or "stack frame" in line:
                 print(f"      {line.strip()}")
+    # the skybox faces packed for the lookup, at the test cube's shape: what
+    # they take on the card and what one packing costs
+    cube = torch.rand((6, 1024, 1024, 3), generator=torch.Generator(
+        device=device).manual_seed(SEED), device=device)
+    pack_ms = [once_ms(lambda: backgrounds.pack_sky(cube, FACE_SIZES))[0]
+               for _ in range(3)]
+    packed = backgrounds.pack_sky(cube, FACE_SIZES)
+    print(f"    the packed skybox faces of a {tuple(cube.shape)} cube (faces "
+          f"{FACE_SIZES}): {packed.numel() * 4} B beside the cube's "
+          f"{cube.numel() * 4} B; packing {[round(x, 4) for x in pack_ms]} ms "
+          f"per cube; on {smi}")
+    del cube, packed
     k_lin_large, k_tree_large = k_lin + " (large)", k_tree + " (large)"
     k_lin_sky, k_tree_sky = k_lin + " (sky)", k_tree + " (sky)"
     # the lines of the closing "kernels" object: the four kernels, and
@@ -974,6 +1110,7 @@ def main() -> int:
           f"ms ({rays / k_dev * 1e3:.4g} rays/s), plain path {p_dev:.4f} ms "
           f"on {smi}")
     timing = {k_lin: (ms, plain_ms)}
+    library_ms = {}
     work = path_work(data, spec_b, lanes, 0)
     old_ms, old_by = render_bound(spec_b, n, work)
     print(f"    needs {work['visits']:.3f} live nodes per lane; the object "
@@ -1086,10 +1223,12 @@ def main() -> int:
 
             cli_ms = [ms_per_launch(kernel_cli, 3, k_reps) for _ in range(2)]
             work = path_work(sc.data, sc.spec, show_launch_lanes, 0)
+            cli_bound = render_bound(sc.spec, n_cli, work)
             print(f"    on the CLI's own launch, {n_cli} pixel-ordered lanes ("
                   f"{work['visits']:.3f} live nodes per lane, "
                   f"{work['warp_visits']:.3f} the largest of a warp): runs "
-                  f"{[round(x, 4) for x in cli_ms]} ms/call; on {smi}")
+                  f"{[round(x, 4) for x in cli_ms]} ms/call; bound "
+                  f"{cli_bound[0]:.4f} ms ({cli_bound[1]}); on {smi}")
 
     # ---- phase 10: the scan kernel vs its plain version ----
     n_chk = 65536
@@ -1317,28 +1456,11 @@ def main() -> int:
     # ---- phase 14: the skybox kernel alone vs its plain version ----
     sky_tmp = tempfile.TemporaryDirectory()
     write_sky_faces(sky_tmp.name, SEED)
-    # cornell keeps its floor and its two spheres: its walls are infinite
-    # planes, and any two of them that face each other close the box
-    open_box = ("(0, 0, -4)", "(0, 7, 0)", "(-3.5, 0, 0)", "(3.5, 0, 0)")
-    open_field = ("(0, 30, 0)", "(-30, 0, 0)", "(30, 0, 0)")
-    with open(SCENE) as f:
-        cornell_text = f.read()
-    with open(SHOWCASE) as f:
-        showcase_text = f.read()
     sky_scenes = {}
-    for name, text in (
-            ("cornell", under_the_sky(cornell_text, open_box).replace(
-                "width: 512", "width: 1024").replace(
-                "height: 512", "height: 1024").replace(
-                "antialias: 256", "antialias: 16")),
-            ("showcase", under_the_sky(showcase_text)),
-            ("field_linear", under_the_sky(sphere_field_source(
-                1000, mix_materials=False), open_field)),
-            ("field_mixed", under_the_sky(sphere_field_source(
-                1000, mix_materials=True), open_field))):
+    for name in SKY_SCENES:
         path = os.path.join(sky_tmp.name, f"{name}_sky.txt")
         with open(path, "w") as f:
-            f.write(text)
+            f.write(sky_scene_text(name))
         sky_scenes[name] = (path, load_scene_file(path, device=device))
     sky = sky_scenes["cornell"][1]
     if (sky.spec.face_sizes != FACE_SIZES
@@ -1346,19 +1468,66 @@ def main() -> int:
             or (sky.spec.width, sky.spec.antialias) != (1024, 16)):
         raise AssertionError("the skybox scene did not build as written")
     n = 1 << 21
-    rs = np.random.RandomState(SEED)
-    dirs = rs.normal(0, 1, (n, 3)).astype(np.float32)
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    # exact ties for the largest component (black), axis-aligned
-    # directions and directions with a zero component
-    dirs[:1024, 1] = dirs[:1024, 0]
-    dirs[:1024, 2] = 0.25 * dirs[:1024, 0]
-    dirs[1024:2048, 2] = -dirs[1024:2048, 1]
-    dirs[1024:2048, 0] = 0.25 * dirs[1024:2048, 1]
-    dirs[2048:3072] = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 1024)] * (
-        rs.choice([-1.0, 1.0], 1024)[:, None].astype(np.float32))
-    dirs[np.arange(3072, 4096), rs.randint(0, 3, 1024)] = 0.0
-    dirs = torch.from_numpy(dirs).to(device)
+    # random directions, with exact ties for the largest component (black),
+    # axis-aligned directions and directions with a zero component; and
+    # the primary rays of the cornell sky launch, pixel-ordered
+    dirs = sky_random_directions(n, SEED, device)
+    coherent = sky_coherent_directions(sky, device)
+
+    def sky_check(data, rd, label):
+        """One call of the skybox kernel's wrapper, which must launch it
+        once and nothing else, against _skybox on the same cube."""
+        before = dict(megakernel.LAUNCHES)
+        got = backgrounds.background_color(data, sky.spec, rd)
+        torch.cuda.synchronize()
+        rose = {k: megakernel.LAUNCHES[k] - before[k]
+                for k in megakernel.KERNELS}
+        if rose != {k: int(k == k_sky) for k in megakernel.KERNELS}:
+            raise AssertionError(f"background_color launches: {rose}")
+        want = backgrounds._skybox(data.bg_cube, sky.spec, rd)
+        d = (got - want).abs()
+        stats = {
+            "directions": rd.shape[0],
+            "share_within_1e-6": float((d <= 1e-6).all(dim=1).float().mean()),
+            "share_bit_equal": float((got == want).all(dim=1).float().mean()),
+            "max_abs_err": float(d.max()),
+            "finite": bool(torch.isfinite(got).all()),
+            "mean": float(got.mean())}
+        print(f"    {label}: {stats}")
+        if not (stats["share_within_1e-6"] >= 0.999 and stats["finite"]
+                and stats["mean"] > 0.1):
+            raise AssertionError(f"skybox kernel disagrees: {stats}")
+        max_err[k_sky] = max(max_err[k_sky], stats["max_abs_err"])
+        return got
+
+    print(f"[14, {at()}] skybox kernel vs plain, six faces {FACE_SIZES} "
+          f"(rule: within 1e-6 on 99.9% of the directions; the share equal "
+          f"to the bit beside it):")
+    got = sky_check(sky.data, dirs, f"{n} random directions")
+    if got[:2048].any():
+        raise AssertionError("a tie for the largest component is not black")
+    sky_check(sky.data, coherent, f"{coherent.shape[0]} primary-ray "
+                                  f"directions of the cornell sky launch")
+    # the cube changed in place between two calls, as a fitting step
+    # changes it: the packed faces follow, in both kernels that read them
+    moved = dataclasses.replace(sky.data, bg_cube=sky.data.bg_cube.clone())
+    first = backgrounds.background_color(moved, sky.spec, dirs)
+    lanes_m = random_lanes(sky.spec, 65536, SEED, device)
+    lin_first = megakernel.radiance_lanes(moved, sky.spec, *lanes_m, SEED)
+    with torch.no_grad():
+        moved.bg_cube[3].mul_(0.5)
+        moved.bg_cube[4].add_(0.25)
+    again = sky_check(moved, dirs, "the same after the cube changed in place")
+    if torch.equal(again, first):
+        raise AssertionError("the skybox kernel did not follow the cube")
+    stats = check_kernel(megakernel, k_lin, moved, sky.spec, lanes_m, SEED,
+                         "cornell under the sky, after the cube changed in "
+                         "place")
+    if torch.equal(torch.stack(list(lin_first)), torch.stack(list(
+            megakernel.radiance_lanes(moved, sky.spec, *lanes_m, SEED)))):
+        raise AssertionError("the linear kernel did not follow the cube")
+    max_err[k_lin_sky] = max(max_err[k_lin_sky], stats["max_abs_err"])
+    del moved, first, again, lin_first
 
     def sky_kernel():
         return backgrounds.background_color(sky.data, sky.spec, dirs)
@@ -1366,42 +1535,49 @@ def main() -> int:
     def sky_plain():
         return backgrounds._skybox(sky.data.bg_cube, sky.spec, dirs)
 
-    before = dict(megakernel.LAUNCHES)
-    got, want = sky_kernel(), sky_plain()
-    torch.cuda.synchronize()
-    rose = {k: megakernel.LAUNCHES[k] - before[k] for k in megakernel.KERNELS}
-    if rose != {k: int(k == k_sky) for k in megakernel.KERNELS}:
-        raise AssertionError(f"background_color launches: {rose}")
-    d = (got - want).abs()
-    sky_stats = {
-        "directions": n,
-        "share_within_1e-6": float((d <= 1e-6).all(dim=1).float().mean()),
-        "bit_equal": float((got == want).all(dim=1).float().mean()),
-        "max_abs_err": float(d.max()),
-        "ties_black": bool(not got[:2048].any() and not want[:2048].any()),
-        "finite": bool(torch.isfinite(got).all()),
-        "mean": float(got.mean())}
-    print(f"[14, {at()}] skybox kernel vs plain, six faces {FACE_SIZES}:\n"
-          f"  {sky_stats}")
-    if not (sky_stats["share_within_1e-6"] >= 0.999 and sky_stats["finite"]
-            and sky_stats["ties_black"] and sky_stats["mean"] > 0.1):
-        raise AssertionError(f"skybox kernel disagrees: {sky_stats}")
-    max_err[k_sky] = sky_stats["max_abs_err"]
     ms, plain_ms, times = time_pair(sky_kernel, sky_plain, 20, 5)
     k_dev = device_ms(sky_kernel, 20, "skybox")
+    coherent_ms = [ms_per_launch(lambda: backgrounds.background_color(
+        sky.data, sky.spec, coherent), 3, 20) for _ in range(2)]
     timing[k_sky] = (ms, plain_ms)
     bounds[k_sky] = bound(FLOPS_SKY * n, (24 + SKY_TEXEL_BYTES) * n)
-    # one face's bilinear fetch through the library, for scale: it does
-    # not choose the face nor clamp to a face's own size
-    face = sky.data.bg_cube[0].permute(2, 0, 1)[None].contiguous()
-    grid = (dirs[None, None, :, :2] * 0.99).contiguous()
-    grid_ms = ms_per_launch(lambda: torch.nn.functional.grid_sample(
-        face, grid, mode="bilinear", align_corners=True), 3, 20)
-    print(f"    kernel {ms:.4f} ms/call (runs "
+    # what a random direction must take from device memory: two rows of a
+    # face, at least one 32-byte sector each, beside its own 24 B
+    floor_ms = (24 + 64) * n / PEAK_BYTES * 1e3
+    sass = k4_sass(cuobjdump_sass(_build.library_path(k_sky)))
+    print(f"    random directions: kernel {ms:.4f} ms/call (runs "
           f"{[round(x, 4) for x in times['kernel']]}), {k_dev:.4f} ms on the "
-          f"device; plain {plain_ms:.4f} ms/call; bound "
-          f"{bounds[k_sky][0]:.4f} ms ({bounds[k_sky][1]}); grid_sample of "
-          f"one face at as many points {grid_ms:.4f} ms; on {smi}")
+          f"device; plain {plain_ms:.4f} ms/call; bound {bounds[k_sky][0]:.4f} "
+          f"ms ({bounds[k_sky][1]}: 48 B of texels and 24 B of direction and "
+          f"color per lookup); the sector floor {floor_ms:.4f} ms (two "
+          f"sectors and 24 B per lookup); on {smi}")
+    print(f"    the {coherent.shape[0]} primary-ray directions: runs "
+          f"{[round(x, 4) for x in coherent_ms]} ms/call; on {smi}")
+    regs = ptxas_registers(_build.build_logs.get(k_sky, ""), "skybox_kernel")
+    print(f"    skybox_kernel: {regs} registers; SASS {sass}")
+    # the library yardstick: the whole function through grid_sample, over
+    # the six faces stacked once into one image (not timed, as the packed
+    # faces are made once per cube)
+    cube = sky.data.bg_cube
+    stacked = cube.permute(3, 0, 1, 2).reshape(
+        1, 3, 6 * cube.shape[1], cube.shape[2]).contiguous()
+    lib_out = sky_library_call(cube, FACE_SIZES, dirs, stacked)
+    want = sky_plain()
+    d = (lib_out - want).abs()
+    grid = sky_library_grid(cube, FACE_SIZES, dirs)[0]
+    grid_ms = ms_per_launch(lambda: sky_grid_sample(stacked, grid), 3, 20)
+    library_ms[k_sky] = ms_per_launch(lambda: sky_library_call(
+        cube, FACE_SIZES, dirs, stacked), 3, 20)
+    print(f"    library: the face and UV in elementwise ops, then one "
+          f"grid_sample over the six faces stacked into a "
+          f"{tuple(stacked.shape)} image, {library_ms[k_sky]:.4f} ms/call, "
+          f"of which the grid_sample alone {grid_ms:.4f} ms; against "
+          f"_skybox: max |d| {float(d.max()):.3e}, "
+          f"{float((d <= 1e-6).all(dim=1).float().mean()):.6f} within 1e-6, "
+          f"{float((d <= 1e-4).all(dim=1).float().mean()):.6f} within 1e-4, "
+          f"{float((lib_out == want).all(dim=1).float().mean()):.6f} equal to "
+          f"the bit (its weights round their own way); on {smi}")
+    del stacked, lib_out, want, d, grid
 
     # ---- phase 15: the sky instances of the render kernels vs plain ----
     def near_edge_share(data, spec, lanes, seed):
@@ -1471,9 +1647,7 @@ def main() -> int:
     # cornell launch: a direct call, since no entry point of the port
     # reaches this kernel (the renders above look the cube up inside the
     # render kernels)
-    lanes, _ = cli_launch_lanes(sky.spec, device)
-    _, rd, _, _ = primary_rays(sky.data, sky.spec, *lanes, SEED)
-    rd = torch.stack(list(rd), dim=1).contiguous()
+    rd = coherent
     for k in megakernel.KERNELS:
         megakernel.LAUNCHES[k] = 0
     colors = backgrounds.background_color(sky.data, sky.spec, rd)
@@ -1745,7 +1919,7 @@ def main() -> int:
         "launches": launches[k], "max_abs_err": max_err[k],
         "ms": timing[k][0], "plain_ms": timing[k][1],
         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-        "library_ms": None}
+        "library_ms": library_ms.get(k)}
         for k in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -165,22 +165,24 @@ extern "C" {
 // buffer (ops/intersect_scan.py::fold_buffer: n_chunks * 32 rows, the first
 // n_sph_chunks chunks spheres, 16-byte aligned), staged in shared memory
 // when `fold_shared` is set, and `scene` holds one row per object id.
-// A non-null `cube` selects the skybox instances: the (6, hmax, wmax, 3)
-// float32 faces in device memory, with `face_hw` 14 ints in host memory
-// (hmax, wmax, then each face's own height and width).
+// A non-null `sky_quads` selects the skybox instances: the faces packed for the
+// lookup (models/backgrounds.py::pack_sky: (6, hmax, wmax, 16) float32, in
+// device memory), with `face_hw` 14 ints in host memory (hmax, wmax, then
+// each face's own height and width).
 int rt_megakernel_linear(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
                          const uint32_t* cam, const float* scene, const void* fold,
                          int n_sph_chunks, int n_chunks, int fold_shared,
-                         const float* cube, const int* face_hw, int n_obj, int n_light,
+                         const float* sky_quads, const int* face_hw, int n_obj, int n_light,
                          int max_depth, int has_reflect, int has_refract, int n_indirect,
                          int dof, uint32_t seed, float* out, long long n, void* stream) {
   const bool lit = n_light > 0 || has_reflect || has_refract || dof;
-  const Sky sky = make_sky(cube, face_hw);
+  const Sky sky = make_sky(sky_quads, face_hw);
   const int large = n_chunks > 0 ? (fold_shared ? 2 : 1) : 0;
 #define RT_PICK(LIT, SKY) \
   (large == 2 ? launch<LIT, 2, SKY> : large == 1 ? launch<LIT, 1, SKY> : launch<LIT, 0, SKY>)
-  const auto fn = cube != nullptr ? (lit ? RT_PICK(true, true) : RT_PICK(false, true))
-                                  : (lit ? RT_PICK(true, false) : RT_PICK(false, false));
+  const auto fn = sky_quads != nullptr
+                      ? (lit ? RT_PICK(true, true) : RT_PICK(false, true))
+                      : (lit ? RT_PICK(true, false) : RT_PICK(false, false));
 #undef RT_PICK
   return fn(pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj,
             n_light, max_depth, has_reflect, has_refract, n_indirect, dof, seed, out, n,

@@ -232,21 +232,21 @@ extern "C" {
 // the launch's cudaError_t, or cudaErrorInvalidValue for another
 // `stack_cap` and for a stack that the scene's (max_depth + 1)(m - 1)
 // entries do not fit.  n_chunks > 0 selects the large instances and a
-// non-null `cube` the skybox instances, with `fold`, `fold_shared`,
-// `scene`, `cube` and `face_hw` as rt_megakernel_linear takes them.
+// non-null `sky_quads` the skybox instances, with `fold`, `fold_shared`,
+// `scene`, `sky_quads` and `face_hw` as rt_megakernel_linear takes them.
 int rt_megakernel_tree(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
                        const uint32_t* cam, const float* scene, const void* fold,
-                       int n_sph_chunks, int n_chunks, int fold_shared, const float* cube,
+                       int n_sph_chunks, int n_chunks, int fold_shared, const float* sky_quads,
                        const int* face_hw, int n_obj, int n_light, int max_depth,
                        int has_reflect, int has_refract, int n_indirect, int dof, int m,
                        int stack_cap, uint32_t seed, float* out, long long n, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const Sky sky = make_sky(cube, face_hw);
+  const Sky sky = make_sky(sky_quads, face_hw);
   if (m < 1 || (max_depth + 1) * (m - 1) > stack_cap)
     return (int)cudaErrorInvalidValue;
   const int large = n_chunks > 0 ? (fold_shared ? 2 : 1) : 0;
 #define RT_LAUNCH(C)                                                                          \
-  return (cube != nullptr                                                                     \
+  return (sky_quads != nullptr                                                                \
               ? (large == 2 ? launch<C, 2, true> : large == 1 ? launch<C, 1, true>            \
                                                               : launch<C, 0, true>)           \
               : (large == 2 ? launch<C, 2, false> : large == 1 ? launch<C, 1, false>          \

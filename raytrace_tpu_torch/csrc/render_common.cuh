@@ -162,21 +162,26 @@ __host__ __device__ __forceinline__ Tables make_tables(const void* buf, int n_sp
 // of raytrace_tpu/render/megakernel.py::_kernel: there a miss leaves the
 // kernel as a record (direction, throughput) and a post-pass outside it
 // does the texture gather; here the lookup runs where the ray misses.
-// The six faces lie padded in one (6, hmax, wmax, 3) float32 cube in
-// device memory (six faces of 1024 x 1024 are 75.5 MB: nothing of it can be
-// staged), read through the read-only cache, four texels of three floats
-// per miss, 48 B against a few dozen operations: the lookup is bound by
-// bytes, and by the latency of four dependent-free loads.
+// What bounds it on an H100 is the memory system: a random direction
+// needs two rows of a face, and the faces (six of 1024 x 1024 are 75.5 MB)
+// exceed the 50 MB L2.  So the lookup reads a form of the cube packed for
+// it (models/backgrounds.py::pack_sky, rebuilt when the cube changes): at
+// each texel (face, y, x) of a face the 12 floats of its bilinear
+// neighbourhood, texels (y, x), (y1, x), (y, x1) and (y1, x1) in RGB, with
+// x1 = min(x + 1, w - 1) and y1 = min(y + 1, h - 1) clamped at the face's
+// own size when packed, and 4 floats of pad.  A lookup is three 16-byte
+// loads from one 64-byte aligned block: two 32-byte sectors, the least that
+// two rows of a face can take, in one of the 64-byte blocks that device
+// memory serves, where the cube's four 12-byte texels took 12 scalar loads
+// and 3.25 sectors on average (a 48-byte run without the pad straddles two
+// blocks half the time).  The packed form holds 5.33x the cube's bytes;
+// the wrapper checks that its element count fits the 32-bit index
+// arithmetic below.
 struct Sky {
-  const float* cube;  // null: the scene has a solid background
-  int hmax, wmax;     // strides of the padded cube
-  int h[6], w[6];     // each face's own size: px nx py ny pz nz
+  const float4* quads;  // (6, hmax, wmax, 16) float32; null: a solid background
+  int hmax, wmax;       // strides of the padded faces
+  int h[6], w[6];       // each face's own size: px nx py ny pz nz
 };
-
-__device__ __forceinline__ float3 sky_texel(const Sky& sky, int face, int y, int x) {
-  const float* p = sky.cube + 3 * (((long long)face * sky.hmax + y) * sky.wmax + x);
-  return make_float3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
-}
 
 // Dominant axis by strict > tested in x, y, z order (a tie for the largest
 // component is black), the face's UV, clamped bilinear fetch at the face's
@@ -218,24 +223,25 @@ __device__ __forceinline__ void sky_lookup(const Sky& sky, float dx, float dy, f
   const float x0 = floorf(x), y0 = floorf(y);
   const float xx = x - x0, yy = y - y0;
   const float omx = 1.0f - xx, omy = 1.0f - yy;
-  const int x0i = (int)x0, y0i = (int)y0;
-  const int x1i = min(x0i + 1, fw - 1), y1i = min(y0i + 1, fh - 1);
-  const float3 c00 = sky_texel(sky, face, y0i, x0i), c01 = sky_texel(sky, face, y1i, x0i);
-  const float3 c10 = sky_texel(sky, face, y0i, x1i), c11 = sky_texel(sky, face, y1i, x1i);
+  // q0 = c00.rgb c01.r, q1 = c01.gb c10.rg, q2 = c10.b c11.rgb
+  const float4* q =
+      sky.quads + 4u * (unsigned)((face * sky.hmax + (int)y0) * sky.wmax + (int)x0);
+  const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
   const auto mix = [](float p, float wp, float q, float wq) {
     return __fadd_rn(__fmul_rn(p, wp), __fmul_rn(q, wq));
   };
-  r = mix(mix(c00.x, omy, c01.x, yy), omx, mix(c10.x, omy, c11.x, yy), xx);
-  g = mix(mix(c00.y, omy, c01.y, yy), omx, mix(c10.y, omy, c11.y, yy), xx);
-  b = mix(mix(c00.z, omy, c01.z, yy), omx, mix(c10.z, omy, c11.z, yy), xx);
+  r = mix(mix(q0.x, omy, q0.w, yy), omx, mix(q1.z, omy, q2.y, yy), xx);
+  g = mix(mix(q0.y, omy, q1.x, yy), omx, mix(q1.w, omy, q2.z, yy), xx);
+  b = mix(mix(q0.z, omy, q1.y, yy), omx, mix(q2.x, omy, q2.w, yy), xx);
 }
 
-// the face sizes as the wrappers pass them: hmax, wmax, then (h, w) of the
-// six faces, 14 ints in host memory; a null cube is a solid background
-__host__ __forceinline__ Sky make_sky(const float* cube, const int* face_hw) {
+// the packed faces and their sizes as the wrappers pass them: `quads` in
+// device memory, 16-byte aligned, and hmax, wmax, then (h, w) of the six
+// faces, 14 ints in host memory; a null `quads` is a solid background
+__host__ __forceinline__ Sky make_sky(const float* quads, const int* face_hw) {
   Sky sky{};
-  sky.cube = cube;
-  if (cube == nullptr) return sky;
+  sky.quads = (const float4*)quads;
+  if (quads == nullptr) return sky;
   sky.hmax = face_hw[0];
   sky.wmax = face_hw[1];
   for (int f = 0; f < 6; ++f) {

@@ -10,11 +10,14 @@
 // _skybox) without Monte-Carlo paths in the way.
 //
 // What bounds it on an H100: bytes.  A direction reads 12 B, writes 12 B
-// and fetches four texels of 12 B from the (6, hmax, wmax, 3) cube in
-// device memory, against a few dozen operations.  Neighbouring directions
-// need not be neighbours in the cube, so the texel loads go through the
-// read-only cache uncoalesced; directions and colors are (N, 3) rows, read
-// and written as three floats per thread.
+// and needs four texels of 12 B, against a few dozen operations.
+// Neighbouring directions need not be neighbours on a face, and six faces
+// of 1024 x 1024 do not fit the L2, so the texels come from device memory
+// in sectors of 32 B.  The lookup reads the faces packed for it
+// (render_common.cuh, Sky): the four texels of a lookup lie in one 64-byte
+// aligned block, three 16-byte loads and two sectors, the least that two
+// rows of a face can take.  Directions and colors are (N, 3) rows, read
+// and written as three floats per thread, coalesced across the warp.
 
 #include "render_common.cuh"
 
@@ -37,16 +40,17 @@ skybox_kernel(Sky sky, const float* __restrict__ rd, float* __restrict__ out, lo
 
 extern "C" {
 
-// Launches on `stream`; allocates nothing.  `cube` holds the
-// (6, hmax, wmax, 3) float32 faces in device memory, `face_hw` 14 ints in
-// host memory (hmax, wmax, then each face's own height and width), `rd` and
-// `out` n rows of 3 floats.  Returns the launch's cudaError_t.
-int rt_skybox(const float* cube, const int* face_hw, const float* rd, float* out, long long n,
-              void* stream) {
-  if (cube == nullptr) return (int)cudaErrorInvalidValue;
+// Launches on `stream`; allocates nothing.  `sky_quads` holds the packed
+// faces (models/backgrounds.py::pack_sky: (6, hmax, wmax, 16) float32) in
+// device memory, `face_hw` 14 ints in host memory (hmax, wmax, then each
+// face's own height and width), `rd` and `out` n rows of 3 floats.
+// Returns the launch's cudaError_t.
+int rt_skybox(const float* sky_quads, const int* face_hw, const float* rd, float* out,
+              long long n, void* stream) {
+  if (sky_quads == nullptr) return (int)cudaErrorInvalidValue;
   const long long blocks = (n + THREADS - 1) / THREADS;
   skybox_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      make_sky(cube, face_hw), rd, out, n);
+      make_sky(sky_quads, face_hw), rd, out, n);
   return (int)cudaGetLastError();
 }
 

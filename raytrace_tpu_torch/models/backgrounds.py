@@ -7,7 +7,9 @@ and a gather of four texels from the ``(6, H, W, 3)`` face array.  It is
 the plain version of the CUDA lookup ``sky_lookup``
 (``csrc/render_common.cuh``), which the render kernels call where a ray
 misses and which :func:`background_color` launches on its own
-(``csrc/skybox.cu``) for CUDA tensors.
+(``csrc/skybox.cu``) for CUDA tensors.  The CUDA lookup reads the faces
+in the form :func:`pack_sky` makes of the cube, each texel beside its
+bilinear neighbours; :func:`sky_buffer` keeps the last one made.
 
 Semantics kept exactly:
 
@@ -136,8 +138,8 @@ def _skybox(cube: torch.Tensor, spec: SceneSpec,
 
 
 def face_sizes_arg(cube: torch.Tensor, spec: SceneSpec):
-    """What the CUDA lookups take beside the cube's pointer: 14 C ints,
-    the padded height and width and each face's own (csrc/
+    """What the CUDA lookups take beside the packed faces' pointer: 14 C
+    ints, the padded height and width and each face's own (csrc/
     render_common.cuh, make_sky).  Raises unless the cube is what they
     read: (6, H, W, 3) float32, contiguous, on a CUDA device, every face
     within the padding."""
@@ -154,6 +156,66 @@ def face_sizes_arg(cube: torch.Tensor, spec: SceneSpec):
                          f"cube's {hmax}x{wmax} padding")
     flat = [hmax, wmax, *(n for hw in spec.face_sizes for n in hw)]
     return (ctypes.c_int * 14)(*flat)
+
+
+# floats of one texel of the packed faces: the texel and its three
+# bilinear neighbours, RGB each, and 4 of pad (one 64-byte block)
+SKY_QUAD = 16
+
+
+def pack_sky(cube: torch.Tensor, face_sizes) -> torch.Tensor:
+    """The faces as the CUDA lookups read them (``csrc/render_common.cuh``,
+    ``Sky``): a (6, H, W, 16) tensor of ``cube``'s dtype whose entry
+    (f, y, x) holds texels (y, x), (y1, x), (y, x1) and (y1, x1) of face
+    f, RGB each, with ``x1 = min(x + 1, w - 1)`` and ``y1 = min(y + 1,
+    h - 1)`` at the face's own size (h, w) of ``face_sizes``, then four
+    zeros.  Entries outside a face's own size are zero: the lookup never
+    reads them.  Plain PyTorch, without gradient; 16/3 of the cube's
+    bytes."""
+    _, hmax, wmax, _ = cube.shape
+    cube = cube.detach()
+    out = cube.new_zeros((6, hmax, wmax, SKY_QUAD))
+    for f, (h, w) in enumerate(face_sizes):
+        face = cube[f, :h, :w]
+        y1 = torch.arange(1, h + 1, device=cube.device).clamp(max=h - 1)
+        x1 = torch.arange(1, w + 1, device=cube.device).clamp(max=w - 1)
+        out[f, :h, :w, 0:3] = face
+        out[f, :h, :w, 3:6] = face[y1]
+        out[f, :h, :w, 6:9] = face[:, x1]
+        out[f, :h, :w, 9:12] = face[y1][:, x1]
+    return out
+
+
+# the last packed form made: (cube, (version, data pointer, face sizes),
+# packed), reused while the same cube comes unmodified
+_sky_last = None
+
+
+def cached_pack_sky(cube: torch.Tensor, face_sizes) -> torch.Tensor:
+    """:func:`pack_sky`, made anew only when ``cube`` is another tensor or
+    was modified in place (its ``_version``), as a fitting step modifies
+    it, or the face sizes differ."""
+    global _sky_last
+    key = (cube._version, cube.data_ptr(), tuple(map(tuple, face_sizes)))
+    if (_sky_last is not None and _sky_last[0] is cube
+            and _sky_last[1] == key):
+        return _sky_last[2]
+    packed = pack_sky(cube, face_sizes)
+    _sky_last = (cube, key, packed)
+    return packed
+
+
+def sky_buffer(cube: torch.Tensor, spec: SceneSpec):
+    """(packed faces, face sizes) as the CUDA lookups take them: the
+    :func:`cached_pack_sky` form of ``cube`` and :func:`face_sizes_arg`.
+    Raises for faces whose packed form has more elements than the
+    lookup's 32-bit index reaches, and where :func:`face_sizes_arg`
+    does."""
+    if cube.numel() // 3 * SKY_QUAD >= 2 ** 31:
+        raise ValueError(f"a {tuple(cube.shape)} cube packs to 2**31 floats "
+                         f"or more, beyond the lookup's 32-bit index")
+    face_hw = face_sizes_arg(cube.detach().contiguous(), spec)
+    return cached_pack_sky(cube, spec.face_sizes), face_hw
 
 
 _lib_ready: ctypes.CDLL | None = None
@@ -176,8 +238,7 @@ def _launch(cube: torch.Tensor, spec: SceneSpec,
             rd: torch.Tensor) -> torch.Tensor:
     if rd.dtype != torch.float32 or rd.ndim != 2 or rd.shape[1] != 3:
         raise ValueError("directions must be an (N, 3) float32 tensor")
-    cube = cube.detach().contiguous()
-    face_hw = face_sizes_arg(cube, spec)
+    packed, face_hw = sky_buffer(cube, spec)
     rd = rd.detach().contiguous()
     out = torch.empty_like(rd)
     n = rd.shape[0]
@@ -186,7 +247,7 @@ def _launch(cube: torch.Tensor, spec: SceneSpec,
     lib = _lib()
     with torch.cuda.device(rd.device):
         stream = torch.cuda.current_stream(rd.device).cuda_stream
-        rc = lib.rt_skybox(cube.data_ptr(), face_hw, rd.data_ptr(),
+        rc = lib.rt_skybox(packed.data_ptr(), face_hw, rd.data_ptr(),
                            out.data_ptr(), n, stream)
     if rc != 0:
         raise RuntimeError(f"skybox launch failed: "

@@ -34,7 +34,7 @@ import dataclasses
 
 import torch
 
-from raytrace_tpu_torch.models.backgrounds import face_sizes_arg
+from raytrace_tpu_torch.models import backgrounds
 from raytrace_tpu_torch.ops import _build, intersect_scan
 from raytrace_tpu_torch.ops.intersect import (LARGE_SCENE_THRESHOLD,
                                               object_table, per_scene_cache,
@@ -227,8 +227,8 @@ _scene_buffer = per_scene_cache(pack_scene)
 
 
 # lane ids, scene buffer, fold buffer; sphere chunks, chunks, fold in
-# shared memory; cube, face sizes; objects, lights, max_depth, reflect,
-# refract, indirect, dof
+# shared memory; packed sky faces, face sizes; objects, lights, max_depth,
+# reflect, refract, indirect, dof
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7)
 
@@ -281,11 +281,11 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
         tables = [None, 0, 0, 0]
         n_obj = len(spec.live_objects())
     if spec.bg_type == BG_SKYBOX:
-        # the skybox instances: a non-null cube, which stays where it is in
-        # device memory (six faces of 1024 x 1024 are 75.5 MB) and is read
-        # where a ray misses
-        cube = data.bg_cube.detach().contiguous()
-        sky = [cube.data_ptr(), face_sizes_arg(cube, spec)]
+        # the skybox instances: the faces packed for the lookup where a ray
+        # misses (16/3 of the cube's bytes, in device memory), made once
+        # per cube and again after the cube changes
+        quads, face_hw = backgrounds.sky_buffer(data.bg_cube, spec)
+        sky = [quads.data_ptr(), face_hw]
     else:
         sky = [None, None]
     args = [*(t.data_ptr() for t in ids), scene.data_ptr(), *tables, *sky,

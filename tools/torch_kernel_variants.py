@@ -2,7 +2,7 @@
 beside what the port ships, on one NVIDIA GPU, each held against its plain
 PyTorch version.
 
-    python3 tools/torch_kernel_variants.py [--only k1|tree|fold]
+    python3 tools/torch_kernel_variants.py [--only k1|k4|tree|fold]
         [--parent DIR] [--sass-dir DIR]
 
 The linear kernel (K1, ``--only k1``): the steps of its redesign one after
@@ -22,6 +22,20 @@ kernel on materials_showcase, which shares the small-scene device code;
 each is held against the plain version on cornell's 4,194,304-lane CLI
 launch, where the share of lanes outside the per-lane rule and of lanes
 equal to the bit are its forks.
+
+The skybox lookup (K4, ``--only k4``): the texel layouts in turns (the
+forms forward, then backward): the parent's cube with 12 scalar loads
+(from ``--parent``), float4 texels, each texel packed with its three
+bilinear neighbours in 48 bytes and padded to 64 (what ships), row pairs
+of 32 bytes, and texture objects read by ``tex2D`` and by
+``tex2Dgather``; and the render kernels' sky instances with the lookup
+taken out.  Each is timed on ``csrc/skybox.cu`` (2,097,152 random
+directions and the 4,194,304 primary-ray directions of the cornell sky
+launch), K1+sky (the open cornell) and K3+sky (the showcase under the
+sky), each held against its plain version, with the registers and
+``skybox_kernel``'s loads and integer instructions from its SASS; the
+texture objects are also made and freed 100 times against the card's
+used bytes.
 
 The port itself has one form of each choice.  A variant is built here from
 a copy of ``raytrace_tpu_torch/csrc`` with lines of the source replaced
@@ -82,6 +96,8 @@ def instance_report(build_logs) -> None:
 
 
 TREE_BLOCKS = "constexpr int TREE_MIN_BLOCKS = 8, TREE_LARGE_MIN_BLOCKS = 4;"
+# the fold's choice per warp, which the fold's forms replace
+FOLD_CHOICE = "if (warp_rays_part<SH>(tb, mask, q))"
 K1_BLOCKS = "constexpr int LINEAR_MIN_BLOCKS = 1, LINEAR_LIT_MIN_BLOCKS = 7;"
 # the parent's object test, reading the constants that pack_scene now puts
 # in column 22 of a row (R_PRE) instead of computing them
@@ -156,6 +172,7 @@ def patched_sources(old: str | None = None, new: str = "", base: str = OWN_CSRC,
     (each must occur), or with no edit at all back at the port's own
     sources, and drops the loaded libraries so that the next launch builds
     and loads that version."""
+    from raytrace_tpu_torch.models import backgrounds
     from raytrace_tpu_torch.ops import _build, intersect_scan
 
     edits = list(edits) + ([(old, new)] if old is not None else [])
@@ -178,6 +195,7 @@ def patched_sources(old: str | None = None, new: str = "", base: str = OWN_CSRC,
         _build.CSRC_DIR = copy
     _build._libs.clear()
     intersect_scan._lib_ready = None
+    backgrounds._lib_ready = None
 
 
 def probe_share(tb, ro, rd, probes: int = 8):
@@ -352,11 +370,432 @@ def k1_variants(parent: str | None, smi: str, sass_dir: str | None) -> None:
             f"{label} {min(v):.4f}" for label, v in times[i].items()))
 
 
+# ---- K4, the skybox lookup.  What ships (render_common.cuh, Sky;
+# models/backgrounds.py::pack_sky): the faces packed per texel with its
+# three bilinear neighbours and a pad, three 16-byte loads from one
+# 64-byte block a lookup.  Each other form
+# replaces parts of the skybox block of render_common.cuh, from SKY_BLOCK[0]
+# to SKY_BLOCK[1], and the function that hands the kernels their faces
+# (backgrounds.sky_buffer).
+SKY_BLOCK = ("// ---- skybox (models/backgrounds.py::_skybox).",
+             "// the scene as the kernels see it")
+SKY_STRUCT = """struct Sky {
+  const float4* quads;  // (6, hmax, wmax, 16) float32; null: a solid background
+  int hmax, wmax;       // strides of the padded faces
+  int h[6], w[6];       // each face's own size: px nx py ny pz nz
+};"""
+SKY_FETCH = """  // q0 = c00.rgb c01.r, q1 = c01.gb c10.rg, q2 = c10.b c11.rgb
+  const float4* q =
+      sky.quads + 4u * (unsigned)((face * sky.hmax + (int)y0) * sky.wmax + (int)x0);
+  const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2);
+"""
+SKY_BLEND = """  r = mix(mix(q0.x, omy, q0.w, yy), omx, mix(q1.z, omy, q2.y, yy), xx);
+  g = mix(mix(q0.y, omy, q1.x, yy), omx, mix(q1.w, omy, q2.z, yy), xx);
+  b = mix(mix(q0.z, omy, q1.y, yy), omx, mix(q2.x, omy, q2.w, yy), xx);"""
+SKY_MAKE = "  sky.quads = (const float4*)quads;"
+# the four texels as c00, c01, c10, c11 (float4, RGB in x, y, z)
+_BLEND4 = """  r = mix(mix(c00.x, omy, c01.x, yy), omx, mix(c10.x, omy, c11.x, yy), xx);
+  g = mix(mix(c00.y, omy, c01.y, yy), omx, mix(c10.y, omy, c11.y, yy), xx);
+  b = mix(mix(c00.z, omy, c01.z, yy), omx, mix(c10.z, omy, c11.z, yy), xx);"""
+# (a) float4 texels: RGB and a pad float, one 16-byte load a texel
+K4_FLOAT4 = [
+    (SKY_STRUCT, SKY_STRUCT.replace(
+        "const float4* quads;  // (6, hmax, wmax, 16)",
+        "const float4* quads;  // (6, hmax, wmax, 4) ")),
+    (SKY_FETCH, """  const int x0i = (int)x0, y0i = (int)y0;
+  const int x1i = min(x0i + 1, fw - 1), y1i = min(y0i + 1, fh - 1);
+  const float4* row0 = sky.quads + (unsigned)((face * sky.hmax + y0i) * sky.wmax);
+  const float4* row1 = sky.quads + (unsigned)((face * sky.hmax + y1i) * sky.wmax);
+  const float4 c00 = __ldg(row0 + x0i), c10 = __ldg(row0 + x1i);
+  const float4 c01 = __ldg(row1 + x0i), c11 = __ldg(row1 + x1i);
+"""),
+    (SKY_BLEND, _BLEND4)]
+# (b48) as what ships without the pad: a 48-byte run a lookup, which
+# straddles two 64-byte blocks half the time
+K4_QUAD48 = [("      sky.quads + 4u * (unsigned)(", "      sky.quads + 3u * (unsigned)(")]
+# (f) row pairs: at (face, y, x) texels (y, x) and (y, x1), padded to 8
+# floats: a lookup reads two aligned 32-byte entries, rows y0 and y1
+K4_ROW_PAIRS = [
+    (SKY_FETCH, """  const int y1i = min((int)y0 + 1, fh - 1);
+  const float4* e0 = sky.quads + 2u * (unsigned)((face * sky.hmax + (int)y0) * sky.wmax + (int)x0);
+  const float4* e1 = sky.quads + 2u * (unsigned)((face * sky.hmax + y1i) * sky.wmax + (int)x0);
+  const float4 a0 = __ldg(e0), a1 = __ldg(e1);
+  const float2 b0 = __ldg((const float2*)(e0 + 1)), b1 = __ldg((const float2*)(e1 + 1));
+"""),
+    (SKY_BLEND, """  r = mix(mix(a0.x, omy, a1.x, yy), omx, mix(a0.w, omy, a1.w, yy), xx);
+  g = mix(mix(a0.y, omy, a1.y, yy), omx, mix(b0.x, omy, b1.x, yy), xx);
+  b = mix(mix(a0.z, omy, a1.z, yy), omx, mix(b0.y, omy, b1.y, yy), xx);""")]
+# (c) texture objects: one CUDA array of float4 per face at its own size,
+# point filtering, clamp addressing, unnormalized coordinates; the arrays
+# and objects made and freed by two C functions of each library
+_TEX_HOST = r"""
+
+extern "C" int rt_sky_textures_free(const unsigned long long* tex, void* const* arrays) {
+  for (int f = 0; f < 6; ++f) {
+    if (tex[f] != 0) cudaDestroyTextureObject((cudaTextureObject_t)tex[f]);
+    if (arrays[f] != nullptr) cudaFreeArray((cudaArray_t)arrays[f]);
+  }
+  return (int)cudaGetLastError();
+}
+
+// `texels`: (6, hmax, wmax, 4) float32 in device memory; `tex` and `arrays`
+// receive the six faces' objects and arrays, freed again on a failure
+extern "C" int rt_sky_textures(const float* texels, const int* face_hw, unsigned long long* tex,
+                               void** arrays, void* stream) {
+  const int hmax = face_hw[0], wmax = face_hw[1];
+  const cudaChannelFormatDesc desc = cudaCreateChannelDesc<float4>();
+  for (int f = 0; f < 6; ++f) {
+    tex[f] = 0;
+    arrays[f] = nullptr;
+  }
+  cudaError_t err = cudaSuccess;
+  for (int f = 0; f < 6 && err == cudaSuccess; ++f) {
+    const int h = face_hw[2 + 2 * f], w = face_hw[3 + 2 * f];
+    cudaArray_t arr = nullptr;
+    err = cudaMallocArray(&arr, &desc, w, h, cudaArrayTextureGather);
+    if (err != cudaSuccess) break;
+    arrays[f] = arr;
+    err = cudaMemcpy2DToArrayAsync(arr, 0, 0, texels + (size_t)f * hmax * wmax * 4,
+                                   sizeof(float4) * wmax, sizeof(float4) * w, h,
+                                   cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+    if (err != cudaSuccess) break;
+    cudaResourceDesc res{};
+    res.resType = cudaResourceTypeArray;
+    res.res.array.array = arr;
+    cudaTextureDesc td{};
+    td.addressMode[0] = td.addressMode[1] = cudaAddressModeClamp;
+    td.filterMode = cudaFilterModePoint;
+    td.readMode = cudaReadModeElementType;
+    td.normalizedCoords = 0;
+    cudaTextureObject_t t = 0;
+    err = cudaCreateTextureObject(&t, &res, &td, nullptr);
+    tex[f] = t;
+  }
+  if (err != cudaSuccess) rt_sky_textures_free(tex, arrays);
+  return (int)err;
+}"""
+_TEX_PICK = """  const cudaTextureObject_t tex =
+      face == 0 ? sky.tex[0] : face == 1 ? sky.tex[1] : face == 2 ? sky.tex[2]
+      : face == 3 ? sky.tex[3] : face == 4 ? sky.tex[4] : sky.tex[5];
+"""
+_TEX_COMMON = [
+    (SKY_STRUCT, """struct Sky {
+  cudaTextureObject_t tex[6];  // one per face: float4 texels at its own size
+  int hmax, wmax;
+  int h[6], w[6];
+};""" + _TEX_HOST),
+    (SKY_MAKE, "  for (int f = 0; f < 6 && quads != nullptr; ++f)\n"
+               "    sky.tex[f] = ((const unsigned long long*)quads)[f];")]
+K4_TEX2D = _TEX_COMMON[:1] + [
+    (SKY_FETCH, _TEX_PICK + """  const float4 c00 = tex2D<float4>(tex, x0 + 0.5f, y0 + 0.5f);
+  const float4 c01 = tex2D<float4>(tex, x0 + 0.5f, y0 + 1.5f);
+  const float4 c10 = tex2D<float4>(tex, x0 + 1.5f, y0 + 0.5f);
+  const float4 c11 = tex2D<float4>(tex, x0 + 1.5f, y0 + 1.5f);
+"""), (SKY_BLEND, _BLEND4), _TEX_COMMON[1]]
+# the gather's footprint at (x0 + 1, y0 + 1) is texels x0..x0+1, y0..y0+1,
+# returned as x (x0, y1), y (x1, y1), z (x1, y0), w (x0, y0)
+K4_GATHER = _TEX_COMMON[:1] + [
+    (SKY_FETCH, _TEX_PICK + """  const float gx = x0 + 1.0f, gy = y0 + 1.0f;
+  const float4 R = tex2Dgather<float4>(tex, gx, gy, 0);
+  const float4 G = tex2Dgather<float4>(tex, gx, gy, 1);
+  const float4 B = tex2Dgather<float4>(tex, gx, gy, 2);
+"""), (SKY_BLEND, """  r = mix(mix(R.w, omy, R.x, yy), omx, mix(R.z, omy, R.y, yy), xx);
+  g = mix(mix(G.w, omy, G.x, yy), omx, mix(G.z, omy, G.y, yy), xx);
+  b = mix(mix(B.w, omy, B.x, yy), omx, mix(B.z, omy, B.y, yy), xx);"""),
+    _TEX_COMMON[1]]
+# a miss takes the scene's solid color instead of the lookup: what the
+# render kernels' sky instances cost without it
+K4_NO_LOOKUP = [("      sky_lookup(sc.sky, e.dx, e.dy, e.dz, bx, by, bz);",
+                 "      bx = sc.s[H_BG];\n      by = sc.s[H_BG + 1];\n"
+                 "      bz = sc.s[H_BG + 2];")]
+
+
+def sky_block(csrc: str) -> str:
+    """The skybox block of ``csrc``/render_common.cuh."""
+    with open(os.path.join(csrc, "render_common.cuh")) as f:
+        text = f.read()
+    return text[text.index(SKY_BLOCK[0]):text.index(SKY_BLOCK[1])]
+
+
+def cube_sky(cube, spec):
+    """The parent's sky: the cube itself."""
+    from raytrace_tpu_torch.models import backgrounds
+
+    cube = cube.detach().contiguous()
+    return cube, backgrounds.face_sizes_arg(cube, spec)
+
+
+def float4_sky(cube, spec):
+    """(a)'s sky: (6, H, W, 4) float4 texels, the fourth float zero."""
+    from raytrace_tpu_torch.models import backgrounds
+
+    face_hw = backgrounds.face_sizes_arg(cube.detach().contiguous(), spec)
+    if not _k4_cached("float4", cube):
+        c = cube.detach()
+        _k4_cache["float4"] = (cube, cube._version, torch.cat(
+            [c, c.new_zeros(c.shape[:3] + (1,))], -1).contiguous())
+    return _k4_cache["float4"][2], face_hw
+
+
+def quad48_sky(cube, spec):
+    """(b48)'s sky: pack_sky's twelve floats a texel, without the pad."""
+    from raytrace_tpu_torch.models import backgrounds
+
+    face_hw = backgrounds.face_sizes_arg(cube.detach().contiguous(), spec)
+    if not _k4_cached("quad48", cube):
+        q = backgrounds.pack_sky(cube, spec.face_sizes)
+        _k4_cache["quad48"] = (cube, cube._version,
+                               q[..., :12].contiguous())
+    return _k4_cache["quad48"][2], face_hw
+
+
+def row_pair_sky(cube, spec):
+    """(f)'s sky: at (face, y, x) texels (y, x) and (y, min(x + 1, w - 1))
+    and two zeros."""
+    from raytrace_tpu_torch.models import backgrounds
+
+    face_hw = backgrounds.face_sizes_arg(cube.detach().contiguous(), spec)
+    if not _k4_cached("rows", cube):
+        q = backgrounds.pack_sky(cube, spec.face_sizes)
+        _k4_cache["rows"] = (cube, cube._version, torch.cat(
+            [q[..., 0:3], q[..., 6:9], q.new_zeros(q.shape[:3] + (2,))],
+            -1).contiguous())
+    return _k4_cache["rows"][2], face_hw
+
+
+def texture_sky(cube, spec):
+    """(c)'s sky: six texture objects on float4 CUDA arrays, made by the
+    skybox library and freed by a finalizer when the cache lets go of
+    them; the kernels take a host pointer to the six handles."""
+    import ctypes
+    import weakref
+
+    from raytrace_tpu_torch.models import backgrounds
+    from raytrace_tpu_torch.ops import _build
+
+    face_hw = backgrounds.face_sizes_arg(cube.detach().contiguous(), spec)
+    if not _k4_cached("texture", cube):
+        _k4_cache.pop("texture", None)
+        c = cube.detach()
+        texels = torch.cat([c, c.new_zeros(c.shape[:3] + (1,))], -1).contiguous()
+        lib = _build.load(_build.KERNEL_SKY)
+        lib.rt_sky_textures.argtypes = [ctypes.c_void_p] * 5
+        lib.rt_sky_textures_free.argtypes = [ctypes.c_void_p] * 2
+        tex, arrays = (ctypes.c_ulonglong * 6)(), (ctypes.c_void_p * 6)()
+        rc = lib.rt_sky_textures(texels.data_ptr(), face_hw, tex, arrays,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"texture objects not made: "
+                               f"{lib.rt_error_string(rc).decode()}")
+        handles = torch.tensor(list(tex), dtype=torch.int64)
+        weakref.finalize(handles, lib.rt_sky_textures_free, tex, arrays)
+        _k4_cache["texture"] = (cube, cube._version, handles)
+    return _k4_cache["texture"][2], face_hw
+
+
+# each form's last sky: (cube, its version, what the kernels take)
+_k4_cache: dict = {}
+
+
+def _k4_cached(form: str, cube) -> bool:
+    entry = _k4_cache.get(form)
+    return entry is not None and entry[0] is cube and entry[1] == cube._version
+
+
+def k4_variants(parent: str | None, smi: str, sass_dir: str | None) -> None:
+    """K4's forms in turns (forward, then backward), each on skybox.cu
+    (random and coherent directions), K1+sky and K3+sky, each held
+    against the plain version; the "no lookup" form on the render kernels
+    alone."""
+    import chip_smoke as cs
+
+    from raytrace_tpu_torch.models import backgrounds
+    from raytrace_tpu_torch.ops import _build
+    from raytrace_tpu_torch.render import megakernel
+    from raytrace_tpu_torch.render.integrator import tree_loop_stack
+    from raytrace_tpu_torch.scene.builder import load_scene_file
+
+    device = torch.device("cuda", 0)
+    tmp = tempfile.TemporaryDirectory()
+    cs.write_sky_faces(tmp.name, cs.SEED)
+    scenes = {}
+    for name in ("cornell", "showcase"):
+        path = os.path.join(tmp.name, f"{name}_sky.txt")
+        with open(path, "w") as f:
+            f.write(cs.sky_scene_text(name))
+        scenes[name] = load_scene_file(path, device=device)
+    sky, show = scenes["cornell"], scenes["showcase"]
+    n = 1 << 21
+    dirs = cs.sky_random_directions(n, cs.SEED, device)
+    coherent = cs.sky_coherent_directions(sky, device)
+    lanes_c = [t.to(torch.int32)
+               for t in cs.pixel_lanes(1024, n // 16, 16, 1, device)]
+    lanes_s = [t.to(torch.int32)
+               for t in cs.random_lanes(show.spec, n, cs.SEED, device)]
+    cases = {
+        "skybox.cu, random": (lambda: backgrounds.background_color(
+            sky.data, sky.spec, dirs), 20),
+        "skybox.cu, coherent": (lambda: backgrounds.background_color(
+            sky.data, sky.spec, coherent), 20),
+        "K1+sky": (lambda: megakernel.radiance_lanes(
+            sky.data, sky.spec, *lanes_c, 0), 20),
+        "K3+sky": (lambda: megakernel.radiance_lanes(
+            show.data, show.spec, *lanes_s, 0), 10)}
+    want = {
+        "skybox.cu, random": backgrounds._skybox(sky.data.bg_cube, sky.spec,
+                                                 dirs),
+        "skybox.cu, coherent": backgrounds._skybox(sky.data.bg_cube,
+                                                   sky.spec, coherent),
+        "K1+sky": megakernel.radiance_lanes_reference(sky.data, sky.spec,
+                                                      *lanes_c, 0),
+        "K3+sky": megakernel.radiance_lanes_reference(show.data, show.spec,
+                                                      *lanes_s, 0)}
+    print(f"K4: {n} random directions, {coherent.shape[0]} primary-ray "
+          f"directions of the cornell sky launch; K1+sky on the open cornell "
+          f"({n} pixel-ordered lanes), K3+sky on the showcase ({n} random "
+          f"lanes); on {smi}", flush=True)
+    cap = tree_loop_stack(show.spec)[3]
+    instances = {"skybox": "skybox_kernel",
+                 "K1+sky": cs.K1_INSTANCES["sky"],
+                 "K3+sky": f"megakernel_treeILi{megakernel.tree_instance(cap)}"
+                           f"ELi0ELb1E"}
+    shipped = sky_block(OWN_CSRC)
+    forms = []
+    if parent is not None:
+        forms.append(("parent: the cube, 12 scalar loads", [(
+            shipped, sky_block(os.path.join(parent, "raytrace_tpu_torch",
+                                            "csrc")))], cube_sky))
+    forms += [("(a) float4 texels, 4 loads", K4_FLOAT4, float4_sky),
+              ("(b48) texel and neighbours packed in 48 bytes, 3 loads",
+               K4_QUAD48, quad48_sky),
+              ("(b64) the same padded to 64 bytes (ships)", [],
+               backgrounds.sky_buffer),
+              ("(f) row pairs, 32 bytes, 4 loads", K4_ROW_PAIRS,
+               row_pair_sky),
+              ("(c) texture objects, tex2D at 4 texel centres", K4_TEX2D,
+               texture_sky),
+              ("(c) texture objects, tex2Dgather per channel", K4_GATHER,
+               texture_sky),
+              ("no lookup: a miss takes the solid color", K4_NO_LOOKUP,
+               backgrounds.sky_buffer)]
+    order = list(range(len(forms))) + list(range(len(forms) - 1, -1, -1))
+    times = {i: {c: [] for c in cases} for i in range(len(forms))}
+    regs, sass, failed = {}, {}, []
+    ships = backgrounds.sky_buffer
+    # the shipped sources were built before, with their report
+    shipped_logs = dict(_build.build_logs)
+    for i in order:
+        name, edits, sky_fn = forms[i]
+        if name in failed:
+            continue
+        patched_sources(edits=edits)
+        backgrounds.sky_buffer = sky_fn
+        backgrounds._sky_last = None
+        _k4_cache.clear()
+        _build.build_logs.clear()
+        errors = []
+
+        def build(k):
+            try:
+                _build.load(k)
+            except _build.KernelBuildError as e:
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=build, args=(k,)) for k in (
+            _build.KERNEL_SKY, _build.KERNEL_LINEAR, _build.KERNEL_TREE)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            print(f"{name}: not built: {errors[0]}", flush=True)
+            failed.append(name)
+            continue
+        built = time.perf_counter() - t0
+        no_lookup = edits is K4_NO_LOOKUP
+        checks = {}
+        try:
+            for label, (fn, _) in cases.items():
+                if no_lookup and label.startswith("skybox"):
+                    continue
+                got = fn()
+                torch.cuda.synchronize()
+                if no_lookup:
+                    continue
+                if label.startswith("skybox"):
+                    d = (got - want[label]).abs()
+                    checks[label] = (
+                        round(float((got == want[label]).all(dim=1).float()
+                                    .mean()), 6),
+                        round(float((d <= 1e-6).all(dim=1).float().mean()),
+                              6))
+                    if checks[label][1] < 0.999:
+                        raise AssertionError(f"{label}: outside the rule "
+                                             f"{checks[label]}")
+                else:
+                    checks[label] = cs.compare(got, want[label],
+                                               exact=label == "K3+sky")[
+                        "bit_equal"]
+        except (AssertionError, RuntimeError) as e:
+            print(f"{name}: fails its check: {e}", flush=True)
+            failed.append(name)
+            continue
+        for label, (fn, reps) in cases.items():
+            if no_lookup and label.startswith("skybox"):
+                continue
+            times[i][label] += [round(cs.ms_per_launch(fn, 3, reps), 4)
+                                for _ in range(2)]
+        if i not in regs:
+            logs = ({**shipped_logs, **_build.build_logs} if not edits
+                    else _build.build_logs)
+            regs[i] = {
+                k: cs.ptxas_registers(logs.get(
+                    _build.KERNEL_SKY if k == "skybox" else
+                    _build.KERNEL_LINEAR if k == "K1+sky" else
+                    _build.KERNEL_TREE, ""), v)
+                for k, v in instances.items()}
+            text = cs.cuobjdump_sass(_build.library_path(_build.KERNEL_SKY))
+            sass[i] = None if no_lookup else cs.k4_sass(text)
+            if sass_dir is not None:
+                os.makedirs(sass_dir, exist_ok=True)
+                with open(os.path.join(sass_dir, f"k4_{i}.sass"), "w") as f:
+                    f.write(text)
+            if sky_fn is texture_sky:
+                # made and freed 100 times: no growth of the used bytes
+                _k4_cache.clear()
+                torch.cuda.synchronize()
+                free0, _ = torch.cuda.mem_get_info()
+                for _ in range(100):
+                    texture_sky(sky.data.bg_cube, sky.spec)
+                    _k4_cache.clear()
+                torch.cuda.synchronize()
+                free1, _ = torch.cuda.mem_get_info()
+                checks["texture objects made and freed 100 times, used "
+                       "bytes grew by"] = free0 - free1
+        print(f"{name}: built in {built:.1f} s; registers {regs[i]}; "
+              f"skybox SASS {sass[i]}; checks (bit-equal share, share within "
+              f"1e-6 / K1's and K3's bit-equal share) {checks}; ms so far "
+              f"{times[i]}; on {smi}", flush=True)
+    backgrounds.sky_buffer = ships
+    backgrounds._sky_last = None
+    _k4_cache.clear()
+    patched_sources()
+    tmp.cleanup()
+    print(f"K4's forms, the best of each one's runs, ms per call; on {smi}:")
+    for i, (name, _, _) in enumerate(forms):
+        if name in failed:
+            continue
+        print(f"  {name} (registers {regs[i]}): " + ", ".join(
+            f"{label} {min(v):.4f}" for label, v in times[i].items() if v))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("k1", "tree", "fold"))
+    ap.add_argument("--only", choices=("k1", "k4", "tree", "fold"))
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent tree, for K1's steps")
+                    help="a checkout of the parent tree, for K1's steps and "
+                         "K4's parent form")
     ap.add_argument("--sass-dir", default=None,
                     help="where to keep the SASS of each of K1's forms")
     args = ap.parse_args()
@@ -388,7 +827,9 @@ def main() -> int:
 
     if args.only in (None, "k1"):
         k1_variants(args.parent, smi, args.sass_dir)
-    if args.only == "k1":
+    if args.only in (None, "k4"):
+        k4_variants(args.parent, smi, args.sass_dir)
+    if args.only in ("k1", "k4"):
         print(f"on {smi}")
         return 0
 

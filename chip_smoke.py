@@ -46,7 +46,20 @@ forward through each kernel and backward through its plain version
 against the plain version alone, then two fits at 256x256 with 4 samples
 per pixel, which recover a perturbed diffuse row and ambient row with
 Adam at betas 0.8/0.99, and the same fits with ``fit``'s default
-optimiser beside them (phase 18). The tree kernel is held to the plain
+optimiser beside them (phase 18). Multi-device, with one rank: the CLI
+with ``--shard`` on cornell and the showcase (the same BMP as without
+it), with ``--shard-objects`` on the 1,006-object fields at 256x256 with
+4 samples per pixel, through the ring, whose every query launches the
+scan kernel (the expected count, and no render kernel), held to the
+fused kernels' image; a ring render under the sky, whose misses launch
+the skybox kernel; the ring's step (the scan kernel on a shard) on the
+4,006-object field whole and halved, and the shard's build (phase 19).
+Two ranks on the one card (gloo), this script started twice under the
+environment protocol: the multi-process CLI's BMP against the
+one-process CLI's, byte for byte; the ring at k = 2 against k = 1, to
+the bit, in intersection and in a render; the sharded fitting step
+against ``loss_and_grad``; the ring's hand-off timed (phase 20). The
+tree kernel is held to the plain
 version bit for bit in each of its four stack sizes; the table fold with
 the table staged in shared memory (1,006 objects) and read from device
 memory (4,006), on camera rays, which every thread folds for itself, and
@@ -934,6 +947,170 @@ def time_pair(kernel, plain, k_reps: int, p_reps: int):
     return min(times["kernel"]), min(times["plain"]), times
 
 
+def ring_k5_launches(spec, aa: int, k: int, max_lanes: int = 1 << 22) -> int:
+    """The scan kernel's launches on one rank of a ring render of k ranks
+    (render_image_ring): each closest-hit and shadow query of the plain
+    chain or DFS goes round the ring, k launches, and the image loop makes
+    this many sample_pixels calls."""
+    from raytrace_tpu_torch.render.integrator import (_s_p_launch,
+                                                      _wavefront_widest,
+                                                      sample_groups,
+                                                      tree_loop_stack)
+
+    s_launch, p_launch = _s_p_launch(spec, aa, max_lanes * k,
+                                     _wavefront_widest(spec))
+    per_rank = -(-spec.width * spec.height // k)
+    tiles = -(-per_rank // max(p_launch // k, 1))
+    calls = sum(g for _, _, g in sample_groups(spec, aa, s_launch)) * tiles
+    if spec.children_per_ray > 1:
+        m, levels, nodes, _ = tree_loop_stack(spec)
+        shaded = nodes - m ** (levels - 1)
+    else:
+        nodes = spec.max_depth + 2 if spec.children_per_ray else 1
+        shaded = min(nodes, spec.max_depth + 1)
+    return calls * (nodes + spec.n_lights * shaded) * k
+
+
+def host_ms(fn, reps: int) -> float:
+    """ms per call by the host clock, the device synchronised around the
+    run (for work that waits on the host, as a staged hand-off does)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+# the two-rank run (phase 20): what each rank renders
+RANKS = 2
+RING_FIELD = 4000               # the ring's field, and its rays:
+RING_RAYS = 1 << 21             # the camera rays of 1024x1024 x 2 spp
+RING_IMAGE = (256, 256, 2)      # the ring render: 1,006 objects, w, h, spp
+STEP_IMAGE = (64, 64, 2)        # the sharded step: cornell, w, h, spp
+# the sharded step against loss_and_grad: float32 sums over 4,096 pixels,
+# split over two ranks, in another order
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+
+
+def ring_rays(sc, device):
+    """(N, 3) origins and directions of the ring's camera rays."""
+    from raytrace_tpu_torch.render.integrator import primary_rays
+
+    lanes = pixel_lanes(1024, RING_RAYS // 2, 2, 1, device)
+    o, d, _, _ = primary_rays(sc.data, sc.spec, *lanes, SEED)
+    return torch.stack(list(o), 1), torch.stack(list(d), 1)
+
+
+def step_inputs(device):
+    """The sharded step's scene, pixels, samples and target."""
+    from raytrace_tpu_torch.scene.builder import load_scene_file
+
+    w, h, spp = STEP_IMAGE
+    sc = load_scene_file(SCENE, device=device)
+    spec = dataclasses.replace(sc.spec, width=w, height=h)
+    pix = torch.arange(w * h, device=device)
+    target = torch.full((w * h, 3), 0.25, device=device)
+    return sc.data, spec, pix % w, pix // w, torch.arange(
+        spp, device=device), target
+
+
+def rank_worker(out_dir: str) -> int:
+    """One rank of the two-rank run on the one card, joined through the
+    environment protocol that chip_smoke.py sets: the multi-process CLI,
+    the ring at k = 2 (intersection and a render), the sharded step, and
+    the ring's hand-off timed; its results saved for the parent."""
+    import torch.distributed as dist
+
+    from raytrace_tpu_torch import cli
+    from raytrace_tpu_torch.ops import _build
+    from raytrace_tpu_torch.optim import make_sharded_step
+    from raytrace_tpu_torch.parallel import mesh as meshlib
+    from raytrace_tpu_torch.parallel import ring
+    from raytrace_tpu_torch.scene.procedural import make_sphere_field
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    if not meshlib.maybe_init_distributed("cuda"):
+        raise RuntimeError("the rank's environment names no process group")
+    mesh = meshlib.make_mesh()
+    device, r = mesh.device, mesh.rank
+    res = {"rank": r, "ranks": mesh.ranks, "backend": dist.get_backend(),
+           "device": str(device)}
+    res["cli_rc"] = cli.main([SCENE, "-o", os.path.join(out_dir, "multi.bmp"),
+                              "--spp", "16", "-q", "--log-json",
+                              os.path.join(out_dir, f"log{r}.jsonl")])
+    sc = make_sphere_field(RING_FIELD, mix_materials=False, device=device)
+    ro, rd = ring_rays(sc, device)
+    t0 = time.perf_counter()
+    res["t"], res["obj"], res["hit"] = (
+        x.cpu() for x in ring.make_ring_intersector(sc.spec, mesh)(
+            sc.data, ro, rd))
+    res["intersect_s"] = time.perf_counter() - t0
+    tables, ids, n_sph = ring.shard_geometry(sc.data, sc.spec, mesh.ranks)
+    shard = ring.make_shard(tables[r].clone(), ids[r].clone(), n_sph)
+    res["shard_bytes"] = sum(x.numel() * x.element_size() for x in shard)
+    res["handoff_ms"] = host_ms(lambda: meshlib.ring_shift(shard, mesh), 10)
+    w, h, spp = RING_IMAGE
+    field = make_sphere_field(1000, mix_materials=False, width=w, height=h,
+                              device=device)
+    t0 = time.perf_counter()
+    res["ring_image"] = torch.from_numpy(ring.render_image_ring(
+        field, seed=SEED, spp=spp, mesh=mesh))
+    res["ring_render_s"] = time.perf_counter() - t0
+    data, spec, px, py, sids, target = step_inputs(device)
+    loss, grads = make_sharded_step(spec, mesh, SEED)(data, px, py, sids,
+                                                      target)
+    res["loss"] = loss.cpu()
+    res["grads"] = {f.name: getattr(grads, f.name).cpu()
+                    for f in dataclasses.fields(grads)}
+    res["launches"] = dict(_build.LAUNCHES)
+    dist.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
+    print(json.dumps({k: v for k, v in res.items()
+                      if isinstance(v, (int, float, str, dict))
+                      and k != "grads"}))
+    return 0
+
+
+def run_ranks(out_dir: str, timeout: float = 420.0) -> list:
+    """Start the ranks as processes of this script, under the environment
+    protocol, and wait for them; each must exit 0 in time.  Returns their
+    saved results."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RAYTRACE_TPU_")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker", out_dir],
+        env=dict(env, RAYTRACE_TPU_COORDINATOR=f"localhost:{port}",
+                 RAYTRACE_TPU_NUM_PROCESSES=str(RANKS),
+                 RAYTRACE_TPU_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(RANKS)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        print(f"    rank {r} (exit {p.returncode}): {out.strip()[-3000:]}")
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+            for r in range(RANKS)]
+
+
 def main() -> int:
     # ---- phase 1: device ----
     if not torch.cuda.is_available():
@@ -1273,6 +1450,7 @@ def main() -> int:
 
     # ---- phase 11: the large instances vs the plain path ----
     lin, lin_tb = fields[1000]
+    field4k = fields[4000][0]   # the ring's field (phases 19-20)
     mixed = make_sphere_field(1000, mix_materials=True, device=device)
     lit_large = build_scene(dsl.parse(sphere_field_source(
         1000, mix_materials=False).replace("lights: [ ]", """lights: [
@@ -1643,21 +1821,6 @@ def main() -> int:
               f"busy {done['device_busy']:.3f} of that), launches "
               f"{launches}, mean radiance {done['mean_radiance']:.6f}, BMP "
               f"{size} B, on {smi}")
-    # the skybox kernel through its wrapper, on the primary rays of the
-    # cornell launch: a direct call, since no entry point of the port
-    # reaches this kernel (the renders above look the cube up inside the
-    # render kernels)
-    rd = coherent
-    for k in megakernel.KERNELS:
-        megakernel.LAUNCHES[k] = 0
-    colors = backgrounds.background_color(sky.data, sky.spec, rd)
-    torch.cuda.synchronize()
-    sky_launches[k_sky] = megakernel.LAUNCHES[k_sky]
-    if not torch.isfinite(colors).all():
-        raise AssertionError("background_color gave a non-finite color")
-    print(f"    background_color, called directly on the {rd.shape[0]} "
-          f"primary rays of the cornell launch: launches "
-          f"{dict(megakernel.LAUNCHES)}, mean {float(colors.mean()):.6f}")
 
     # ---- phase 17: the sky instances at 2,097,152 lanes per launch ----
     print(f"[17, {at()}] "
@@ -1885,11 +2048,188 @@ def main() -> int:
     fit_check("lit mirror scene through the linear kernel (lights, mirror, "
               "2 lens samples)", lit, k_lin, (1, 0),
               ([0.5, 0.5, 0.45], [0.2, 0.15, 0.1]), 100.0, 0.05)
+
+    # ---- phase 19: one rank: --shard, --shard-objects (the ring, K5) ----
+    from raytrace_tpu_torch.parallel import ring as ringlib
+    from raytrace_tpu_torch.parallel.mesh import Mesh
+    from raytrace_tpu_torch.render.integrator import render_image
+
+    print(f"[19, {at()}] one rank on the card: the CLI with --shard, then "
+          f"the ring of --shard-objects (K5 per query, misses through "
+          f"skybox.cu under the sky):")
+    one_rank = Mesh(device)
+
+    def cli_bytes(path, args, out):
+        if cli.main([path, "-o", out, *args, "--device", "cuda", "-q"]) != 0:
+            raise AssertionError(f"CLI {args} failed")
+        with open(out, "rb") as f:
+            return f.read()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, path, args in (("cornell", SCENE, ["--spp", "16"]),
+                                  ("showcase", SHOWCASE, [])):
+            t0 = time.perf_counter()
+            plain = cli_bytes(path, args, os.path.join(tmp, "plain.bmp"))
+            t1 = time.perf_counter()
+            sharded = cli_bytes(path, [*args, "--shard"],
+                                os.path.join(tmp, "shard.bmp"))
+            t2 = time.perf_counter()
+            print(f"    {label}: --shard BMP {len(sharded)} B, equal to the "
+                  f"plain CLI's byte for byte: {sharded == plain} "
+                  f"({t2 - t1:.2f} s against {t1 - t0:.2f} s wall)")
+            if sharded != plain:
+                raise AssertionError(f"{label}: --shard changed the BMP")
+        ring_launches = {}
+        for label, mix, kname in (("linear", False, k_lin),
+                                  ("mixed", True, k_tree)):
+            path = os.path.join(tmp, f"ring_{label}.txt")
+            with open(path, "w") as f:
+                f.write(sphere_field_source(1000, mix_materials=mix,
+                                            width=256, height=256,
+                                            antialias=4))
+            sc = load_scene_file(path, device=device)
+            want_k5 = ring_k5_launches(sc.spec, 4, 1)
+            for k in megakernel.KERNELS:
+                megakernel.LAUNCHES[k] = 0
+            t0 = time.perf_counter()
+            cli_bytes(path, ["--shard-objects"],
+                      os.path.join(tmp, "ring.bmp"))
+            wall = time.perf_counter() - t0
+            rose = dict(megakernel.LAUNCHES)
+            ring_launches[label] = rose[k_scan]
+            print(f"    --shard-objects, the {label} field at 256x256 x 4 "
+                  f"spp: launches {rose} in {wall:.2f} s wall (K5: "
+                  f"{want_k5} expected)")
+            if rose != {k_lin: 0, k_tree: 0, k_scan: want_k5, k_sky: 0}:
+                raise AssertionError(f"the ring's launches {rose}")
+            t0 = time.perf_counter()
+            ring_img = ringlib.render_image_ring(sc, seed=SEED, mesh=one_rank)
+            t1 = time.perf_counter()
+            fused = render_image(sc, seed=SEED)
+            t2 = time.perf_counter()
+            print(f"    render_image_ring {t1 - t0:.3f} s against the fused "
+                  f"{kname} (large) {t2 - t1:.3f} s per image; on {smi}; "
+                  f"the ring's image vs the fused kernel's, per pixel:")
+            compare(torch.from_numpy(ring_img.reshape(-1, 3).T),
+                    torch.from_numpy(fused.reshape(-1, 3).T))
+    scan_launches = ring_launches["linear"]
+    # a skybox ring render: the linear field opened under the sky, its
+    # misses through skybox.cu, held to K1-large+sky
+    sc = sky_scenes["field_linear"][1]
+    sc = dataclasses.replace(sc, spec=dataclasses.replace(
+        sc.spec, width=256, height=256))
+    for k in megakernel.KERNELS:
+        megakernel.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    ring_img = ringlib.render_image_ring(sc, seed=SEED, spp=4, mesh=one_rank)
+    t1 = time.perf_counter()
+    rose = dict(megakernel.LAUNCHES)
+    sky_launches[k_sky] = rose[k_sky]
+    if not (rose[k_sky] > 0 and rose[k_scan] > 0 and rose[k_lin] == 0
+            and rose[k_tree] == 0):
+        raise AssertionError(f"the sky ring's launches {rose}")
+    fused = render_image(sc, seed=SEED, spp=4)
+    t2 = time.perf_counter()
+    print(f"    render_image_ring, the linear field under the sky, 256x256 x "
+          f"4 spp: launches {rose}, {t1 - t0:.3f} s against the fused "
+          f"{t2 - t1:.3f} s; vs the fused kernel, per pixel:")
+    compare(torch.from_numpy(ring_img.reshape(-1, 3).T),
+            torch.from_numpy(fused.reshape(-1, 3).T))
+    # K5 per ring step on the 4,006-object field: the whole table against
+    # every ray (k = 1), and each half against half the rays (k = 2); the
+    # shard's bounds and fold buffer, built once per shard
+    sc4 = field4k
+    ro, rd = ring_rays(sc4, device)
+    for k in (1, 2):
+        tables, ids, n_sph = ringlib.shard_geometry(sc4.data, sc4.spec, k)
+        for i in range(k):
+            shard = ringlib.make_shard(tables[i], ids[i], n_sph)
+            build_ms = min(once_ms(lambda: ringlib.make_shard(
+                tables[i], ids[i], n_sph))[0] for _ in range(3))
+            parts = intersect_scan.fold_ids_bounds(shard.fold, shard.table)
+            fold_ms = min(once_ms(lambda: intersect_scan.fold_buffer(
+                shard.table, parts[0], n_sph, parts[1]))[0]
+                for _ in range(3))
+            n_r = RING_RAYS // k
+            o = V3(*ro[i * n_r:(i + 1) * n_r].unbind(1))
+            d_ = V3(*rd[i * n_r:(i + 1) * n_r].unbind(1))
+            step_ms = min(ms_per_launch(lambda: ringlib._shard_hit(
+                shard, n_sph, o, d_), 2, 10) for _ in range(2))
+            print(f"    ring step, k = {k}, shard {i} ({tables.shape[1]} "
+                  f"rows, {sum(x.numel() * x.element_size() for x in shard)} "
+                  f"B with its fold buffer), {n_r} camera rays: "
+                  f"K5 {step_ms:.4f} ms; the shard built in {build_ms:.3f} "
+                  f"ms, its fold buffer alone {fold_ms:.3f} ms; on {smi}; "
+                  f"the step vs the plain scan of the shard:")
+            stats = compare_scan(
+                ringlib._shard_hit(shard, n_sph, o, d_),
+                intersect_scan.scan_hit_reference(shard.table, parts[0],
+                                                  n_sph, o, d_))
+            max_err[k_scan] = max(max_err[k_scan], stats["max_abs_err"])
+
+    # ---- phase 20: two ranks on the one card ----
+    print(f"[20, {at()}] two ranks on the one card (gloo: NCCL takes one "
+          f"card per rank), started as processes of this script under the "
+          f"environment protocol:")
+    del ro, rd
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(tmp)
+        print(f"    both ranks done in {time.perf_counter() - t0:.1f} s")
+        with open(os.path.join(tmp, "multi.bmp"), "rb") as f:
+            multi = f.read()
+        one = cli_bytes(SCENE, ["--spp", "16"], os.path.join(tmp, "one.bmp"))
+        print(f"    the multi-process CLI's BMP ({len(multi)} B) equals the "
+              f"one-process CLI's byte for byte: {multi == one}")
+        if multi != one or any(r["cli_rc"] for r in ranks):
+            raise AssertionError("the multi-process BMP differs")
+    ring1 = ringlib.make_ring_intersector(field4k.spec, one_rank)(
+        field4k.data, *ring_rays(field4k, device))
+    for r in ranks:
+        same = [torch.equal(a.cpu(), r[n]) for a, n in zip(
+            ring1, ("t", "obj", "hit"))]
+        print(f"    rank {r['rank']} ({r['backend']}, {r['device']}): the "
+              f"ring at k = 2 on {RING_RAYS} rays of the 4,006-object field "
+              f"(t, obj, hit) equal to k = 1 to the bit: {same}; hand-off "
+              f"of a {r['shard_bytes']} B shard {r['handoff_ms']:.3f} ms "
+              f"per step (staged through the host)")
+        if not all(same):
+            raise AssertionError("the ring at k = 2 differs from k = 1")
+    w, h, spp = RING_IMAGE
+    field = make_sphere_field(1000, mix_materials=False, width=w, height=h,
+                              device=device)
+    t0 = time.perf_counter()
+    img1 = torch.from_numpy(ringlib.render_image_ring(
+        field, seed=SEED, spp=spp, mesh=one_rank))
+    one_s = time.perf_counter() - t0
+    for r in ranks:
+        print(f"    rank {r['rank']}: ring render {w}x{h} x {spp} spp at "
+              f"k = 2 {r['ring_render_s']:.3f} s (k = 1 here {one_s:.3f} s), "
+              f"equal to k = 1 to the bit: "
+              f"{torch.equal(r['ring_image'], img1)}")
+        if not torch.equal(r["ring_image"], img1):
+            raise AssertionError("the ring render at k = 2 differs")
+    data, spec_s, px, py, sids, target = step_inputs(device)
+    loss0, g0 = optim.loss_and_grad(data, spec_s, px, py, sids, SEED, target)
+    for r in ranks:
+        worst = max(float(((r["grads"][n] - getattr(g0, n).cpu()).abs()
+                           - STEP_ATOL - STEP_RTOL
+                           * getattr(g0, n).cpu().abs()).max())
+                    for n in r["grads"])
+        loss_rel = abs(float(r["loss"]) - float(loss0)) / abs(float(loss0))
+        print(f"    rank {r['rank']}: make_sharded_step loss "
+              f"{float(r['loss']):.6f} against loss_and_grad's "
+              f"{float(loss0):.6f} (relative {loss_rel:.2e}); every gradient "
+              f"within rtol {STEP_RTOL}, atol {STEP_ATOL}: {worst <= 0} "
+              f"(largest excess {worst:.2e}); launches {r['launches']}")
+        if loss_rel > STEP_RTOL or worst > 0:
+            raise AssertionError("the sharded step differs")
     sky_tmp.cleanup()
 
 
     launches = {k_lin: lin_launches, k_tree: tree_launches,
-                k_scan: split_launches, **large_launches, **sky_launches}
+                k_scan: scan_launches, **large_launches, **sky_launches}
     # the pallas_call of the render kernel, in its linear regime, its
     # fan-out regimes (radiance_tree_v traced in _kernel, :424, and
     # _tree_loop_scratch, :509) and its large regimes (the in-kernel table
@@ -1902,12 +2242,13 @@ def main() -> int:
                 k_lin_large: fold, k_tree_large: fold,
                 k_scan: "raytrace_tpu/ops/intersect_pallas.py:302",
                 k_sky: call, k_lin_sky: call, k_tree_sky: call}
-    # what launched each row's count.  No entry point of the port reaches
-    # the scan kernel or the skybox kernel yet: their counts are one call
-    # of their wrappers, and the skybox lookup's launches on the CLI's
-    # path are those of the (sky) rows, whose kernels call it inline
-    direct = {k_scan: "one call of radiance_lanes_split (no entry point)",
-              k_sky: "one call of background_color (no entry point)"}
+    # what launched each row's count: the scan kernel's, the CLI with
+    # --shard-objects (the ring) on the 1,006-object linear field; the
+    # skybox kernel's, a ring render under the sky (the skybox lookup's
+    # launches on the plain CLI's path are those of the (sky) rows, whose
+    # kernels call it inline)
+    direct = {k_scan: "the CLI with --shard-objects (render_image_ring)",
+              k_sky: "render_image_ring under the sky"}
     for k in rows:
         if launches[k] < 1:
             raise AssertionError(f"{k} was launched no time by "
@@ -1929,4 +2270,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

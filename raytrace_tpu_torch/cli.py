@@ -7,7 +7,12 @@ loaded from the image files it names, relative to the scene file), and
 a machine without a usable GPU is an error, never a silent CPU render.
 ``--device cpu`` renders every scene through the kernels' plain
 version, ``--f64`` (float64, CPU only, as in the JAX package's CLI) and
-fan-out trees of any depth included.
+fan-out trees of any depth included.  ``--shard`` shards the pixels over
+the ranks of the process group, ``--shard-objects`` the objects too (a
+ring, whose steps are the CUDA scan kernel).  Run as several processes
+under the environment protocol of
+:func:`raytrace_tpu_torch.parallel.mesh.maybe_init_distributed`, each
+rank renders its band of rows into the one BMP.
 
     python -m raytrace_tpu_torch.cli examples/materials_showcase.txt \\
         -o out.bmp --device cuda
@@ -24,8 +29,6 @@ import numpy as np
 
 # flags of the JAX CLI whose feature is not in the port yet
 _UNPORTED = {
-    "shard": "--shard is not ported yet (ROADMAP item 13)",
-    "shard_objects": "--shard-objects is not ported yet (ROADMAP item 13)",
     "profile": "--profile is not ported yet (ROADMAP item 5)",
 }
 
@@ -50,9 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-lanes", type=int, default=1 << 22,
                    help="lane budget per launch (memory knob)")
     p.add_argument("--shard", action="store_true",
-                   help="shard pixels over devices (not ported yet)")
+                   help="shard pixels over the process group's ranks")
     p.add_argument("--shard-objects", action="store_true",
-                   help="ring-shard the scene's objects (not ported yet)")
+                   help="ring-shard the scene's objects over the ranks "
+                        "(for scenes too large to replicate); implies "
+                        "pixel sharding")
     p.add_argument("--checkpoint", default=None,
                    help="npz path for resumable rendering state")
     p.add_argument("--profile", default=None,
@@ -72,11 +77,22 @@ def main(argv=None) -> int:
             print(f"error: {msg}", file=sys.stderr)
             return 2
     if args.f64 and args.device == "cuda":
-        print("error: --f64 on --device cuda is not ported yet (ROADMAP "
-              "item 12); use --device cpu", file=sys.stderr)
+        print("error: --f64 renders on the CPU, as in the reference: use "
+              "--device cpu (ROADMAP item 12)", file=sys.stderr)
         return 2
 
     import torch
+
+    from raytrace_tpu_torch.parallel import mesh as meshlib
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda, but PyTorch sees no CUDA device",
+              file=sys.stderr)
+        return 1
+    # multi-process bring-up before any other device query; a no-op
+    # unless the environment configures a process group
+    meshlib.maybe_init_distributed(args.device)
+    multiproc = meshlib.process_count() > 1
 
     from raytrace_tpu_torch import color as colorlib
     from raytrace_tpu_torch.io.bmp import write_bmp
@@ -87,11 +103,9 @@ def main(argv=None) -> int:
     from raytrace_tpu_torch.scene.dsl import SceneSyntaxError
     from raytrace_tpu_torch.utils.logging import RenderLog
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("error: --device cuda, but PyTorch sees no CUDA device",
-              file=sys.stderr)
-        return 1
-    device = torch.device(args.device)
+    device = (meshlib.rank_device(meshlib.process_index())
+              if multiproc and args.device == "cuda"
+              else torch.device(args.device))
     log = RenderLog(json_path=args.log_json, quiet=args.quiet)
 
     try:
@@ -129,9 +143,34 @@ def main(argv=None) -> int:
 
     launches0 = sum(megakernel.LAUNCHES.values())
     t0 = time.perf_counter()
-    img = render_image(scene, seed=args.seed, spp=spp,
-                       max_lanes=args.max_lanes, progress=progress,
-                       checkpoint=args.checkpoint)
+    if multiproc:
+        # each rank renders and writes its band of rows into the one BMP;
+        # the encode and write are part of the render
+        from raytrace_tpu_torch.parallel.multihost import (
+            render_to_bmp_multihost)
+        render_to_bmp_multihost(scene, args.output, seed=args.seed, spp=spp,
+                                max_lanes=args.max_lanes, progress=progress)
+        dt = time.perf_counter() - t0
+        if not args.quiet:
+            print("", file=sys.stderr)
+        log.event("render_done", seconds=round(dt, 3),
+                  primary_samples=n_primary,
+                  samples_per_sec=round(n_primary / dt),
+                  rays_per_sec=round(n_primary * (spec.max_depth + 2) / dt),
+                  kernel_launches=sum(megakernel.LAUNCHES.values())
+                  - launches0,
+                  processes=meshlib.process_count())
+        return 0
+    if args.shard_objects:
+        from raytrace_tpu_torch.parallel.ring import render_image_ring
+        render = render_image_ring
+    elif args.shard:
+        from raytrace_tpu_torch.parallel.tile import render_image_sharded
+        render = render_image_sharded
+    else:
+        render = render_image
+    img = render(scene, seed=args.seed, spp=spp, max_lanes=args.max_lanes,
+                 progress=progress, checkpoint=args.checkpoint)
     dt = time.perf_counter() - t0
     if not args.quiet:
         print("", file=sys.stderr)

@@ -23,6 +23,12 @@ SRGB_VALUES = _srgb_decode_f64(np.arange(256, dtype=np.float64) / 255.0)
 SRGB_AVERAGE = 0.5 * (SRGB_VALUES[:-1] + SRGB_VALUES[1:])
 
 
+def significance(color: torch.Tensor) -> torch.Tensor:
+    """``r + g + b`` over the trailing color axis (color.rs:637-639), the
+    measure that gates shading work against the minimum significance."""
+    return torch.sum(color, dim=-1)
+
+
 def to_srgb(val: torch.Tensor) -> torch.Tensor:
     """Encode linear values to sRGB bytes exactly like color.rs:593-600:
     the smallest ``i`` with ``val < SRGB_AVERAGE[i]``, else 255.  That is

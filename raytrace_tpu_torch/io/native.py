@@ -48,8 +48,17 @@ def _load():
             ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
             ctypes.c_int, ctypes.c_int]
         lib.rt_write_bmp.restype = ctypes.c_int
+        lib.rt_encode_srgb.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int64]
+        lib.rt_encode_srgb.restype = None
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the native library loads (or builds)."""
+    return _load() is not None
 
 
 def write_bmp_native(path: str, linear_rgb: np.ndarray) -> bool:
@@ -68,3 +77,16 @@ def write_bmp_native(path: str, linear_rgb: np.ndarray) -> bool:
         raise OSError(f"native BMP write failed with code {rc}: {path}")
     return True
 
+
+def encode_srgb_native(linear: np.ndarray) -> np.ndarray | None:
+    """sRGB-encode a float array with the native encoder, as uint8 of the
+    same shape (None if the library is unavailable)."""
+    lib = _load()
+    if lib is None:
+        return None
+    flat = np.ascontiguousarray(linear, np.float32).ravel()
+    out = np.empty(flat.shape, np.uint8)
+    lib.rt_encode_srgb(
+        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), flat.size)
+    return out.reshape(np.shape(linear))

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from raytrace_tpu_torch.ops import _build
+from raytrace_tpu_torch.ops import _build, intersect
 from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.scene.schema import BG_SKYBOX, SceneData, SceneSpec
@@ -40,13 +40,21 @@ FACE_PX, FACE_NX, FACE_PY, FACE_NY, FACE_PZ, FACE_NZ = range(6)
 
 
 def background_color_v(data: SceneData, spec: SceneSpec, rd: V3) -> V3:
-    """Background radiance for miss rays, component layout; plain
-    PyTorch on every device (the integrators' call at each node)."""
+    """Background radiance for miss rays, component layout (the
+    integrators' call at each node): plain PyTorch on every device, except
+    that while a ring context is installed
+    (:func:`raytrace_tpu_torch.ops.intersect.set_ring_ctx`) a skybox goes
+    through :func:`background_color`, the skybox kernel on CUDA tensors."""
     if spec.bg_type != BG_SKYBOX:
         zero = torch.zeros_like(rd.x)
         return V3(zero + data.bg_color[0], zero + data.bg_color[1],
                   zero + data.bg_color[2])
-    out = _skybox(data.bg_cube, spec, torch.stack([rd.x, rd.y, rd.z], -1))
+    dirs = torch.stack([rd.x, rd.y, rd.z], -1)
+    if intersect.ring_ctx() is not None:
+        out = background_color(data, spec,
+                               dirs.reshape(-1, 3)).reshape(dirs.shape)
+    else:
+        out = _skybox(data.bg_cube, spec, dirs)
     return V3(out[..., 0], out[..., 1], out[..., 2])
 
 
@@ -68,8 +76,8 @@ def background_color(data: SceneData, spec: SceneSpec,
         raise ValueError(f"no skybox kernel for device {rd.device}")
     if rd.dtype != torch.float32 or cube.dtype != torch.float32:
         raise NotImplementedError(
-            "the skybox kernel is float32: call _skybox for float64 "
-            "directions (double kernels: ROADMAP item 12)")
+            "the skybox kernel is float32; float64 renders on CPU "
+            "tensors, as in the reference (ROADMAP item 12)")
     return kernel_forward(lambda c, d: (_launch(c, spec, d),),
                           lambda c, d: (_skybox(c, spec, d),), cube, rd)[0]
 

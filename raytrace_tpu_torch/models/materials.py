@@ -73,12 +73,11 @@ class Child(NamedTuple):
 
 
 def shade(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, hit: HitRec,
-          sig, live, k1, k2, depth: int, scan_kernel: bool = False):
+          sig, live, k1, k2, depth: int):
     """Shade one level.  Returns ``(emit: V3, children: list[Child])``:
     the local radiance of each lane (ambient plus direct light; the
     background of miss lanes is the integrator's) and the child-ray
-    slots (none past ``max_depth``).  ``scan_kernel`` is passed on to the
-    shadow queries (:func:`occluded_v`)."""
+    slots (none past ``max_depth``)."""
     dtype = ro.x.dtype
     diffuse, specular = hit.diffuse, hit.specular
     exponent, ior, msamples = hit.exponent, hit.ior, hit.msamples
@@ -145,7 +144,7 @@ def shade(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, hit: HitRec,
         ldir, sqr, has_range = light_dir_and_sq_range(data, lt, li, pt, k1,
                                                       k2, dtype)
         blocked = occluded_v(data, spec, pt + ldir.scale(_OFFSET), ldir, sqr,
-                             has_range, scan_kernel)
+                             has_range)
         vis = shaded & ~blocked
         lr, lg, lb = (data.light_color[li, 0], data.light_color[li, 1],
                       data.light_color[li, 2])

@@ -5,11 +5,13 @@ PyTorch counterpart of :mod:`raytrace_tpu.ops.intersect`, in its two
 regimes.  Up to ``LARGE_SCENE_THRESHOLD`` live objects: a running
 minimum over the objects in scene order.  Above it: a scan of the
 unified primitive table (:func:`_packed_tables`; spheres, then planes,
-in chunks of 32 rows), by the plain PyTorch scan or, when the caller
-asks for it, by the CUDA scan kernel
-(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  Either way the winner's
-row is one indexed load from the per-object table; shadow rays ask only
-whether any object is hit in range.
+in chunks of 32 rows), by the plain PyTorch scan.  Either way the
+winner's row is one indexed load from the per-object table; shadow rays
+ask only whether any object is hit in range.  While a ring context is
+installed (:func:`set_ring_ctx`, by an object-sharded render of
+:mod:`raytrace_tpu_torch.parallel.ring`), both queries go round the
+ring of object shards instead, whose steps are the CUDA scan kernel on
+CUDA tensors; the scene's own object leaves are then never read.
 
 Semantics kept exactly:
 
@@ -228,43 +230,70 @@ def scene_tables(data: SceneData, spec: SceneSpec) -> SceneTables:
                        object_table(data, spec))
 
 
-def _scan_all_objects(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
-                      scan_kernel: bool):
-    """``(t_best, obj, hit)`` over all objects of a large scene, for lanes
-    of any shape (the scan sees them flat): the plain scan, or with
-    ``scan_kernel`` the wrapper of the CUDA scan kernel (which on CPU
-    tensors is the plain scan too).  Miss lanes carry ``obj = 0``."""
-    tb = scene_tables(data, spec)
+def flat_scan(scan, ro: V3, rd: V3):
+    """``(t_best, obj, hit)`` of ``scan`` (a function of (N,) rays that
+    returns ``(t_best, global id, hit)``) on lanes of any shape, with
+    ``obj = 0`` on miss lanes."""
     shape = ro.x.shape
     ro, rd = (V3(*(c.reshape(-1) for c in v)) for v in (ro, rd))
-    if scan_kernel:
-        t_best, gid, hit = intersect_scan.scan_hit(
-            tb.table, tb.ids, tb.n_sph_pad, ro, rd, tb.bounds)
-    else:
-        t_best, gid, hit = intersect_scan.scan_hit_reference(
-            tb.table, tb.ids, tb.n_sph_pad, ro, rd)
+    t_best, gid, hit = scan(ro, rd)
     obj = torch.where(hit, gid, 0).to(torch.int64)
     return t_best.reshape(shape), obj.reshape(shape), hit.reshape(shape)
 
 
-def _closest_hit_scanned(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
-                         scan_kernel: bool = False) -> HitRec:
-    """Large-scene closest hit: the scan, then one indexed load of the
-    winner's row (object 0's on a miss, with a finite ``ior`` of 1)."""
-    t_best, obj, hit = _scan_all_objects(data, spec, ro, rd, scan_kernel)
-    rows = scene_tables(data, spec).rows[obj]
+def _scan_all_objects(data: SceneData, spec: SceneSpec, ro: V3, rd: V3):
+    """``(t_best, obj, hit)`` over all objects of a large scene by the
+    plain scan."""
+    tb = scene_tables(data, spec)
+    return flat_scan(lambda o, d: intersect_scan.scan_hit_reference(
+        tb.table, tb.ids, tb.n_sph_pad, o, d), ro, rd)
+
+
+def large_scene_rec(rows, t_best, obj, hit, ro: V3, rd: V3) -> HitRec:
+    """A large scene's hit record from the winners' rows (object 0's on a
+    miss), with a finite ``ior`` of 1 on misses."""
     rec = hitrec_from_cols(lambda j: rows[..., j], t_best, obj, hit, ro, rd)
     return rec._replace(ior=torch.where(hit, rec.ior, 1.0))
 
 
-def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
-                scan_kernel: bool = False) -> HitRec:
-    """Closest-hit query plus the winner's material row (scene.rs:247-249).
-    ``scan_kernel`` sends a large scene's scan through
-    :func:`intersect_scan.scan_hit`; small scenes ignore it."""
+def _closest_hit_scanned(data: SceneData, spec: SceneSpec, ro: V3,
+                         rd: V3) -> HitRec:
+    """Large-scene closest hit: the scan, then one indexed load of the
+    winner's row."""
+    t_best, obj, hit = _scan_all_objects(data, spec, ro, rd)
+    return large_scene_rec(scene_tables(data, spec).rows[obj], t_best, obj,
+                           hit, ro, rd)
+
+
+# The ring context of an object-sharded render
+# (raytrace_tpu_torch.parallel.ring.RingContext), or None.  While one is
+# installed, closest_hit and occluded_v answer through the ring, before
+# anything reads the scene's object leaves (which the ring render replaces
+# with one-row dummies).
+_RING_CTX = None
+
+
+def set_ring_ctx(ctx):
+    """Install a ring context; returns the previous one (for restore)."""
+    global _RING_CTX
+    prev = _RING_CTX
+    _RING_CTX = ctx
+    return prev
+
+
+def ring_ctx():
+    """The installed ring context, or None."""
+    return _RING_CTX
+
+
+def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3) -> HitRec:
+    """Closest-hit query plus the winner's material row (scene.rs:247-249)."""
+    if _RING_CTX is not None:
+        from raytrace_tpu_torch.parallel import ring
+        return ring.ring_closest_hit(_RING_CTX, ro, rd)
     live = spec.live_objects()
     if len(live) > LARGE_SCENE_THRESHOLD:
-        return _closest_hit_scanned(data, spec, ro, rd, scan_kernel)
+        return _closest_hit_scanned(data, spec, ro, rd)
     like = ro.x
     t_best = torch.full_like(like, float("inf"))
     hit = torch.zeros(like.shape, dtype=torch.bool, device=like.device)
@@ -294,14 +323,17 @@ def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
 
 
 def occluded_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, sq_range,
-               has_range: bool, scan_kernel: bool = False) -> torch.Tensor:
+               has_range: bool) -> torch.Tensor:
     """Shadow query (raytrace.rs:43-50): does any live object hit the ray,
     within range when the light has one (``t*t < sq_range``)?  Any-hit,
     so the small regime needs no running minimum; the large one asks the
     scan for the closest hit, which is in range iff any hit is."""
+    if _RING_CTX is not None:
+        from raytrace_tpu_torch.parallel import ring
+        return ring.ring_occluded(_RING_CTX, ro, rd, sq_range, has_range)
     live = spec.live_objects()
     if len(live) > LARGE_SCENE_THRESHOLD:
-        t_best, _, hit = _scan_all_objects(data, spec, ro, rd, scan_kernel)
+        t_best, _, hit = _scan_all_objects(data, spec, ro, rd)
         return hit & (t_best * t_best < sq_range) if has_range else hit
     a = dot(rd, rd)
     inv2a = safe_inv2a(a)

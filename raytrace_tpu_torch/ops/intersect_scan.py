@@ -108,6 +108,15 @@ def fold_buffer(table, ids, n_sph_pad: int, bounds) -> torch.Tensor:
                       bounds.contiguous().view(torch.int32).reshape(-1)])
 
 
+def fold_ids_bounds(fold, table):
+    """The ids and the chunk bounds that :func:`fold_buffer` holds, as
+    views into ``fold`` (``table`` is the table it was made from)."""
+    n_rows = table.shape[0]
+    at = n_rows * table.element_size()   # the rows' words
+    return (fold[at:at + n_rows],
+            fold[at + n_rows:].view(torch.float32).reshape(-1, 4))
+
+
 def fold_bytes(n_chunks: int) -> int:
     """Bytes of the fold buffer of a table of ``n_chunks`` chunks."""
     return n_chunks * (OBJ_CHUNK * FOLD_ROW_BYTES + FOLD_CHUNK_BYTES)
@@ -232,12 +241,15 @@ def _lib() -> ctypes.CDLL:
     return _lib_ready
 
 
-def scan_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3, bounds=None):
+def scan_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3, bounds=None,
+             fold=None):
     """``(t_best, global id, hit)`` of (N,) float32 rays against the
     unified table: ``table`` (C*32, 4) float32 with the spheres in rows
     ``[0, n_sph_pad)`` and the planes after, ``ids`` (C*32,) int32 global
     object id per row (-1 on pad rows).  ``bounds`` are the chunks'
-    bounding spheres, computed here when not given.  On CUDA tensors this
+    bounding spheres, computed here when not given; ``fold`` is the
+    table's :func:`fold_buffer` (with those bounds), taken from
+    :func:`cached_fold_buffer` when not given.  On CUDA tensors this
     launches the kernel or raises; on CPU tensors it runs
     :func:`scan_hit_reference`.  ``t_best`` is differentiable in the
     table and the rays, through the plain scan without culling; ids and
@@ -267,19 +279,25 @@ def scan_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3, bounds=None):
     elif (bounds.dtype != torch.float32 or bounds.shape != (n_chunks, 4)
           or bounds.device != device):
         raise ValueError("bounds must be (C, 4) float32 on the rays' device")
+    if fold is not None and (fold.dtype != torch.int32
+                             or fold.shape != (fold_bytes(n_chunks) // 4,)
+                             or fold.device != device):
+        raise ValueError("fold must be the table's int32 fold buffer on the "
+                         "rays' device")
     ids, bounds = ids.contiguous(), bounds.contiguous()
     return kernel_forward(
-        lambda tab, *r: _launch(tab, ids, bounds, n_sph_pad, r),
+        lambda tab, *r: _launch(tab, ids, bounds, n_sph_pad, r, fold),
         lambda tab, *r: scan_hit_reference(tab, ids, n_sph_pad, V3(*r[:3]),
                                            V3(*r[3:])),
         table, *rays)
 
 
-def _launch(table, ids, bounds, n_sph_pad: int, rays):
+def _launch(table, ids, bounds, n_sph_pad: int, rays, fold=None):
     device = table.device
     n = rays[0].shape[0]
     n_chunks = table.shape[0] // OBJ_CHUNK
-    fold = cached_fold_buffer(table, ids, n_sph_pad, bounds)
+    if fold is None:
+        fold = cached_fold_buffer(table, ids, n_sph_pad, bounds)
     rays = [t.detach().contiguous() for t in rays]
     if fold.data_ptr() % 16:
         raise ValueError("the fold buffer must be 16-byte aligned")

@@ -13,8 +13,9 @@ and backward through its plain PyTorch version
 (:mod:`raytrace_tpu_torch.ops.kernel_grad`); the seed is a Python int, so
 varying it per step costs nothing.  A float64 scene on CPU tensors takes
 the plain version both ways; on CUDA tensors it raises (the kernels are
-float32).  The sharded step (gradients all-reduced over devices) comes
-with the multi-device port.
+float32).  :func:`make_sharded_step` shards the pixels over the ranks of
+a :class:`raytrace_tpu_torch.parallel.mesh.Mesh` and all-reduces the
+loss and the gradients (the data-parallel gradient sync).
 """
 
 from __future__ import annotations
@@ -57,6 +58,36 @@ def loss_and_grad(data: SceneData, spec: SceneSpec, px, py, sample_ids,
     return loss.detach(), SceneData(**{
         n: grads[n] if grads.get(n) is not None else torch.zeros_like(t)
         for n, t in leaves.items()})
+
+
+def make_sharded_step(spec: SceneSpec, mesh, seed: int,
+                      trainable: SceneData | None = None):
+    """A training step with the pixels sharded over ``mesh``'s ranks.
+
+    The returned ``step(data, px, py, sample_ids, target)`` takes the whole
+    pixel set (its count divisible by the ranks) and the replicated scene;
+    each rank runs :func:`loss_and_grad` on its contiguous shard of the
+    pixels and target rows, then the loss and every gradient leaf are
+    summed over the ranks.  The loss is a sum over pixels, so every rank
+    ends with the single-device step's loss and gradients (up to the order
+    of the sum).  In the reference the replicated input's cotangent is
+    summed implicitly; here the all-reduce is explicit."""
+    from raytrace_tpu_torch.parallel.mesh import all_reduce_sum_
+
+    def step(data: SceneData, px, py, sample_ids, target):
+        n, k = px.shape[0], mesh.ranks
+        if n % k:
+            raise ValueError(f"{n} pixels do not split over {k} ranks")
+        lo, hi = mesh.rank * n // k, (mesh.rank + 1) * n // k
+        loss, grads = loss_and_grad(data, spec, px[lo:hi], py[lo:hi],
+                                    sample_ids, seed, target[lo:hi],
+                                    trainable)
+        all_reduce_sum_(loss, mesh)
+        for g in _leaves(grads).values():
+            all_reduce_sum_(g, mesh)
+        return loss, grads
+
+    return step
 
 
 def fit(data: SceneData, spec: SceneSpec, px, py, target, *,

@@ -1,0 +1,60 @@
+"""Pixel-sharded rendering: the image's pixels split over the ranks.
+
+PyTorch counterpart of :mod:`raytrace_tpu.parallel.tile`.  Each rank
+renders its own contiguous pixel shard through
+:func:`raytrace_tpu_torch.render.integrator._render_chunks` (so through
+``sample_pixels`` and the kernels), the scene replicated; the shards are
+gathered and the padding trimmed.  Every RNG draw is a pure function of
+the (pixel, sample, level, slot) identity, never of a lane's position,
+so the sharded image is the single-device image to the bit.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+import torch
+
+from raytrace_tpu_torch.parallel.mesh import Mesh, all_gather, make_mesh
+from raytrace_tpu_torch.scene.schema import Scene
+
+
+def render_chunks_sharded(mesh: Mesh, data, spec, px, py, s0: int,
+                          s_launch: int, n_chunks: int, seed: int,
+                          p_launch: int) -> torch.Tensor:
+    """One group of ``_render_chunks`` with the pixels sharded over the
+    mesh: each rank renders a contiguous shard of the pixels, their count
+    padded to a multiple of the ranks (pad pixels render pixel 0), and
+    gets every rank's shard back in rank order, trimmed.  ``p_launch`` is
+    the tile of all ranks together."""
+    from raytrace_tpu_torch.render.integrator import _render_chunks
+
+    n, k = px.shape[0], mesh.ranks
+    pad = (-n) % k
+    px, py = (torch.cat([t, t.new_zeros(pad)]) for t in (px, py))
+    lo, hi = mesh.rank * (n + pad) // k, (mesh.rank + 1) * (n + pad) // k
+    out = _render_chunks(data, spec, px[lo:hi], py[lo:hi], s0, s_launch,
+                         n_chunks, seed, max(p_launch // k, 1))
+    return torch.cat(all_gather(out, mesh))[:n]
+
+
+def render_image_sharded(scene: Scene, *, seed: int = 0,
+                         spp: int | None = None, mesh: Mesh | None = None,
+                         max_lanes: int = 1 << 22, progress=None,
+                         checkpoint: str | None = None) -> np.ndarray:
+    """Full-image render with the pixels sharded over the mesh's ranks
+    (all of them, on the scene's device, by default).  Same tiling and
+    checkpoint behaviour as
+    :func:`raytrace_tpu_torch.render.integrator.render_image`; the lane
+    budget is per rank.  Every rank calls it and gets the whole image."""
+    from raytrace_tpu_torch.render.integrator import _image_loop
+
+    mesh = mesh if mesh is not None else make_mesh(scene.data.device)
+    if scene.data.device != mesh.device:
+        raise ValueError(f"scene on {scene.data.device}, this rank renders "
+                         f"on {mesh.device}")
+    return _image_loop(scene, seed=seed, spp=spp,
+                       max_lanes=max_lanes * mesh.ranks, progress=progress,
+                       checkpoint=checkpoint,
+                       launch_chunks=partial(render_chunks_sharded, mesh))

@@ -35,25 +35,24 @@ from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
 
 
 def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
-                      k1, k2, scan_kernel: bool = False) -> V3:
+                      k1, k2, significance=None) -> V3:
     """Radiance of chains that never fan out (``children_per_ray <= 1``:
     one indirect slot, or the reflect slot of pure mirror-Phong scenes),
-    with per-lane significance and throughput.  Elementwise over whatever
-    lane shape ``ro.x`` has.  ``scan_kernel`` sends a large scene's
-    closest-hit and shadow scans through the CUDA scan kernel
-    (:func:`raytrace_tpu_torch.ops.intersect.closest_hit`)."""
+    with per-lane significance (initially ``significance``, default 1,
+    main.rs:54) and throughput.  Elementwise over whatever lane shape
+    ``ro.x`` has."""
     if spec.children_per_ray > 1:
         raise ValueError("fan-out scenes take radiance_tree_loop_v")
-    sig = torch.ones_like(ro.x)
+    sig = _initial_significance(ro.x, significance)
     live = torch.ones(ro.x.shape, dtype=torch.bool, device=ro.x.device)
     tp = vec.full_like(sig, 1.0)
     acc = vec.full_like(sig, 0.0)
     zero = vec.full_like(sig, 0.0)
 
     for depth in range(spec.max_depth + 2):
-        hit = closest_hit(data, spec, ro, rd, scan_kernel)
+        hit = closest_hit(data, spec, ro, rd)
         emit, children = shade(data, spec, ro, rd, hit, sig, live, k1, k2,
-                               depth, scan_kernel)
+                               depth)
         bg = background_color_v(data, spec, rd)
         local = vec.where(hit.hit, emit, bg)
         acc = acc + vec.where(live, tp.mul(local), zero)
@@ -158,7 +157,7 @@ def tree_loop_entry(ro: V3, rd: V3, sig, tp: V3, live01, k1, k2, dtype):
 
 
 def tree_loop_node(data: SceneData, spec: SceneSpec, m: int, entry,
-                   depth: int, scan_kernel: bool = False):
+                   depth: int):
     """One DFS node visit: closest hit, shade, route the child slots to m
     virtual children.  ``entry`` is a popped 13-tuple
     (:func:`tree_loop_entry`).  Returns ``(contrib: V3, virt)``, where
@@ -172,9 +171,8 @@ def tree_loop_node(data: SceneData, spec: SceneSpec, m: int, entry,
     live = entry[10] > 0.5
     k1, k2 = entry[11], entry[12]
 
-    hit = closest_hit(data, spec, ro, rd, scan_kernel)
-    emit, children = shade(data, spec, ro, rd, hit, sig, live, k1, k2, depth,
-                           scan_kernel)
+    hit = closest_hit(data, spec, ro, rd)
+    emit, children = shade(data, spec, ro, rd, hit, sig, live, k1, k2, depth)
     bg = background_color_v(data, spec, rd)
     local = vec.where(hit.hit, emit, bg)
     zero = vec.full_like(sig, 0.0)
@@ -195,7 +193,7 @@ def tree_loop_node(data: SceneData, spec: SceneSpec, m: int, entry,
 
 
 def radiance_tree_loop_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
-                         k1, k2, scan_kernel: bool = False) -> V3:
+                         k1, k2, significance=None) -> V3:
     """Radiance of fan-out scenes as a depth-first walk of each lane's
     virtual child tree (the recursion of ``ray_color``,
     raytrace.rs:261-267), the plain version of the CUDA tree kernel.
@@ -208,20 +206,21 @@ def radiance_tree_loop_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
     ``sp + (m-1-j)`` so that the children pop in order.  Since the tree's
     shape is the same for every lane, the stack pointer and each visit's
     depth are Python ints.  Every node is visited for every lane; a dead
-    entry contributes exactly zero."""
+    entry contributes exactly zero.  ``significance`` is the primary
+    rays' (default 1)."""
     dtype = ro.x.dtype
     m, levels, _, cap = tree_loop_stack(spec)
     depths = _dfs_schedule(m, levels)
     one = torch.ones_like(ro.x)
     stack = [None] * cap
-    stack[0] = tree_loop_entry(ro, rd, one, V3(one, one, one), one, k1, k2,
-                               dtype)
+    stack[0] = tree_loop_entry(ro, rd, _initial_significance(ro.x,
+                                                             significance),
+                               V3(one, one, one), one, k1, k2, dtype)
     acc = vec.full_like(ro.x, 0.0)
     sp = 1
     for depth in depths:
         sp -= 1
-        contrib, virt = tree_loop_node(data, spec, m, stack[sp], depth,
-                                       scan_kernel)
+        contrib, virt = tree_loop_node(data, spec, m, stack[sp], depth)
         acc = acc + contrib
         if depth < levels - 1:
             # child j lands at sp + (m-1-j): popped in preorder
@@ -229,6 +228,24 @@ def radiance_tree_loop_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
                 stack[sp + (m - 1 - j)] = entry
             sp += m
     return acc
+
+
+def _initial_significance(like, significance):
+    return (torch.ones_like(like) if significance is None
+            else torch.broadcast_to(torch.as_tensor(
+                significance, dtype=like.dtype, device=like.device),
+                like.shape))
+
+
+def radiance(data: SceneData, spec: SceneSpec, ro, rd, k1, k2,
+             significance=None) -> torch.Tensor:
+    """Radiance of (N, 3) primary rays ``ro``, ``rd`` with their (N,) RNG
+    streams, as an (N, 3) tensor: the linear chain or the DFS, as the
+    scene's fan-out asks (``ray_color``, raytrace.rs:261-267)."""
+    fn = (radiance_linear_v if spec.children_per_ray <= 1
+          else radiance_tree_loop_v)
+    return vec.pack(fn(data, spec, vec.splat(ro), vec.splat(rd), k1, k2,
+                       significance))
 
 
 def primary_rays(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
@@ -301,10 +318,13 @@ def _render_chunks(data: SceneData, spec: SceneSpec, px, py, s0: int,
     return out
 
 
-def _s_p_launch(spec: SceneSpec, aa: int, max_lanes: int):
+def _s_p_launch(spec: SceneSpec, aa: int, max_lanes: int,
+                lane_width: int = 1):
     """(samples, pixels) per launch: fill the lane budget without
-    exceeding it, taking more samples per launch for small images."""
-    lane_budget = max(max_lanes // spec.cam_samples, 1)
+    exceeding it, taking more samples per launch for small images.
+    ``lane_width`` is the lanes a primary sample takes at once (1 for the
+    kernels)."""
+    lane_budget = max(max_lanes // (spec.cam_samples * lane_width), 1)
     n_pix = spec.width * spec.height
     if n_pix <= lane_budget:
         return min(aa, max(lane_budget // n_pix, 1)), n_pix
@@ -377,17 +397,39 @@ def _save_checkpoint(path: str, **arrays) -> None:
     os.replace(tmp, path)
 
 
+def sample_groups(spec: SceneSpec, aa: int, s_launch: int, s_done: int = 0,
+                  chunk_group: int = 32):
+    """The image loop's launch groups from sample ``s_done`` on:
+    ``(s0, s_launch, n_chunks)``, each ``n_chunks`` chunks of ``s_launch``
+    samples, the last one ragged."""
+    g_cap = _group_cap(spec, s_launch, chunk_group)
+    s0 = s_done
+    while s0 < aa:
+        rem = aa - s0
+        if rem >= s_launch:
+            g, sl = min(g_cap, rem // s_launch), s_launch
+        else:
+            g, sl = 1, rem          # ragged tail chunk
+        yield s0, sl, g
+        s0 += g * sl
+
+
 def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                 max_lanes: int, progress, checkpoint: str | None,
-                chunk_group: int = 32) -> np.ndarray:
+                launch_chunks=None, chunk_group: int = 32,
+                lane_width: int = 1) -> np.ndarray:
     """Host loop over groups of sample chunks.  The float64 host
     accumulator is checkpointed after every group, so a killed render
     resumes at the last group boundary.  ``progress`` gets the completed
-    fraction in [0, 1]."""
+    fraction in [0, 1].  ``launch_chunks`` renders one group with
+    :func:`_render_chunks`'s signature (the sharded renders pass their
+    own; default :func:`_render_chunks`); ``lane_width`` sizes its
+    launches (:func:`_s_p_launch`)."""
+    launch_chunks = launch_chunks or _render_chunks
     data, spec = scene.data, scene.spec
     w, h = spec.width, spec.height
     aa = spp if spp is not None else max(spec.antialias, 1)
-    s_launch, p_launch = _s_p_launch(spec, aa, max_lanes)
+    s_launch, p_launch = _s_p_launch(spec, aa, max_lanes, lane_width)
 
     image = np.zeros((h * w, 3), np.float64)
     s_done = 0
@@ -401,25 +443,17 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
             image = ck["image"]
             s_done = int(ck["s_done"])
 
-    g_cap = _group_cap(spec, s_launch, chunk_group)
     pix = torch.arange(h * w, dtype=torch.int64, device=data.device)
     px, py = pix % w, pix // w
-    s0 = s_done
-    while s0 < aa:
-        rem = aa - s0
-        if rem >= s_launch:
-            g, sl = min(g_cap, rem // s_launch), s_launch
-        else:
-            g, sl = 1, rem          # ragged tail chunk
+    for s0, sl, g in sample_groups(spec, aa, s_launch, s_done, chunk_group):
         n_s = g * sl
-        out = _retry_launch(_render_chunks, data, spec, px, py, s0, sl, g,
+        out = _retry_launch(launch_chunks, data, spec, px, py, s0, sl, g,
                             seed, p_launch)
         image += out.numpy().astype(np.float64) * (n_s / aa)
-        s0 += n_s
         if progress is not None:
-            progress(s0 / aa)
+            progress((s0 + n_s) / aa)
         if checkpoint is not None:
-            _save_checkpoint(checkpoint, image=image, s_done=s0,
+            _save_checkpoint(checkpoint, image=image, s_done=s0 + n_s,
                              width=w, height=h, aa=aa, seed=seed)
     return image.reshape(h, w, 3)
 

@@ -18,13 +18,16 @@ runs their plain PyTorch version, :func:`radiance_lanes_reference`.
 Gradients: the forward pass is the kernel, the backward pass
 differentiates the plain version on the same lanes
 (:mod:`raytrace_tpu_torch.ops.kernel_grad`).
-:func:`radiance_lanes_split` is the plain chain with a large scene's
-scans answered by the CUDA scan kernel
-(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  On CPU tensors every
-scene renders, float64 and DFS stacks of any depth included; on CUDA
-tensors a scene outside :func:`usable` (float64, DFS stacks above 64
-entries) raises ``NotImplementedError`` naming the ROADMAP item, and
-nothing there gives way to the plain version.
+:func:`radiance_lanes_split` is a one-shard ring
+(:mod:`raytrace_tpu_torch.parallel.ring`) on the lanes' device: the
+plain chain or DFS with every scan answered by the CUDA scan kernel
+(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  While a ring context is
+installed, every scene takes the plain version, whose queries go round
+the ring: no kernel holds the scene then.  On CPU tensors every scene
+renders, float64 and DFS stacks of any depth included; on CUDA tensors a
+scene outside :func:`usable` (float64, DFS stacks above 64 entries)
+raises ``NotImplementedError`` naming the ROADMAP item, and nothing there
+gives way to the plain version.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import dataclasses
 import torch
 
 from raytrace_tpu_torch.models import backgrounds
-from raytrace_tpu_torch.ops import _build, intersect_scan
+from raytrace_tpu_torch.ops import _build, intersect, intersect_scan
 from raytrace_tpu_torch.ops.intersect import (LARGE_SCENE_THRESHOLD,
                                               object_table, per_scene_cache,
                                               scene_tables)
@@ -103,8 +106,8 @@ def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
     from raytrace_tpu_torch.render.integrator import tree_loop_stack
 
     if data.dtype != torch.float32:
-        return ("the kernels are float32; a float64 scene renders on CPU "
-                "tensors only (double kernels: ROADMAP item 12)")
+        return ("the kernels are float32; float64 renders on CPU tensors, "
+                "as in the reference (ROADMAP item 12)")
     if kernel_for(spec) == KERNEL_TREE:
         m, levels, _, cap = tree_loop_stack(spec)
         if cap > MAX_TREE_STACK:
@@ -125,7 +128,8 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
     """Radiance of each lane, given (N,) integer identity tensors on the
     scene's device.  Returns a V3 of (N,) tensors of the scene's dtype,
     differentiable in every float leaf of the scene.  CPU tensors take the
-    plain version whatever the scene; CUDA tensors a kernel, or
+    plain version whatever the scene, as does every scene while a ring
+    context is installed; CUDA tensors a kernel, or
     ``NotImplementedError`` for a scene outside :func:`usable`."""
     device = pix.device
     for t in (pix, piy, aa, cam):
@@ -133,7 +137,7 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             raise ValueError("lane ids must be (N,) tensors on one device")
     if data.device != device:
         raise ValueError(f"scene on {data.device}, lanes on {device}")
-    if device.type == "cpu":
+    if device.type == "cpu" or intersect.ring_ctx() is not None:
         return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed)
     if device.type == "cuda":
         reason = unsupported_reason(data, spec)
@@ -151,11 +155,11 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
 
 
 def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
-                             cam, seed: int, scan_kernel: bool = False) -> V3:
+                             cam, seed: int) -> V3:
     """The plain PyTorch version of the kernels, on any device: the
     linear chain or the DFS, as :func:`kernel_for` picks the kernel.  A
     large scene goes through the plain scan of its table and launches no
-    kernel, unless ``scan_kernel`` is set (:func:`radiance_lanes_split`)."""
+    kernel (unless a ring context is installed)."""
     from raytrace_tpu_torch.render.integrator import (primary_rays,
                                                       radiance_linear_v,
                                                       radiance_tree_loop_v)
@@ -163,20 +167,26 @@ def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
     ro, rd, k1, k2 = primary_rays(data, spec, pix, piy, aa, cam, seed)
     fn = (radiance_linear_v if kernel_for(spec) == KERNEL_LINEAR
           else radiance_tree_loop_v)
-    return fn(data, spec, ro, rd, k1, k2, scan_kernel)
+    return fn(data, spec, ro, rd, k1, k2)
 
 
 def radiance_lanes_split(data: SceneData, spec: SceneSpec, pix, piy, aa,
                          cam, seed: int) -> V3:
-    """The split path of a large scene: the plain chain or DFS, with every
-    closest-hit and shadow scan answered by
+    """The split path of a large scene: a ring of one shard on the lanes'
+    device (:func:`raytrace_tpu_torch.parallel.ring.ring_context`), so the
+    plain chain or DFS with every closest-hit and shadow scan answered by
     :func:`raytrace_tpu_torch.ops.intersect_scan.scan_hit`, the CUDA scan
-    kernel on CUDA tensors (one launch per scan)."""
+    kernel on CUDA tensors (one launch per scan), and a skybox's misses by
+    :func:`raytrace_tpu_torch.models.backgrounds.background_color`."""
+    from raytrace_tpu_torch.parallel.mesh import Mesh
+    from raytrace_tpu_torch.parallel.ring import ring_context
+
     if not is_large(spec):
         raise ValueError(f"the split path is for scenes of more than "
                          f"{LARGE_SCENE_THRESHOLD} objects")
-    return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed,
-                                    scan_kernel=True)
+    with ring_context(data, spec, Mesh(pix.device)) as stripped:
+        return radiance_lanes_reference(stripped, spec, pix, piy, aa, cam,
+                                        seed)
 
 
 def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:

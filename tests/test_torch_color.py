@@ -58,3 +58,40 @@ def test_bmp_bytes_equal(tmp_path, w, h):
     assert a.read_bytes() == b.read_bytes()
     assert tbmp.header(w, h) == jbmp.header(w, h)
     np.testing.assert_array_equal(tbmp.read_bmp(str(a)), img)
+
+
+def test_significance():
+    """Twin of tests/test_color.py::test_significance."""
+    c = torch.tensor([[0.25, 0.5, 0.125]])
+    assert float(tcolor.significance(c)[0]) == pytest.approx(0.875)
+    np.testing.assert_array_equal(
+        tcolor.significance(torch.tensor([[1.0, 2.0, 3.0], [0.5, 0.0, 0.25]],
+                                         dtype=torch.float64)).numpy(),
+        np.asarray(jcolor.significance(jnp.asarray([[1.0, 2.0, 3.0],
+                                                    [0.5, 0.0, 0.25]]))))
+
+
+def test_native_encoder_bit_identical_to_python():
+    """Twin of tests/test_native.py::test_encoder_bit_identical_to_python:
+    the native encoder's bytes are ``to_srgb``'s (and the JAX package's);
+    with no native toolchain, ``available`` is False and the encoder gives
+    None."""
+    from raytrace_tpu.io import native as jnative
+    from raytrace_tpu_torch.io import native
+
+    rng = np.random.RandomState(0)
+    vals = np.concatenate([
+        rng.rand(4096).astype(np.float32) * 1.2 - 0.1,
+        tcolor.SRGB_AVERAGE.astype(np.float32),
+        np.array([0.0, 1.0, -1.0, 2.0, np.nan, np.inf, -np.inf],
+                 np.float32)])
+    got = native.encode_srgb_native(vals.reshape(2, -1))
+    assert native.available() == jnative.available()
+    if not native.available():
+        assert got is None
+        return
+    assert got.shape == (2, len(vals) // 2) and got.dtype == np.uint8
+    np.testing.assert_array_equal(
+        got.ravel(), tcolor.to_srgb(torch.from_numpy(vals)).numpy())
+    np.testing.assert_array_equal(got.ravel(),
+                                  jnative.encode_srgb_native(vals))

@@ -1,0 +1,131 @@
+"""Process groups for the port's multi-rank tests, and the jobs their ranks
+run.  No test here: the test files start groups with :func:`run_group`.
+
+Each group is ``n`` spawned processes joined by a gloo group on the CPU
+(``raytrace_tpu_torch.parallel.mesh.init_distributed`` at a free port on
+``localhost``); rank r runs ``job(*args)`` and pickles its result for the
+test to read.  A group has a time limit of its own and fails on it, so
+that a hung rendezvous never takes the suite's time.  This module imports
+no JAX, so that the ranks start quickly.
+"""
+
+import multiprocessing
+import os
+import pickle
+import socket
+import time
+
+# the longest a group may take, start to finish (each rank imports torch
+# and the port, a few seconds, then renders a tiny image)
+GROUP_TIMEOUT_S = 90
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _rank_main(job, coordinator, n, rank, out_dir, args):
+    import torch
+    import torch.distributed as dist
+
+    from raytrace_tpu_torch.parallel.mesh import init_distributed
+
+    torch.set_num_threads(1)
+    init_distributed(coordinator, n, rank, device_type="cpu")
+    try:
+        result = job(*args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_group(job, n: int, *args, out_dir, timeout: float = GROUP_TIMEOUT_S):
+    """Run ``job(*args)`` on each rank of an ``n``-rank gloo group; returns
+    the ranks' results in rank order.  Fails if a rank fails or the group
+    outlasts ``timeout`` seconds (its processes are then killed)."""
+    ctx = multiprocessing.get_context("spawn")
+    coordinator = f"localhost:{free_port()}"
+    procs = [ctx.Process(target=_rank_main,
+                         args=(job, coordinator, n, r, str(out_dir), args))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(10)
+    assert not hung, f"ranks {hung} of {n} still ran after {timeout} s"
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * n, f"rank exit codes {codes}"
+    out = []
+    for r in range(n):
+        with open(os.path.join(str(out_dir), f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# ---- jobs (each rank builds its mesh on the CPU) ----
+
+def _mesh():
+    from raytrace_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh("cpu")
+
+
+def ring_intersect_job(data, spec, ro, rd):
+    from raytrace_tpu_torch.parallel.ring import make_ring_intersector
+    return make_ring_intersector(spec, _mesh())(data, ro, rd)
+
+
+def ring_render_job(scene, seed, spp):
+    from raytrace_tpu_torch.parallel.ring import render_image_ring
+    return render_image_ring(scene, seed=seed, spp=spp, mesh=_mesh())
+
+
+def sharded_render_job(scene, seed, spp):
+    from raytrace_tpu_torch.parallel.tile import render_image_sharded
+    return render_image_sharded(scene, seed=seed, spp=spp, mesh=_mesh())
+
+
+def sharded_step_job(data, spec, px, py, sids, seed, target):
+    from raytrace_tpu_torch.optim import make_sharded_step
+    return make_sharded_step(spec, _mesh(), seed)(data, px, py, sids, target)
+
+
+def rows_job(scene, seed, spp):
+    from raytrace_tpu_torch.parallel.multihost import render_rows_multihost
+    return render_rows_multihost(scene, seed=seed, spp=spp, mesh=_mesh())
+
+
+def mesh_job():
+    """The mesh's shapes, and each collective on rank-made tensors."""
+    import torch
+
+    from raytrace_tpu_torch.parallel import mesh as m
+    from raytrace_tpu_torch.parallel.multihost import replicate_to_mesh
+    from raytrace_tpu_torch.scene.procedural import make_sphere_field
+
+    mesh = _mesh()
+    r = mesh.rank
+    mine = torch.arange(3, dtype=torch.float64) + 10 * r
+    scene = make_sphere_field(2, device="cpu")
+    if r:  # the other ranks' scenes differ from rank 0's
+        scene.data.prim_p.add_(r)
+    return {
+        "ranks": mesh.ranks, "rank": r, "shape": mesh.shape,
+        "shape_2d": [m.make_mesh_2d(d, device="cpu").shape
+                     for d in (None, 2, mesh.ranks)],
+        "gathered": torch.stack(m.all_gather(mine, mesh)),
+        "summed": m.all_reduce_sum_(mine.clone(), mesh),
+        "broadcast": m.broadcast_(mine.clone(), mesh),
+        "shifted": m.ring_shift([mine, mine.to(torch.int32)], mesh),
+        "replicated": replicate_to_mesh(scene.data, mesh).prim_p,
+    }

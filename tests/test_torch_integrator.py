@@ -76,6 +76,29 @@ def test_primary_rays_match_jax():
                                    atol=1e-7)
 
 
+@pytest.mark.parametrize("significance", [None, 0.5])
+def test_radiance_matches_jax(significance):
+    """``integrator.radiance``, the (N, 3) wrapper, against the JAX
+    package's on the same primary rays and streams, with the default and
+    a given initial significance."""
+    js, ts = _scenes(64, 64)
+    rs = np.random.RandomState(2)
+    ids = [rs.randint(0, 64, 1024), rs.randint(0, 64, 1024),
+           rs.randint(0, 8, 1024), np.zeros(1024, np.int64)]
+    jro, jrd, jk1, jk2 = jax_int.primary_rays(
+        js.data, js.spec, *(jnp.asarray(a, jnp.uint32) for a in ids), 7)
+    tro, trd, tk1, tk2 = integrator.primary_rays(
+        ts.data, ts.spec, *(torch.from_numpy(a) for a in ids), 7)
+    want = jax_int.radiance(js.data, js.spec, jnp.stack(list(jro), -1),
+                            jnp.stack(list(jrd), -1), jk1, jk2, significance)
+    got = integrator.radiance(ts.data, ts.spec, torch.stack(list(tro), -1),
+                              torch.stack(list(trd), -1), tk1, tk2,
+                              significance)
+    assert got.shape == (1024, 3) and got.dtype == torch.float32
+    assert_radiance_close(got.double().numpy().T,
+                          np.asarray(want, np.float64).T)
+
+
 def test_render_image_matches_jax():
     js, ts = _scenes(8, 8)
     want = jax_int.render_image(js, seed=2, spp=4)

@@ -317,6 +317,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {str(REPO_ROOT)!r})\n"
         "import raytrace_tpu_torch as p\n"
+        "assert not [k for k in sys.modules if k.startswith("
+        "'raytrace_tpu_torch.')]\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'raytrace_tpu_torch.')]\n"
         "for m in mods:\n"
@@ -325,14 +327,17 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'raytrace_tpu')]\n"
         "for m in ('scene.procedural', 'ops.intersect_scan', 'optim',\n"
-        "          'models.backgrounds', 'ops.kernel_grad'):\n"
+        "          'models.backgrounds', 'ops.kernel_grad', 'parallel.mesh',\n"
+        "          'parallel.tile', 'parallel.multihost', 'parallel.ring'):\n"
         "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print(len(mods), bad, _build.loaded())\n")
     r = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_mods, rest = r.stdout.split(" ", 1)
-    assert int(n_mods) >= 24
+    assert int(n_mods) >= 29
     assert rest.strip() == "[] []"
     after = sorted(os.listdir(build)) if os.path.isdir(build) else None
     assert after == before

@@ -133,3 +133,23 @@ def test_scene_data_from_numpy_carries_showcase_leaves():
         assert got.shape == want.shape, n
         np.testing.assert_array_equal(got.numpy(), want, err_msg=n)
     assert data.light_p.shape == (3, 3) and float(data.cam_aperture) > 0
+
+
+def test_package_root_exports():
+    """The package root exports the JAX package's names (each imported on
+    first use, so that importing the package imports no submodule)."""
+    import raytrace_tpu
+    import raytrace_tpu_torch
+    from raytrace_tpu_torch.scene import schema
+
+    names = ["SceneData", "SceneSpec", "Scene", "deserialize",
+             "SceneSyntaxError"]
+    for n in names:
+        assert hasattr(raytrace_tpu, n)
+        assert getattr(raytrace_tpu_torch, n) is getattr(
+            tdsl if n in ("deserialize", "SceneSyntaxError") else schema, n)
+    assert raytrace_tpu_torch.__version__ == raytrace_tpu.__version__
+    assert sorted(raytrace_tpu_torch.__all__) == sorted(["__version__",
+                                                         *names])
+    with pytest.raises(AttributeError):
+        raytrace_tpu_torch.render_image

@@ -58,9 +58,23 @@ Two ranks on the one card (gloo), this script started twice under the
 environment protocol: the multi-process CLI's BMP against the
 one-process CLI's, byte for byte; the ring at k = 2 against k = 1, to
 the bit, in intersection and in a render; the sharded fitting step
-against ``loss_and_grad``; the ring's hand-off timed (phase 20). The
+against ``loss_and_grad``; the ring's hand-off timed (phase 20). Deep
+fan-out trees (phase 21): the tree kernel's 128- and 256-entry stacks
+and its slab (the stack in device memory) on 65-, 129- and 300-sample
+IndirectPhong scenes at max_depth 0, solid, under the sky and in the
+1,006-object field, against the plain version bit for bit, the trees of
+the local stacks also through the slab; each solid scene timed at
+262,144 random lanes beside its bound, its registers, stack frame and
+local memory, the slab and the local stack in turns (and so a 16-sample
+tree at max_depth 4); then the CLI on a scene per instance at the fixed
+max_depth 4. Phase 1 prints what the
+runtime reports of the card and its published peaks (the bounds'
+figures, ``utils/gpu_info.py``), phase 2 the fold's staging limit
+derived from them and the staging of each field; phase 4 renders with
+``--profile`` and checks that the trace names K1's kernel, and that a
+one-rank sharded step's trace names the five phase ranges. The
 tree kernel is held to the plain
-version bit for bit in each of its four stack sizes; the table fold with
+version bit for bit in each of its stack sizes; the table fold with
 the table staged in shared memory (1,006 objects) and read from device
 memory (4,006), on camera rays, which every thread folds for itself, and
 on rays that part, which a warp folds one at a time, through the scan
@@ -78,6 +92,8 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -94,6 +110,12 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the operation counts and the bounds made from them (moved from this
+# script, unchanged): the first import of the port, which fails where the
+# script stands alone
+from raytrace_tpu_torch.utils.flops import (  # noqa: E402
+    FLOPS_SKY, SKY_TEXEL_BYTES, bound, k1_bound, render_bound, scan_counts)
+from raytrace_tpu_torch.utils.gpu_info import H100_SXM  # noqa: E402
 SCENE = os.path.join(REPO, "examples", "cornell_indirect.txt")
 SHOWCASE = os.path.join(REPO, "examples", "materials_showcase.txt")
 SEED = 3
@@ -133,6 +155,33 @@ INDIRECT4 = LIT_MIRROR.replace(
 # the tree kernel's two largest stack sizes: 22 entries (of 32) and 47 (of
 # 64), at 585 and 601 nodes per lane
 DEEP_STACKS = ((8, 2), (24, 1))
+# IndirectPhong samples of the scenes at max_depth 0 (beside that floor)
+# whose DFS stacks take the tree kernel's deep instances: 65 entries (of
+# 128), 129 (of 256) and 300 (the slab); the plain walk visits every node
+# of the full tree, 66, 130 and 301 a lane, and keeps every child of the
+# root, some 170 B a lane and child: at 2,097,152 lanes it takes 12, 37
+# and 163 s, so these trees are timed at 262,144
+DEEP_SAMPLES = (65, 129, 300)
+DEEP_LANES = 1 << 18
+# and the scenes the CLI renders at the fixed max_depth 4: stacks of 76,
+# 256 and 316 entries.  The first is that sphere with 16 samples over the
+# mirror floor.  A child ray that leaves a sphere at a grazing angle may
+# hit it again (PERF.md, §6), and its m children may too, so a sphere's
+# tree at max_depth 4 grows with m to the fourth power where m of those
+# hits are likely: at 52 samples a 8,192-lane launch runs for minutes.
+# The two wider stacks take the samples on the floor, whose children
+# cannot hit it again, under a matte sphere (no child): m + 1 nodes a lane
+DEEP_CLI_SPHERE = (16,)
+DEEP_CLI_FLOOR = (52, 64)
+INDIRECT_FLOOR = LIT_MIRROR.replace(
+    """material: PhongMaterial { diffuse: rgb(0.6,0.5,0.4)
+        specular: rgb(0.3,0.3,0.3) exponent: 8""",
+    """material: IndirectPhongMaterial { diffuse: rgb(0.6,0.5,0.4)
+        specular: rgb(0,0,0) exponent: 1 samples: SAMPLES""").replace(
+    "specular: rgb(0.4,0.4,0.4) exponent: 16", "specular: rgb(0,0,0) "
+    "exponent: 16")
+# the CLI's image of them: width, height, samples per pixel
+DEEP_CLI_IMAGE = (64, 64, 2)
 
 # kernel vs plain version: Monte-Carlo paths fork after a near-tie when
 # two roundings differ by an ulp, so a few lanes may disagree by a lot;
@@ -140,119 +189,6 @@ DEEP_STACKS = ((8, 2), (24, 1))
 LANE_RTOL = 1e-4          # |d| <= LANE_RTOL * max(1, |ref|) per channel
 MIN_LANES_OK = 0.99       # ... on at least this share of the lanes
 MEAN_RTOL = 1e-3          # per-channel means
-
-
-# NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3
-PEAK_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# FP32 operations of one object test, counted from the device functions of
-# csrc/render_common.cuh: every add, subtract, multiply, compare, min or
-# max, division and square root counts one; a negation, an absolute value
-# and a select count nothing.  sphere_t, a small scene's sphere: 3 (o - c)
-# + 6 (b) + 7 (cc, with r * r) + 4 (disc, with 4 * a) + 1 (disc > 0) + 1
-# (sqrt) + 4 (t1, t2) + 2 (t1 > 0, t > 0) = 28.  sphere_row_t, a table row
-# of a large scene, whose r * r the table holds and whose 4 * a the ray
-# holds: 3 (o - c) + 6 (b) + 6 (cc) + 3 (disc) + 1 (disc > 0) = 19; the
-# square root, the roots and their two compares lie behind the branch, run
-# only on the rows whose disc is positive, and are left out.  plane_t: 5
-# (denom) + 6 (numer) + 1 (denom != 0) + 1 (division) + 1 (t > 0) = 14.
-# A chunk's bounding-sphere test, chunk_bound: 3 (o - c) + 6 (b) + 7 (cc)
-# + 4 (disc) + 2 (pos) + 2 (max, sqrt) + 3 (margin) + 2 (t_enter) + 3 (exit
-# test), and chunk_may_enter, 2, counted once per chunk = 34.  Only these
-# tests are counted: a node's own arithmetic (hit record, gates, lights,
-# child ray) and its shadow rays are not, so every bound made from these is
-# a lower one.
-FLOPS_SPHERE, FLOPS_SPHERE_ROW, FLOPS_PLANE, FLOPS_BOUND = 28, 19, 14, 34
-# a skybox lookup: four texels of three floats; about 40 operations (three
-# absolute values and six compares for the face, two divisions, the scaling,
-# clamps and floors of u and v, nine blends of two products and a sum)
-SKY_TEXEL_BYTES, FLOPS_SKY = 48, 40
-
-# The linear kernel (K1), recounted: every operation a lane needs, by the
-# unit that runs it.  Per SM and clock on compute capability 9.0 (the CUDA
-# C++ Programming Guide's table of arithmetic instruction throughput): 128
-# FP32 adds, multiplies or fused multiply-adds; 16 special-function
-# operations (reciprocal, square root, reciprocal square root, sine, cosine,
-# and the logarithm and exponential of powf); 64 32-bit integer adds,
-# multiplies, shifts or logical operations.  At the H100 SXM's 1,980 MHz
-# boost clock on 132 SMs the first is PEAK_FLOPS (a fused multiply-add
-# counting two operations), the others these:
-N_SM, BOOST_HZ = 132, 1.98e9
-PEAK_SFU, PEAK_INT = N_SM * 16 * BOOST_HZ, N_SM * 64 * BOOST_HZ
-# (FP32, special-function, integer) operations of each part, counted from
-# csrc/render_common.cuh as FLOPS_* are (a division, a square root, a sine
-# counts one special-function operation; mix32 counts 8 integer ones:
-# three shifts, three exclusive ors, two multiplies).  The keys: two seed
-# words, each two xors, four absorptions of two adds and six mix32.  A
-# draw: an add, two mix32, an xor and a shift, then a conversion and a
-# scaling.  The primary ray: the pixel's position (8), the camera matrix
-# (12), the normalization (8 and a reciprocal square root).  Depth of
-# field: two draws, the focal point (6), the lens point (a square root, a
-# sine and a cosine, 3) and the new origin and direction (15 and 6).  Per
-# node, closest hit: the ray's a, 4a and 0.5 / a; each sphere 19 and its
-# compare with the running minimum (the roots run where disc > 0 only and
-# are left out, as in FLOPS_SPHERE_ROW); each plane FLOPS_PLANE and its
-# compare, its division among the special-function operations.  A hit
-# node, at the cheaper of its two shadings, a plane's: the hit point (6),
-# n.n (5), the distance (7 and a division), the snap (6), n.d (5), the
-# gates (5), the emission and the sum (6).  A node at the last depth that
-# hits adds its ambient color (6); one that misses the background (6).  A
-# child: indirect, two draws, the direction (11, a sine, a cosine), its
-# test against the normal (6), the weight (7 and a division), the origin
-# (6), weights and throughput (6); reflect, the direction (12), the origin
-# (6), significance, weights and throughput (8); each then its stream (two
-# mix32 and three operations).  A light, per shaded node: its direction
-# (12 and two special-function operations for a point light), the shadow
-# ray's origin and a (13 and a division), Lambert (16) and Phong (29, a
-# reciprocal square root and powf's two); its shadow tests are not
-# counted, so the bound stays a lower one.
-K1_KEYS = (0, 0, 2 * (2 + 4 * 2 + 6 * 8))
-K1_DRAW = (2, 0, 19)
-K1_PRIMARY = (28, 1, 0)
-K1_DOF = (27, 3, 0)
-K1_RAY = (7, 1, 0)
-K1_SPHERE, K1_PLANE = (20, 0, 0), (14, 1, 0)
-K1_HIT, K1_LAST, K1_MISS = (40, 1, 0), (6, 0, 0), (6, 0, 0)
-K1_INDIRECT, K1_REFLECT, K1_STREAM = (37, 3, 0), (26, 0, 0), (0, 0, 19)
-K1_LIGHT = (70, 6, 0)
-
-
-def k1_lane_ops(spec, work) -> np.ndarray:
-    """(FP32, special-function, integer) operations per lane of the linear
-    kernel on a small scene, for lanes whose paths need ``work``
-    (``render.work.path_work``)."""
-    from raytrace_tpu_torch.scene.schema import CAM_DEPTH_OF_FIELD
-
-    live = spec.live_objects()
-    n_sph = sum(spec.shape_type[i] == 0 for i in live)
-    v = np.array
-    ops = (v(K1_KEYS) + 2 * v(K1_DRAW) + v(K1_PRIMARY)
-           + (v(K1_DOF) + 2 * v(K1_DRAW)
-              if spec.cam_type == CAM_DEPTH_OF_FIELD else 0))
-    shaded = work["hits"] - work["last_hits"]
-    child = v(K1_INDIRECT) + 2 * v(K1_DRAW) if spec.n_indirect else v(K1_REFLECT)
-    ops = ops + work["visits"] * (v(K1_RAY) + n_sph * v(K1_SPHERE)
-                                  + (len(live) - n_sph) * v(K1_PLANE))
-    ops = ops + shaded * (v(K1_HIT) + spec.n_lights * v(K1_LIGHT))
-    ops = ops + work["last_hits"] * v(K1_LAST)
-    ops = ops + (work["visits"] - work["hits"]) * v(K1_MISS)
-    # every node but the first is some node's child
-    return ops + (work["visits"] - 1) * (child + v(K1_STREAM))
-
-
-def k1_bound(spec, n_lanes: int, work: dict):
-    """(ms, "operations" or "bytes", per-unit ms) of one launch of the
-    linear kernel: the lanes' operations over each unit's peak, and 28 B a
-    lane and the scene once over the memory rate; the largest."""
-    fp, sfu, ints = k1_lane_ops(spec, work) * n_lanes
-    nbytes = (28 + SKY_TEXEL_BYTES * work["misses"]) * n_lanes + 96 * len(
-        spec.live_objects())
-    units = {"fp32": fp / PEAK_FLOPS * 1e3, "sfu": sfu / PEAK_SFU * 1e3,
-             "int32": ints / PEAK_INT * 1e3,
-             "bytes": nbytes / PEAK_BYTES * 1e3}
-    worst = max(units, key=units.get)
-    return (units[worst], "bytes" if worst == "bytes" else "operations",
-            units)
 
 
 # SASS opcodes by kind, for sass_loops
@@ -570,38 +506,6 @@ def k4_sass(sass: str) -> dict:
             "int": kinds.get("int", 0), "float": kinds.get("float", 0)}
 
 
-def bound(flops: float, nbytes: float):
-    """(the least ms the card could take, "bytes" or "operations"): the
-    larger of the bytes over the memory rate and the operations over the
-    FP32 peak."""
-    by_ops, by_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return ((by_ops, "operations") if by_ops >= by_bytes
-            else (by_bytes, "bytes"))
-
-
-def render_bound(spec, n_lanes: int, work: dict, tables=None):
-    """The bound of one render-kernel launch of ``n_lanes`` lanes whose
-    paths need ``work`` (``raytrace_tpu_torch.render.work.path_work``,
-    counted on whole warps drawn from the launch): 16 B in and 12 B out
-    per lane plus the scene once, and 48 B of texels per skybox lookup; per
-    live node its closest-hit tests and nothing else of it: every live
-    object of a small scene, or the rows of the chunks entered, every
-    chunk's bound test and the plane rows of a large one."""
-    n_sph = sum(t == 0 for t in spec.shape_type)
-    n_pln = sum(t == 1 for t in spec.shape_type)
-    nbytes = (28 + SKY_TEXEL_BYTES * work["misses"]) * n_lanes + 96 * (
-        n_sph + n_pln)
-    if tables is None:
-        flops = work["visits"] * (n_sph * FLOPS_SPHERE + n_pln * FLOPS_PLANE)
-    else:
-        n_sph_chunks = tables.n_sph_pad // 32
-        flops = (work["chunks"] * 32 * FLOPS_SPHERE_ROW
-                 + work["visits"] * (n_sph_chunks * FLOPS_BOUND
-                                     + n_pln * FLOPS_PLANE))
-        nbytes += 20 * tables.table.shape[0]
-    return bound(flops * n_lanes, nbytes)
-
-
 # the linear kernel's three small instances, as their mangled names hold
 # the template arguments <LIT, LARGE, SKY>
 K1_INSTANCES = {"lean": "megakernel_linearILb0ELi0ELb0E",
@@ -657,6 +561,26 @@ def ptxas_registers(log: str, instance: str):
     return int(m.group(1)) if m else None
 
 
+def ptxas_frame(log: str, instance: str):
+    """The stack frame (bytes) ptxas gave the kernel instance ``instance``,
+    from the build's -v report; None without one."""
+    m = re.search(re.escape(instance) + r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*?(\d+) "
+                  r"bytes stack frame", log)
+    return int(m.group(1)) if m else None
+
+
+@contextlib.contextmanager
+def forced_slab(megakernel):
+    """Every tree through the tree kernel's slab, whatever its stack: to
+    check and time the slab where a local-memory stack is the instance."""
+    own = megakernel.tree_instance
+    megakernel.tree_instance = lambda cap: megakernel.TREE_SLAB
+    try:
+        yield
+    finally:
+        megakernel.tree_instance = own
+
+
 def sm_clock_hz() -> float:
     """The card's highest SM clock, as nvidia-smi reports it."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -689,6 +613,19 @@ def k1_report(label, instance, spec, n_lanes, work, ms, sass, log, smi):
           f"ms, {b_ms / ms:.3f} of the bound, {issue_ms / ms:.3f} of the "
           f"issue figure; on {smi}")
     return b_ms, b_by
+
+
+def trace_names(path: str) -> dict:
+    """The event names of a Chrome trace that torch.profiler wrote, by
+    category ("kernel": the device's kernels; "user_annotation": the
+    record_function ranges)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if "cat" in e and "name" in e:
+            out.setdefault(e["cat"], set()).add(e["name"])
+    return out
 
 
 def nvidia_smi() -> str:
@@ -824,7 +761,8 @@ def device_ms(fn, reps: int, name_part: str = "", per_call: int = 1) -> float:
             torch.cuda.synchronize()
         events = prof.key_averages()
         rows = [e for e in events
-                if e.device_type == DeviceType.CUDA and name_part in e.key]
+                if e.device_type == DeviceType.CUDA and name_part in e.key
+                and not is_range(e)]
         us = sum(e.self_device_time_total for e in rows)
         seen = sum(e.count for e in rows)
         if us > 0 and (not name_part or seen == reps * per_call):
@@ -836,6 +774,17 @@ def device_ms(fn, reps: int, name_part: str = "", per_call: int = 1) -> float:
     # not a fault of the port, and no reading either
     print("    (no whole recording from the profiler: nan below)")
     return float("nan")
+
+
+def is_range(event) -> bool:
+    """Whether a profiler event is a record_function range (the port's
+    phase and kernel ranges, utils/profiling.py), whose device rows span
+    the kernels they hold and are no device work of their own."""
+    from raytrace_tpu_torch.ops import _build
+    from raytrace_tpu_torch.utils import profiling
+
+    return bool(getattr(event, "is_user_annotation", False)) or (
+        event.key in profiling.RANGES + _build.KERNELS)
 
 
 def device_busy_ms(fn) -> float:
@@ -855,7 +804,7 @@ def device_busy_ms(fn) -> float:
         fn()
         torch.cuda.synchronize()
     records = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
+                      if e.device_type == DeviceType.CUDA and not is_range(e)),
                      key=lambda e: e.time_range.start)
     return sum(e.device_time_total for e in records[64:]) / 1e3
 
@@ -1112,6 +1061,8 @@ def run_ranks(out_dir: str, timeout: float = 420.0) -> list:
 
 
 def main() -> int:
+    # a line at a time, so that a run cut at its time limit shows where
+    sys.stdout.reconfigure(line_buffering=True)
     # ---- phase 1: device ----
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
@@ -1119,6 +1070,13 @@ def main() -> int:
     smi = nvidia_smi()
     print(f"[1] device: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    from raytrace_tpu_torch.utils import gpu_info
+    props = torch.cuda.get_device_properties(0)
+    peaks = gpu_info.peaks(props)  # raises for a card it does not know
+    if peaks is not H100_SXM:
+        raise AssertionError(f"the bounds are the {H100_SXM.name}'s")
+    print(f"    as the runtime reports it: {gpu_info.card(props)}; its "
+          f"published peaks (the bounds' figures): {peaks.source}")
 
     from raytrace_tpu_torch import cli, optim
     from raytrace_tpu_torch.models import backgrounds
@@ -1186,6 +1144,30 @@ def main() -> int:
                 print(f"    {inst.group(1)}<{', '.join(args)}>:")
             elif "registers" in line or "stack frame" in line:
                 print(f"      {line.strip()}")
+    # the fold's staging limit, derived from the card and the scan
+    # kernel's registers, and what it stages
+    scan_attrs = [(ctypes.c_int * 4)() for _ in (0, 1)]
+    for staged_form, attrs in enumerate(scan_attrs):
+        if intersect_scan._lib().rt_scan_hit_attrs(staged_form, attrs) != 0:
+            raise AssertionError("cudaFuncGetAttributes failed")
+    fold_limit = intersect_scan.fold_shared_max_bytes()
+    staged = {}
+    for n_sph in (1000, 4000):
+        fsc = make_sphere_field(n_sph, mix_materials=False, device=device)
+        chunks = scene_tables(fsc.data, fsc.spec).table.shape[0] // 32
+        other = megakernel.scene_shared_bytes(fsc.spec)
+        staged[n_sph + 6] = (intersect_scan.fold_bytes(chunks) + other,
+                             intersect_scan.fold_in_shared(chunks, other))
+    card_info = gpu_info.card(props)
+    print(f"    the fold's staging limit: {fold_limit} B, from "
+          f"{card_info.shared_per_sm} B of shared memory an SM and the scan "
+          f"kernel's {scan_attrs[0][0]} registers with its table in device "
+          f"memory ({gpu_info.resident_blocks(card_info, scan_attrs[0][0], 256)} "
+          f"blocks of 256 threads an SM; {scan_attrs[1][0]} registers and "
+          f"{gpu_info.resident_blocks(card_info, scan_attrs[1][0], 256)} blocks "
+          f"with it staged); (bytes, staged) per field: {staged}")
+    if not (staged[1006][1] and not staged[4006][1]):
+        raise AssertionError("the derived limit stages other fields")
     # the skybox faces packed for the lookup, at the test cube's shape: what
     # they take on the card and what one packing costs
     cube = torch.rand((6, 1024, 1024, 3), generator=torch.Generator(
@@ -1203,8 +1185,12 @@ def main() -> int:
     # the lines of the closing "kernels" object: the four kernels, and
     # apart the render kernels' large instances (the in-kernel table fold)
     # and their skybox instances (the lookup where a ray misses)
+    # and the tree kernel's deep stacks: in local memory at 128 and 256
+    # entries, and in the slab above that
+    k_tree_128, k_tree_256 = k_tree + " (stack 128)", k_tree + " (stack 256)"
+    k_tree_slab = k_tree + " (slab)"
     rows = (k_lin, k_tree, k_lin_large, k_tree_large, k_scan, k_sky,
-            k_lin_sky, k_tree_sky)
+            k_lin_sky, k_tree_sky, k_tree_128, k_tree_256, k_tree_slab)
     max_err = {k: 0.0 for k in rows}
 
     # ---- phase 3: the linear kernel vs plain version on the card ----
@@ -1254,6 +1240,45 @@ def main() -> int:
           f"{done['seconds_profiled']} s under the profiler, the device busy "
           f"{done['device_busy']:.3f} of that), launches {launches}, mean "
           f"radiance {done['mean_radiance']:.6f}, BMP {size} B")
+    # the same render with --profile: its trace names K1's kernel (the
+    # device's record and the wrapper's range); then a one-rank sharded
+    # step, whose backward runs the plain path, recorded the same way,
+    # names the five phases
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        rc = cli.main([SCENE, "-o", os.path.join(tmp, "p.bmp"), "--spp", "16",
+                       "--device", "cuda", "--profile", trace_dir, "-q"])
+        prof_wall = time.perf_counter() - t0
+        path = os.path.join(trace_dir, "trace.json")
+        if rc != 0 or not os.path.exists(path):
+            raise AssertionError(f"the CLI with --profile exited {rc}")
+        names = trace_names(path)
+        kernels = [n for n in names.get("kernel", ()) if k_lin in n]
+        print(f"    --profile: {prof_wall:.2f} s wall, a {os.path.getsize(path)} "
+              f"B trace; its device kernels named {k_lin}: {kernels}; its "
+              f"ranges: {sorted(names.get('user_annotation', ()))}")
+        if not kernels or k_lin not in names.get("user_annotation", ()):
+            raise AssertionError("the trace does not name K1")
+        from torch.profiler import profile as torch_profile
+
+        from raytrace_tpu_torch.parallel.mesh import Mesh
+        from raytrace_tpu_torch.utils.profiling import trace_activities
+        step_data, step_spec, px, py, sids, target = step_inputs(device)
+        step = optim.make_sharded_step(step_spec, Mesh(device), SEED)
+        with torch_profile(activities=trace_activities(device)) as prof:
+            step(step_data, px, py, sids, target)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(tmp, "step.json"))
+        ranges = trace_names(os.path.join(tmp, "step.json")).get(
+            "user_annotation", set())
+        want_ranges = {"raygen", "intersect", "shade", "background",
+                       "grad_psum", k_lin}
+        print(f"    a one-rank sharded step under the profiler: ranges "
+              f"{sorted(ranges)}")
+        if not want_ranges <= ranges:
+            raise AssertionError(f"the step's trace lacks "
+                                 f"{sorted(want_ranges - ranges)}")
 
     # ---- phase 5: throughput at 2,097,152 lanes per launch ----
     spec_b = dataclasses.replace(spec, width=1024, height=1024)
@@ -1615,9 +1640,8 @@ def main() -> int:
         entered = counted[3].float().mean().item()
         union = counted[4].reshape(-1, 32, n_sph_chunks).any(dim=1).sum(
             dim=1).float().mean().item()
-        b_ms, b_by = bound(
-            n * (entered * 32 * FLOPS_SPHERE_ROW + n_sph_chunks * FLOPS_BOUND
-                 + 5 * FLOPS_PLANE), 33 * n + 20 * tb.table.shape[0])
+        b_ms, b_by = bound(*scan_counts(n, entered, n_sph_chunks, 5,
+                                        tb.table.shape[0]))
         print(f"    scan kernel, {n_sph + 6} objects, the launch's camera "
               f"rays: {ms:.4f} ms/call, {dev:.4f} ms on the device; plain "
               f"{plain_ms:.1f} ms (one run); a ray enters {entered:.2f} of "
@@ -1721,7 +1745,7 @@ def main() -> int:
     bounds[k_sky] = bound(FLOPS_SKY * n, (24 + SKY_TEXEL_BYTES) * n)
     # what a random direction must take from device memory: two rows of a
     # face, at least one 32-byte sector each, beside its own 24 B
-    floor_ms = (24 + 64) * n / PEAK_BYTES * 1e3
+    floor_ms = (24 + 64) * n / H100_SXM.mem_bytes * 1e3
     sass = k4_sass(cuobjdump_sass(_build.library_path(k_sky)))
     print(f"    random directions: kernel {ms:.4f} ms/call (runs "
           f"{[round(x, 4) for x in times['kernel']]}), {k_dev:.4f} ms on the "
@@ -2225,11 +2249,180 @@ def main() -> int:
               f"(largest excess {worst:.2e}); launches {r['launches']}")
         if loss_rel > STEP_RTOL or worst > 0:
             raise AssertionError("the sharded step differs")
+
+    # ---- phase 21: deep trees, K3's stacks above 64 entries ----
+    print(f"[21, {at()}] deep fan-out trees: the tree kernel's 128- and "
+          f"256-entry stacks and its slab, vs the plain version to the bit:")
+    torch.cuda.empty_cache()
+    deep_launches = {}
+    slab_vs_local = []
+    deep_rows = {128: k_tree_128, 256: k_tree_256,
+                 megakernel.TREE_SLAB: k_tree_slab}
+    tree_log = _build.build_logs.get(k_tree, "")
+    for samples in DEEP_SAMPLES:
+        text = INDIRECT4.replace("samples: 4", f"samples: {samples}")
+        field_text = sphere_field_source(1000, mix_materials=False).replace(
+            "samples: 1", f"samples: {samples}")
+        variants = {"solid": text, "sky": under_the_sky(text),
+                    "1,006-object field": field_text}
+        for vname, vtext in variants.items():
+            path = os.path.join(sky_tmp.name, f"deep_{samples}_{vname[:3]}.txt")
+            with open(path, "w") as f:
+                f.write(vtext)
+            sc = load_scene_file(path, device=device)
+            sc = dataclasses.replace(sc, spec=dataclasses.replace(
+                sc.spec, max_depth=0))
+            m, levels, nodes, cap = tree_loop_stack(sc.spec)
+            inst = megakernel.tree_instance(cap)
+            row = deep_rows[inst]
+            large = 0
+            if megakernel.is_large(sc.spec):
+                large = 1 + int(intersect_scan.fold_in_shared(
+                    scene_tables(sc.data, sc.spec).table.shape[0] // 32,
+                    megakernel.scene_shared_bytes(sc.spec)))
+            attrs = megakernel.tree_instance_attrs(inst, large,
+                                                   vname == "sky")
+            mangled = (f"megakernel_treeILi{inst}ELi{large}"
+                       f"ELb{int(vname == 'sky')}E")
+            n = 16384 if vname == "solid" and samples < 256 else 4096
+            lanes = random_lanes(sc.spec, n, SEED, device)
+            t0 = time.perf_counter()
+            want = megakernel.radiance_lanes_reference(sc.data, sc.spec,
+                                                       *lanes, SEED)
+            print(f"    {samples}-sample IndirectPhong, {vname}, max_depth 0: "
+                  f"m={m}, {nodes} nodes, stack {cap}, instance "
+                  f"{'slab' if inst == megakernel.TREE_SLAB else inst} "
+                  f"({mangled}: {ptxas_registers(tree_log, mangled)} "
+                  f"registers, {ptxas_frame(tree_log, mangled)} B stack "
+                  f"frame; the runtime: {attrs}); {n} random lanes:")
+            stats = check_kernel(megakernel, k_tree, sc.data, sc.spec, lanes,
+                                 SEED, f"{vname}, its own instance", want)
+            max_err[row] = max(max_err[row], stats["max_abs_err"])
+            if inst != megakernel.TREE_SLAB:
+                # the same lanes through the slab form
+                with forced_slab(megakernel):
+                    stats = check_kernel(megakernel, k_tree, sc.data,
+                                         sc.spec, lanes, SEED,
+                                         f"{vname}, the slab form", want)
+                max_err[k_tree_slab] = max(max_err[k_tree_slab],
+                                           stats["max_abs_err"])
+            print(f"    ({time.perf_counter() - t0:.2f} s)")
+            if vname != "solid":
+                continue
+            # DEEP_LANES random lanes: the kernel (and, where a local stack
+            # is the instance, the slab form, in turns), then one plain run,
+            # which every timed output is held against
+            big = [t.to(torch.int32)
+                   for t in random_lanes(sc.spec, DEEP_LANES, SEED, device)]
+
+            def kernel():
+                return megakernel.radiance_lanes(sc.data, sc.spec, *big, 0)
+
+            def plain():
+                return megakernel.radiance_lanes_reference(sc.data, sc.spec,
+                                                           *big, 0)
+
+            forms = ["own", "slab", "slab", "own"] if (
+                inst != megakernel.TREE_SLAB) else ["own", "own"]
+            times = {"own": [], "slab": []}
+            outs = {}
+            for form in forms:
+                if form == "slab":
+                    with forced_slab(megakernel):
+                        times[form].append(ms_per_launch(kernel, 1, 3))
+                        outs[form] = kernel()
+                else:
+                    times[form].append(ms_per_launch(kernel, 1, 3))
+                    outs[form] = kernel()
+            plain_ms, want = once_ms(plain)
+            for form, out in outs.items():
+                print(f"    {DEEP_LANES} lanes, {form} form vs the plain run:")
+                compare(out, want, exact=True)
+            del want, outs
+            torch.cuda.empty_cache()
+            work = path_work(sc.data, sc.spec, big, 0)
+            b = render_bound(sc.spec, DEEP_LANES, work)
+            ms = min(times["own"])
+            timing[row] = (ms, plain_ms)
+            bounds[row] = b
+            if times["slab"]:
+                slab_vs_local.append((cap, ms, min(times["slab"])))
+            print(f"    {samples}-sample, {DEEP_LANES} random lanes: kernel "
+                  f"{ms:.4f} ms/call (runs {[round(x, 4) for x in times['own']]}"
+                  f"), slab form {[round(x, 4) for x in times['slab']]}; "
+                  f"plain {plain_ms:.1f} ms (one run); needs "
+                  f"{work['visits']:.3f} live nodes per lane, "
+                  f"{work['warp_visits']:.3f} the largest of a warp; bound "
+                  f"{b[0]:.4f} ms ({b[1]}); on {smi}")
+    if any(r not in timing for r in deep_rows.values()):
+        raise AssertionError("a deep instance was not timed")
+    # a tree that returns: the 16-sample sphere over the mirror floor at
+    # max_depth 4, through its 128-entry stack and through the slab
+    sc = build_scene(dsl.parse(INDIRECT4.replace("samples: 4",
+                                                 "samples: 16")), device=device)
+    cap = tree_loop_stack(sc.spec)[3]
+    big = [t.to(torch.int32)
+           for t in random_lanes(sc.spec, 1 << 16, SEED, device)]
+
+    def kernel():
+        return megakernel.radiance_lanes(sc.data, sc.spec, *big, 0)
+
+    times, outs = {"own": [], "slab": []}, {}
+    for form in ("own", "slab", "slab", "own"):
+        with (forced_slab(megakernel) if form == "slab"
+              else contextlib.nullcontext()):
+            times[form].append(ms_per_launch(kernel, 1, 2))
+            outs[form] = kernel()
+    same = all(torch.equal(a, b) for a, b in zip(outs["own"], outs["slab"]))
+    slab_vs_local.append((cap, min(times["own"]), min(times["slab"])))
+    print(f"    16-sample sphere over the mirror floor at max_depth 4 (stack "
+          f"{cap}, instance {megakernel.tree_instance(cap)}), 65,536 random "
+          f"lanes: own {[round(x, 4) for x in times['own']]} ms, slab "
+          f"{[round(x, 4) for x in times['slab']]} ms, equal to the bit: "
+          f"{same}")
+    if not same:
+        raise AssertionError("the slab and the local stack differ")
+    print(f"    local stack against the slab, (stack, local ms, slab ms): "
+          f"{slab_vs_local}; on {smi}")
+    # the CLI at the fixed max_depth 4, one scene per instance
+    for samples in DEEP_CLI_SPHERE + DEEP_CLI_FLOOR:
+        on_floor = samples in DEEP_CLI_FLOOR
+        text = (INDIRECT_FLOOR.replace("SAMPLES", str(samples)) if on_floor
+                else INDIRECT4.replace("samples: 4", f"samples: {samples}"))
+        path = os.path.join(sky_tmp.name, f"deep_cli_{samples}.txt")
+        with open(path, "w") as f:
+            f.write(text)
+        sc = load_scene_file(path, device=device)
+        cap = tree_loop_stack(sc.spec)[3]
+        row = deep_rows[megakernel.tree_instance(cap)]
+        # thousands of live nodes a lane over the mirror floor: a small image
+        w, h, spp = DEEP_CLI_IMAGE
+        spec_cli = dataclasses.replace(sc.spec, width=w, height=h)
+        done, wall, launches, size = cli_render(
+            cli, megakernel, k_tree, path,
+            ["--width", str(w), "--height", str(h), "--spp", str(spp)],
+            spec_cli)
+        deep_launches[row] = launches[k_tree]
+        print(f"    CLI, "
+              + (f"a {samples}-sample IndirectPhong floor under a matte "
+                 f"Phong sphere" if on_floor else
+                 f"a {samples}-sample IndirectPhong sphere over a mirror "
+                 f"Phong floor")
+              + f" at max_depth 4 (stack {cap}, {row}): "
+              f"{w}x{h} x {spp} spp: "
+              f"{wall:.2f} s wall, {done['seconds']} s render "
+              f"({done['seconds_profiled']} s under the profiler, the device "
+              f"busy {done['device_busy']:.3f} of that), launches {launches}, "
+              f"mean radiance {done['mean_radiance']:.6f}, BMP {size} B, "
+              f"on {smi}")
     sky_tmp.cleanup()
 
-
+    if set(deep_launches) != set(deep_rows.values()):
+        raise AssertionError("the CLI did not render through every deep "
+                             "instance")
     launches = {k_lin: lin_launches, k_tree: tree_launches,
-                k_scan: scan_launches, **large_launches, **sky_launches}
+                k_scan: scan_launches, **large_launches, **sky_launches,
+                **deep_launches}
     # the pallas_call of the render kernel, in its linear regime, its
     # fan-out regimes (radiance_tree_v traced in _kernel, :424, and
     # _tree_loop_scratch, :509) and its large regimes (the in-kernel table
@@ -2241,7 +2434,8 @@ def main() -> int:
     replaces = {k_lin: call, k_tree: call,
                 k_lin_large: fold, k_tree_large: fold,
                 k_scan: "raytrace_tpu/ops/intersect_pallas.py:302",
-                k_sky: call, k_lin_sky: call, k_tree_sky: call}
+                k_sky: call, k_lin_sky: call, k_tree_sky: call,
+                k_tree_128: call, k_tree_256: call, k_tree_slab: call}
     # what launched each row's count: the scan kernel's, the CLI with
     # --shard-objects (the ring) on the 1,006-object linear field; the
     # skybox kernel's, a ring render under the sky (the skybox lookup's

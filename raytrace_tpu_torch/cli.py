@@ -2,15 +2,18 @@
 
 Same positional argument and flags as ``raytrace_tpu.cli``, plus
 ``--device``.  On ``--device cuda`` every lane goes through a CUDA
-megakernel (the linear one or the tree one; a skybox scene's faces are
-loaded from the image files it names, relative to the scene file), and
-a machine without a usable GPU is an error, never a silent CPU render.
-``--device cpu`` renders every scene through the kernels' plain
-version, ``--f64`` (float64, CPU only, as in the JAX package's CLI) and
-fan-out trees of any depth included.  ``--shard`` shards the pixels over
-the ranks of the process group, ``--shard-objects`` the objects too (a
-ring, whose steps are the CUDA scan kernel).  Run as several processes
-under the environment protocol of
+megakernel (the linear one or the tree one, for fan-out trees of any
+depth; a skybox scene's faces are loaded from the image files it names,
+relative to the scene file), and a machine without a usable GPU is an
+error, never a silent CPU render.  ``--device cpu`` renders every scene
+through the kernels' plain version, ``--f64`` (float64, CPU only, as in
+the JAX package's CLI) included.  ``--profile DIR`` records the render
+with ``torch.profiler`` and writes a Chrome trace into DIR, whose ranges
+name the render phases and the kernels
+(:mod:`raytrace_tpu_torch.utils.profiling`).  ``--shard`` shards the
+pixels over the ranks of the process group, ``--shard-objects`` the
+objects too (a ring, whose steps are the CUDA scan kernel).  Run as
+several processes under the environment protocol of
 :func:`raytrace_tpu_torch.parallel.mesh.maybe_init_distributed`, each
 rank renders its band of rows into the one BMP.
 
@@ -22,15 +25,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
 import numpy as np
-
-# flags of the JAX CLI whose feature is not in the port yet
-_UNPORTED = {
-    "profile": "--profile is not ported yet (ROADMAP item 5)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,8 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "pixel sharding")
     p.add_argument("--checkpoint", default=None,
                    help="npz path for resumable rendering state")
-    p.add_argument("--profile", default=None,
-                   help="write a profiler trace (not ported yet)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (Chrome's format) "
+                        "of the render into this directory")
     p.add_argument("--log-json", default=None,
                    help="append structured log events to this JSONL file")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -72,10 +72,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, msg in _UNPORTED.items():
-        if getattr(args, flag):
-            print(f"error: {msg}", file=sys.stderr)
-            return 2
     if args.f64 and args.device == "cuda":
         print("error: --f64 renders on the CPU, as in the reference: use "
               "--device cpu (ROADMAP item 12)", file=sys.stderr)
@@ -123,6 +119,7 @@ def main(argv=None) -> int:
     if overrides:
         spec = dataclasses.replace(spec, **overrides)
         scene = dataclasses.replace(scene, spec=spec)
+    # the kernels take every float32 scene; float64 was refused above
     reason = megakernel.unsupported_reason(scene.data, spec)
     if reason is not None and device.type == "cuda":
         print(f"error: {reason}", file=sys.stderr)
@@ -141,6 +138,7 @@ def main(argv=None) -> int:
             print(f"\r[raytrace_tpu_torch] render {100 * frac:5.1f}%",
                   end="", file=sys.stderr, flush=True)
 
+    prof = _start_profile(device) if args.profile else None
     launches0 = sum(megakernel.LAUNCHES.values())
     t0 = time.perf_counter()
     if multiproc:
@@ -151,6 +149,9 @@ def main(argv=None) -> int:
         render_to_bmp_multihost(scene, args.output, seed=args.seed, spp=spp,
                                 max_lanes=args.max_lanes, progress=progress)
         dt = time.perf_counter() - t0
+        if prof is not None:
+            _stop_profile(prof, device, args.profile, log,
+                          f"trace_rank{meshlib.process_index()}.json")
         if not args.quiet:
             print("", file=sys.stderr)
         log.event("render_done", seconds=round(dt, 3),
@@ -172,6 +173,8 @@ def main(argv=None) -> int:
     img = render(scene, seed=args.seed, spp=spp, max_lanes=args.max_lanes,
                  progress=progress, checkpoint=args.checkpoint)
     dt = time.perf_counter() - t0
+    if prof is not None:
+        _stop_profile(prof, device, args.profile, log, "trace.json")
     if not args.quiet:
         print("", file=sys.stderr)
     # one ray = one closest-hit round; a primary sample runs max_depth+2
@@ -189,6 +192,39 @@ def main(argv=None) -> int:
             srgb = colorlib.to_srgb(torch.from_numpy(clipped)).numpy()
             write_bmp(args.output, srgb)
     return 0
+
+
+def _start_profile(device):
+    """A started ``torch.profiler`` recording of the CPU and, on a card,
+    the device."""
+    import torch
+    from torch.profiler import profile
+
+    from raytrace_tpu_torch.utils.profiling import trace_activities
+
+    prof = profile(activities=trace_activities(device))
+    prof.start()
+    if device.type == "cuda":
+        # a recording made after large ones loses its first device records
+        # (PERF.md, §6): 64 trivial kernels go first, so that what it
+        # loses is theirs and not the render's
+        scratch = torch.zeros(1, device=device)
+        for _ in range(64):
+            scratch.add_(1.0)
+    return prof
+
+
+def _stop_profile(prof, device, directory: str, log, name: str) -> None:
+    """Stop the recording and write it into ``directory`` as ``name``."""
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, name)
+    prof.export_chrome_trace(path)
+    log.event("profile", path=path)
 
 
 if __name__ == "__main__":

@@ -45,11 +45,30 @@
 //
 // The stack holds entries of 13 words (ray 6, significance, throughput 3,
 // two key words, depth) and never more than (levels - 1)(m - 1) of them,
-// the node in registers not counted.  It lies in local memory, a per-thread
-// array of CAP entries (CAP the power of two at or above 1 + (levels-1)(m-1),
-// render/megakernel.py::tree_instance).  With only live entries on it the
-// stack's traffic no longer counts: a stack laid thread-minor in shared
-// memory was the slower on every scene timed (PERF.md) and is not built.
+// the node in registers not counted.  Up to 256 entries it lies in local
+// memory, a per-thread array of CAP entries (CAP the power of two at or
+// above 1 + (levels-1)(m-1), render/megakernel.py::tree_instance).  With
+// only live entries on it the stack's traffic no longer counts: a stack laid
+// thread-minor in shared memory was the slower on every scene timed
+// (PERF.md) and is not built.
+//
+// Deeper stacks (a 129-sample IndirectPhong material at the fixed max_depth
+// 4 needs 641 entries, 33 KB a thread) take the slab instance (CAP 0): the
+// stack lies in a slab of device memory that the wrapper allocates, word k
+// of entry i of thread t at slab[(i * 13 + k) * T + t] for the grid's T
+// threads, as the runtime lays out local memory, and the grid strides over
+// the lanes.  The runtime reserves a local array for every thread that can
+// be resident on the card, so at 256 entries a launch holds 13.3 KB x 2,048
+// x 132 = 3.6 GB of device memory until the process ends, and at 5,116
+// entries (1,024 samples) it would hold 72 GB.  The slab is sized by the
+// threads of the grid, which are those that can be resident (the
+// occupancy of the instance) and no more, and never above the wrapper's
+// budget: the grid then has fewer threads and each walks more lanes, a
+// warp taking the next 32 from a counter whenever it comes free.
+// Between 65 and 256 entries both forms work; the local ones ship there
+// because the card found them 5-14% faster (chip_smoke.py's deep-tree
+// phase runs such trees through both, in turns; PERF.md), presumably since
+// a store to the slab goes through to L2 where a local one stays in L1.
 //
 // This file is compiled with -fmad=false (ops/_build.py, KERNEL_FLAGS).  A
 // lane of a wide tree visits hundreds of nodes (601 for 24 indirect samples
@@ -69,13 +88,23 @@ constexpr int ENTRY_WORDS = 13;
 
 // the stack in local memory: CAP entries of this thread's own
 template <int CAP>
-struct Stack {
+struct LocalStack {
   uint32_t w[CAP][ENTRY_WORDS];
   __device__ __forceinline__ uint32_t& at(int i, int k) { return w[i][k]; }
 };
 
-template <int CAP>
-__device__ __forceinline__ void put(Stack<CAP>& st, int i, const Node& e, int depth) {
+// the stack in the slab: this thread's words `stride` apart, so that the
+// threads of a warp at one depth of their stacks read one line together
+struct SlabStack {
+  uint32_t* base;  // the slab plus the thread's index in the grid
+  long long stride;  // the grid's threads
+  __device__ __forceinline__ uint32_t& at(int i, int k) {
+    return base[(long long)(i * ENTRY_WORDS + k) * stride];
+  }
+};
+
+template <class Stack>
+__device__ __forceinline__ void put(Stack& st, int i, const Node& e, int depth) {
   st.at(i, 0) = __float_as_uint(e.ox);
   st.at(i, 1) = __float_as_uint(e.oy);
   st.at(i, 2) = __float_as_uint(e.oz);
@@ -91,8 +120,8 @@ __device__ __forceinline__ void put(Stack<CAP>& st, int i, const Node& e, int de
   st.at(i, 12) = (uint32_t)depth;
 }
 
-template <int CAP>
-__device__ __forceinline__ void get(Stack<CAP>& st, int i, Node& e, int& depth) {
+template <class Stack>
+__device__ __forceinline__ void get(Stack& st, int i, Node& e, int& depth) {
   e.ox = __uint_as_float(st.at(i, 0));
   e.oy = __uint_as_float(st.at(i, 1));
   e.oz = __uint_as_float(st.at(i, 2));
@@ -117,44 +146,27 @@ __device__ __forceinline__ void get(Stack<CAP>& st, int i, Node& e, int& depth) 
 // blocks of 256 the large ones to 64 (left alone 104-107 registers and 25%
 // slower on the mixed field; at 80 registers, 10% slower).  The deeper
 // stacks serve wide trees, most of whose nodes are live; those walks ran
-// 10-12% slower at 64 registers than at 80, so they keep room for 6 blocks.
+// 10-12% slower at 64 registers than at 80, so they keep room for 6 blocks,
+// as do the 128- and 256-entry instances and the slab (CAP 0), whose trees
+// are wider still.
 constexpr int TREE_MIN_BLOCKS = 8, TREE_LARGE_MIN_BLOCKS = 4;
 constexpr int tree_min_blocks(int cap, int large) {
-  return large != 0 ? TREE_LARGE_MIN_BLOCKS : cap <= 8 ? TREE_MIN_BLOCKS : 6;
+  return large != 0 ? TREE_LARGE_MIN_BLOCKS : (cap > 0 && cap <= 8) ? TREE_MIN_BLOCKS : 6;
 }
 
-// CAP: the entries of the stack.  LARGE as shade_node takes it.
-template <int CAP, int LARGE, bool SKY>
-__global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
-                                  tree_min_blocks(CAP, LARGE))
-megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
-                const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                const float* __restrict__ scene, const void* __restrict__ fold, int n_sph_chunks,
-                int n_chunks, Sky sky, int n_obj, int n_light, int max_depth,
-                int has_reflect, int has_refract, int n_indirect, int dof, int m,
-                uint32_t seed, float* __restrict__ out, long long n) {
-  extern __shared__ float4 smem[];
-  float* s = (float*)smem;
-  // shared memory: the scene's header and lights (and a small scene's
-  // rows), then a large scene's fold buffer when it is staged
-  char* behind = (char*)smem + scene_bytes(LARGE != 0 ? 0 : n_obj, n_light);
-  const void* fold_at = fold;
-  if constexpr (LARGE == 2) {
-    stage_fold(fold, behind, n_chunks);
-    fold_at = behind;
-  }
-  stage_scene(scene, s, LARGE != 0 ? 0 : n_obj, n_light);
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // the threads of this warp that have a lane: they stay in the loop below
-  // until the last of them is done, so that each round's node bodies start
-  // together and the folds of a large scene find all their peers
-  const unsigned warp = __ballot_sync(0xFFFFFFFFu, lane < n);
-  if (lane >= n) return;
-  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene,
-                 make_tables(fold_at, n_sph_chunks, n_chunks), sky};
+// one lane's walk: its radiance into out (x, then y, then z).  `warp`
+// holds the threads of this warp that walk a lane now: they stay in the
+// loop until the last of them is done, so that each round's node bodies
+// start together and the folds of a large scene find all their peers
+template <int LARGE, bool SKY, class Stack>
+__device__ __forceinline__ void walk_lane(const Scene& sc, const float* s, Stack& stack,
+                                          unsigned warp, long long lane,
+                                          const uint32_t* __restrict__ pix,
+                                          const uint32_t* __restrict__ piy,
+                                          const uint32_t* __restrict__ aa,
+                                          const uint32_t* __restrict__ cam, int dof, int m,
+                                          uint32_t seed, float* __restrict__ out, long long n) {
   const bool direct = sc.slots() <= m;  // slot j is child j
-
-  Stack<CAP> stack;
   int sp = 0;
   Node e = primary_ray<LARGE != 0>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, dof);
   int depth = 0;
@@ -202,23 +214,97 @@ megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ p
   out[2 * n + lane] = accz;
 }
 
+// CAP: the entries of the stack in local memory, or 0 for the slab (then
+// every warp of the grid takes the next 32 lanes from the counter `next`
+// until none is left, each thread's stack at slab + its index in the
+// grid).  LARGE as shade_node takes it.
 template <int CAP, int LARGE, bool SKY>
-int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const uint32_t* cam,
-           const float* scene, const void* fold, int n_sph_chunks, int n_chunks,
-           const Sky& sky, int n_obj, int n_light, int max_depth, int has_reflect,
-           int has_refract, int n_indirect, int dof, int m, uint32_t seed, float* out,
-           long long n, cudaStream_t stream) {
-  const int threads = LARGE != 0 ? LARGE_THREADS : THREADS;
-  const long long blocks = (n + threads - 1) / threads;
-  const size_t smem = scene_bytes(LARGE != 0 ? 0 : n_obj, n_light)
-                      + (LARGE == 2 ? fold_bytes(n_chunks) : 0);
-  cudaError_t err = cudaFuncSetAttribute(megakernel_tree<CAP, LARGE, SKY>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  megakernel_tree<CAP, LARGE, SKY><<<(unsigned)blocks, threads, smem, stream>>>(
-      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj, n_light, max_depth,
-      has_reflect, has_refract, n_indirect, dof, m, seed, out, n);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
+                                  tree_min_blocks(CAP, LARGE))
+megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
+                const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
+                const float* __restrict__ scene, const void* __restrict__ fold, int n_sph_chunks,
+                int n_chunks, Sky sky, int n_obj, int n_light, int max_depth,
+                int has_reflect, int has_refract, int n_indirect, int dof, int m,
+                uint32_t* __restrict__ slab, unsigned long long* __restrict__ next,
+                uint32_t seed, float* __restrict__ out, long long n) {
+  extern __shared__ float4 smem[];
+  float* s = (float*)smem;
+  // shared memory: the scene's header and lights (and a small scene's
+  // rows), then a large scene's fold buffer when it is staged
+  char* behind = (char*)smem + scene_bytes(LARGE != 0 ? 0 : n_obj, n_light);
+  const void* fold_at = fold;
+  if constexpr (LARGE == 2) {
+    stage_fold(fold, behind, n_chunks);
+    fold_at = behind;
+  }
+  stage_scene(scene, s, LARGE != 0 ? 0 : n_obj, n_light);
+  const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene,
+                 make_tables(fold_at, n_sph_chunks, n_chunks), sky};
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (CAP > 0) {
+    const unsigned warp = __ballot_sync(0xFFFFFFFFu, tid < n);
+    if (tid >= n) return;
+    LocalStack<CAP> stack;
+    walk_lane<LARGE, SKY>(sc, s, stack, warp, tid, pix, piy, aa, cam, dof, m, seed, out, n);
+  } else {
+    SlabStack stack{slab + tid, (long long)gridDim.x * blockDim.x};
+    // lanes are taken as the warps come free: a lane's tree can hold
+    // thousands of nodes or one, and a fixed share per warp leaves the
+    // card waiting for the warps that drew the large ones
+    const int lid = threadIdx.x & 31;
+    while (true) {
+      unsigned long long first = 0;
+      if (lid == 0) first = atomicAdd(next, 32ULL);
+      first = __shfl_sync(0xFFFFFFFFu, first, 0);
+      if (first >= (unsigned long long)n) break;
+      const long long lane = (long long)first + lid;
+      const unsigned warp = __ballot_sync(0xFFFFFFFFu, lane < n);
+      if (lane < n)
+        walk_lane<LARGE, SKY>(sc, s, stack, warp, lane, pix, piy, aa, cam, dof, m, seed, out, n);
+    }
+  }
+}
+
+// every instance has this signature
+using TreeKernel = decltype(&megakernel_tree<8, 0, false>);
+
+template <int CAP>
+TreeKernel pick(int large, bool sky) {
+  if (sky)
+    return large == 2 ? megakernel_tree<CAP, 2, true>
+                      : large == 1 ? megakernel_tree<CAP, 1, true> : megakernel_tree<CAP, 0, true>;
+  return large == 2 ? megakernel_tree<CAP, 2, false>
+                    : large == 1 ? megakernel_tree<CAP, 1, false> : megakernel_tree<CAP, 0, false>;
+}
+
+// the instance of `cap` stack entries in local memory (0: the slab), of
+// a large scene's (1, 2: its fold buffer in device or shared memory) or
+// a small one's (0), with or without the skybox; nullptr for another cap
+TreeKernel instance(int cap, int large, bool sky) {
+  switch (cap) {
+    case 0: return pick<0>(large, sky);
+    case 8: return pick<8>(large, sky);
+    case 16: return pick<16>(large, sky);
+    case 32: return pick<32>(large, sky);
+    case 64: return pick<64>(large, sky);
+    case 128: return pick<128>(large, sky);
+    case 256: return pick<256>(large, sky);
+    default: return nullptr;
+  }
+}
+
+int block_threads(int large) { return large != 0 ? LARGE_THREADS : THREADS; }
+
+// dynamic shared memory of a block, set as the kernel's limit
+cudaError_t prepare(TreeKernel kern, int large, int n_obj, int n_light, int n_chunks,
+                    size_t& smem) {
+  smem = scene_bytes(large != 0 ? 0 : n_obj, n_light) + (large == 2 ? fold_bytes(n_chunks) : 0);
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+int large_mode(int n_chunks, int fold_shared) {
+  return n_chunks > 0 ? (fold_shared ? 2 : 1) : 0;
 }
 
 }  // namespace
@@ -227,11 +313,17 @@ extern "C" {
 
 // Launches on `stream`; allocates nothing.  `out` holds 3 * n floats
 // (x, then y, then z).  `dof` is 1 for the depth-of-field camera, `m` the
-// most children of a node.  `stack_cap` names the instance
-// (render/megakernel.py::tree_instance): 8, 16, 32 or 64 entries.  Returns
-// the launch's cudaError_t, or cudaErrorInvalidValue for another
-// `stack_cap` and for a stack that the scene's (max_depth + 1)(m - 1)
-// entries do not fit.  n_chunks > 0 selects the large instances and a
+// most children of a node.  `stack_cap` is the entries of a thread's
+// stack: with a null `slab`, the local-memory instance of that many
+// (render/megakernel.py::tree_instance: 8, 16, 32, 64, 128 or 256); with a
+// slab, the slab instance, the slab holding stack_cap * 13 words for each
+// of `slab_threads` threads (rt_megakernel_tree_slab_threads), which the
+// grid does not exceed, and `next` one 64-bit counter of lanes taken,
+// which the launch sets to 0 on `stream` first.  Returns the launch's
+// cudaError_t, or cudaErrorInvalidValue for another `stack_cap` and for a
+// stack that does not hold the plain walk's 1 + (max_depth + 1)(m - 1)
+// entries (the kernel keeps one of them, the node it runs, in registers;
+// the rule is tree_instance's).  n_chunks > 0 selects the large instances and a
 // non-null `sky_quads` the skybox instances, with `fold`, `fold_shared`,
 // `scene`, `sky_quads` and `face_hw` as rt_megakernel_linear takes them.
 int rt_megakernel_tree(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
@@ -239,26 +331,70 @@ int rt_megakernel_tree(const uint32_t* pix, const uint32_t* piy, const uint32_t*
                        int n_sph_chunks, int n_chunks, int fold_shared, const float* sky_quads,
                        const int* face_hw, int n_obj, int n_light, int max_depth,
                        int has_reflect, int has_refract, int n_indirect, int dof, int m,
-                       int stack_cap, uint32_t seed, float* out, long long n, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const Sky sky = make_sky(sky_quads, face_hw);
-  if (m < 1 || (max_depth + 1) * (m - 1) > stack_cap)
+                       int stack_cap, uint32_t* slab, long long slab_threads,
+                       unsigned long long* next, uint32_t seed, float* out, long long n,
+                       void* stream) {
+  if (m < 1 || max_depth < -1 || 1 + (long long)(max_depth + 1) * (m - 1) > stack_cap)
     return (int)cudaErrorInvalidValue;
-  const int large = n_chunks > 0 ? (fold_shared ? 2 : 1) : 0;
-#define RT_LAUNCH(C)                                                                          \
-  return (sky_quads != nullptr                                                                \
-              ? (large == 2 ? launch<C, 2, true> : large == 1 ? launch<C, 1, true>            \
-                                                              : launch<C, 0, true>)           \
-              : (large == 2 ? launch<C, 2, false> : large == 1 ? launch<C, 1, false>          \
-                                                               : launch<C, 0, false>))(       \
-      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj, n_light, max_depth, \
-      has_reflect, has_refract, n_indirect, dof, m, seed, out, n, st)
-  if (stack_cap == 8) RT_LAUNCH(8);
-  if (stack_cap == 16) RT_LAUNCH(16);
-  if (stack_cap == 32) RT_LAUNCH(32);
-  if (stack_cap == 64) RT_LAUNCH(64);
-#undef RT_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  const int large = large_mode(n_chunks, fold_shared);
+  const TreeKernel kern = instance(slab != nullptr ? 0 : stack_cap, large, sky_quads != nullptr);
+  const int threads = block_threads(large);
+  long long blocks = (n + threads - 1) / threads;
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  if (slab != nullptr) {
+    if (slab_threads < threads || next == nullptr) return (int)cudaErrorInvalidValue;
+    blocks = blocks < slab_threads / threads ? blocks : slab_threads / threads;
+  }
+  size_t smem;
+  cudaError_t err = prepare(kern, large, n_obj, n_light, n_chunks, smem);
+  if (err == cudaSuccess && slab != nullptr)
+    err = cudaMemsetAsync(next, 0, sizeof(*next), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, make_sky(sky_quads, face_hw),
+      n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, dof, m, slab, next, seed,
+      out, n);
+  return (int)cudaGetLastError();
+}
+
+// The threads of a slab launch of n lanes into *threads: those of the
+// slab instance that the card holds resident at once (its occupancy at
+// this scene's shared memory, on every SM), no more than the lanes need,
+// and no more than `max_bytes` of slab at `stack_cap` entries of 52 bytes
+// a thread allow; a whole number of blocks, at least one.  Returns a
+// cudaError_t.
+int rt_megakernel_tree_slab_threads(int n_obj, int n_light, int n_chunks, int fold_shared,
+                                    int sky, int stack_cap, long long n, long long max_bytes,
+                                    long long* threads) {
+  const int large = large_mode(n_chunks, fold_shared);
+  const TreeKernel kern = instance(0, large, sky != 0);
+  const int tpb = block_threads(large);
+  size_t smem;
+  cudaError_t err = prepare(kern, large, n_obj, n_light, n_chunks, smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, tpb, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1 || stack_cap < 1) return (int)cudaErrorInvalidConfiguration;
+  long long t = (long long)per_sm * sms * tpb;
+  const long long need = (n + tpb - 1) / tpb * tpb;
+  const long long afford = max_bytes / (4LL * ENTRY_WORDS * stack_cap) / tpb * tpb;
+  t = t < need ? t : need;
+  t = t < afford ? t : afford;
+  *threads = t > tpb ? t : tpb;
+  return (int)cudaSuccess;
+}
+
+// What the runtime reports of an instance (rt_megakernel_tree's
+// `stack_cap`, 0 the slab; `large` 0, 1 or 2; `sky` 0 or 1): registers a
+// thread, local memory a thread, static shared memory, and the most
+// threads a block may have, into out[0..3].  Returns a cudaError_t.
+int rt_megakernel_tree_attrs(int stack_cap, int large, int sky, int* out) {
+  const TreeKernel kern = instance(stack_cap, large, sky != 0);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
+  return func_attrs(kern, out);
 }
 
 const char* rt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

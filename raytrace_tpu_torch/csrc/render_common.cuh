@@ -1103,4 +1103,20 @@ __device__ __forceinline__ Node child_node(const Node& e, int slot, float ox, fl
   return c;
 }
 
+// ---- what the runtime reports of a kernel, for the C entries rt_*_attrs:
+// registers a thread, local memory a thread (bytes), static shared memory
+// (bytes) and the most threads a block may have, into out[0..3].  Returns
+// a cudaError_t.
+template <class Kernel>
+__host__ int func_attrs(Kernel kern, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return (int)cudaSuccess;
+}
+
 }  // namespace rt

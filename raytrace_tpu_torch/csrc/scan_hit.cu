@@ -89,6 +89,17 @@ int rt_scan_hit(const void* fold, int n_sph_chunks, int n_chunks, int fold_share
       (cudaStream_t)stream);
 }
 
+// What the runtime reports of the instance that stages the fold buffer in
+// shared memory (`fold_shared` 1) or reads it from device memory (0), as
+// render_common.cuh's func_attrs gives it: registers, local memory and
+// static shared memory of a thread or block, the most threads of a block.
+// ops/intersect_scan.py sizes the staged fold buffer from the registers of
+// the instance that reads it from device memory.
+int rt_scan_hit_attrs(int fold_shared, int* out) {
+  return fold_shared ? func_attrs(scan_hit_kernel<true>, out)
+                     : func_attrs(scan_hit_kernel<false>, out);
+}
+
 const char* rt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

@@ -34,11 +34,13 @@ from raytrace_tpu_torch.ops import _build, intersect
 from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.scene.schema import BG_SKYBOX, SceneData, SceneSpec
+from raytrace_tpu_torch.utils.profiling import BACKGROUND, annotate
 
 # face order in SceneData.bg_cube (scene/builder.py): px nx py ny pz nz
 FACE_PX, FACE_NX, FACE_PY, FACE_NY, FACE_PZ, FACE_NZ = range(6)
 
 
+@annotate(BACKGROUND)
 def background_color_v(data: SceneData, spec: SceneSpec, rd: V3) -> V3:
     """Background radiance for miss rays, component layout (the
     integrators' call at each node): plain PyTorch on every device, except
@@ -58,6 +60,7 @@ def background_color_v(data: SceneData, spec: SceneSpec, rd: V3) -> V3:
     return V3(out[..., 0], out[..., 1], out[..., 2])
 
 
+@annotate(BACKGROUND)
 def background_color(data: SceneData, spec: SceneSpec,
                      rd: torch.Tensor) -> torch.Tensor:
     """Background radiance for miss rays ``rd`` (N, 3) -> (N, 3).  A
@@ -79,7 +82,8 @@ def background_color(data: SceneData, spec: SceneSpec,
             "the skybox kernel is float32; float64 renders on CPU "
             "tensors, as in the reference (ROADMAP item 12)")
     return kernel_forward(lambda c, d: (_launch(c, spec, d),),
-                          lambda c, d: (_skybox(c, spec, d),), cube, rd)[0]
+                          lambda c, d: (_skybox(c, spec, d),), cube, rd,
+                          name=_build.KERNEL_SKY)[0]
 
 
 def _skybox(cube: torch.Tensor, spec: SceneSpec,

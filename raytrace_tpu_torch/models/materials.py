@@ -47,6 +47,7 @@ from raytrace_tpu_torch.models.lights import light_dir_and_sq_range
 from raytrace_tpu_torch.ops import rng, vec
 from raytrace_tpu_torch.ops.intersect import HitRec, occluded_v
 from raytrace_tpu_torch.ops.vec import V3, dot
+from raytrace_tpu_torch.utils.profiling import SHADE, annotate
 from raytrace_tpu_torch.scene.schema import (MAT_FRESNEL, MAT_TRANSPARENT,
                                              SceneData, SceneSpec)
 
@@ -72,6 +73,7 @@ class Child(NamedTuple):
     slot: int              # static slot index (RNG stream derivation)
 
 
+@annotate(SHADE)
 def shade(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, hit: HitRec,
           sig, live, k1, k2, depth: int):
     """Shade one level.  Returns ``(emit: V3, children: list[Child])``:

@@ -36,6 +36,7 @@ import torch
 
 from raytrace_tpu_torch.ops import intersect_scan, vec
 from raytrace_tpu_torch.ops.vec import V3, dot
+from raytrace_tpu_torch.utils.profiling import INTERSECT, annotate
 from raytrace_tpu_torch.scene.schema import (
     MAT_FRESNEL, MAT_INDIRECT_PHONG, MAT_TRANSPARENT, SHAPE_PLANE,
     SHAPE_SPHERE, SceneData, SceneSpec)
@@ -286,6 +287,7 @@ def ring_ctx():
     return _RING_CTX
 
 
+@annotate(INTERSECT)
 def closest_hit(data: SceneData, spec: SceneSpec, ro: V3, rd: V3) -> HitRec:
     """Closest-hit query plus the winner's material row (scene.rs:247-249)."""
     if _RING_CTX is not None:

@@ -34,6 +34,7 @@ import torch
 from raytrace_tpu_torch.ops import _build
 from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.ops.vec import V3
+from raytrace_tpu_torch.utils import gpu_info
 
 OBJ_CHUNK = 32               # table rows per chunk (one bounding sphere each)
 ID_SENTINEL = 2 ** 31 - 1    # id of a lane that hit nothing
@@ -41,12 +42,12 @@ ID_SENTINEL = 2 ** 31 - 1    # id of a lane that hit nothing
 # bytes of a fold buffer per table row and per chunk
 FOLD_ROW_BYTES, FOLD_CHUNK_BYTES = 20, 16
 # the largest fold buffer, with whatever else the block keeps in shared
-# memory, that a kernel stages there: a fifth of what an H100's SM can give
-# its blocks (228 KB, 1 KB of it reserved per block), so that the five
-# blocks of 256 threads that the kernels' 48 registers allow stay resident;
-# a larger table is read from device memory through the read-only cache
-# (at 83 KB, 4,006 objects, staging it left two blocks an SM and cost 17%)
-FOLD_SHARED_MAX_BYTES = 44 * 1024
+# memory, that a kernel stages there; None: derived from the card by
+# fold_shared_max_bytes.  A number set here overrides it (the tools set it
+# to time both places of one table).
+FOLD_SHARED_MAX_BYTES = None
+# the derived limit per CUDA device index
+_fold_limits: dict[int, int] = {}
 
 
 def _chunk_bounds(table: torch.Tensor, n_sph_pad: int,
@@ -122,11 +123,44 @@ def fold_bytes(n_chunks: int) -> int:
     return n_chunks * (OBJ_CHUNK * FOLD_ROW_BYTES + FOLD_CHUNK_BYTES)
 
 
-def fold_in_shared(n_chunks: int, other_bytes: int = 0) -> bool:
-    """Whether a kernel stages the fold buffer of ``n_chunks`` chunks in
-    shared memory, beside ``other_bytes`` that its block keeps there
-    anyway (the scene's header and lights)."""
-    return fold_bytes(n_chunks) + other_bytes <= FOLD_SHARED_MAX_BYTES
+def fold_shared_max_bytes(device=None) -> int:
+    """The largest fold buffer, with whatever else the block keeps in
+    shared memory, that a kernel stages there on a CUDA device (the
+    current one by default): ``FOLD_SHARED_MAX_BYTES`` when set, else
+    :func:`raytrace_tpu_torch.utils.gpu_info.fold_shared_max_bytes` of the
+    card at the registers of the fold at its leanest, the scan kernel
+    reading its table from device memory (``rt_scan_hit_attrs``): the
+    blocks an SM holds of that kernel share its shared memory.  On an H100
+    that instance takes 48 registers, five blocks of 256 threads, and the
+    limit is 44 KB, the edge that was timed (PERF.md): a larger table is
+    read from device memory through the read-only cache (at 83 KB, 4,006
+    objects, staging it left two blocks an SM and cost 17%).  The instances that stage the
+    table take 62-64 registers, four blocks (PERF.md).  Builds the scan
+    kernel if needed."""
+    if FOLD_SHARED_MAX_BYTES is not None:
+        return FOLD_SHARED_MAX_BYTES
+    d = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if d.index is None else d.index
+    if index not in _fold_limits:
+        lib = _lib()
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(index):
+            rc = lib.rt_scan_hit_attrs(0, out)
+        if rc != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed: "
+                               f"{lib.rt_error_string(rc).decode()}")
+        _fold_limits[index] = gpu_info.fold_shared_max_bytes(
+            gpu_info.device_card(index), out[0])
+    return _fold_limits[index]
+
+
+def fold_in_shared(n_chunks: int, other_bytes: int = 0,
+                   device=None) -> bool:
+    """Whether a kernel on ``device`` stages the fold buffer of
+    ``n_chunks`` chunks in shared memory, beside ``other_bytes`` that its
+    block keeps there anyway (the scene's header and lights)."""
+    return (fold_bytes(n_chunks) + other_bytes
+            <= fold_shared_max_bytes(device))
 
 
 # the last fold buffer made, reused while the same tensors come unmodified
@@ -235,6 +269,8 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_void_p])
         lib.rt_scan_hit.restype = ctypes.c_int
+        lib.rt_scan_hit_attrs.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib_ready = lib
@@ -289,7 +325,7 @@ def scan_hit(table, ids, n_sph_pad: int, ro: V3, rd: V3, bounds=None,
         lambda tab, *r: _launch(tab, ids, bounds, n_sph_pad, r, fold),
         lambda tab, *r: scan_hit_reference(tab, ids, n_sph_pad, V3(*r[:3]),
                                            V3(*r[3:])),
-        table, *rays)
+        table, *rays, name=_build.KERNEL_SCAN)
 
 
 def _launch(table, ids, bounds, n_sph_pad: int, rays, fold=None):
@@ -311,7 +347,8 @@ def _launch(table, ids, bounds, n_sph_pad: int, rays, fold=None):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.rt_scan_hit(fold.data_ptr(), n_sph_pad // OBJ_CHUNK,
-                             n_chunks, int(fold_in_shared(n_chunks)),
+                             n_chunks, int(fold_in_shared(n_chunks,
+                                                          device=device)),
                              *(t.data_ptr() for t in rays),
                              t_out.data_ptr(), gid.data_ptr(), hit.data_ptr(),
                              n, stream)

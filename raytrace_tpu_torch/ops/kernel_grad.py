@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from raytrace_tpu_torch.utils.profiling import span
+
 
 class _KernelForward(torch.autograd.Function):
     @staticmethod
@@ -41,8 +43,10 @@ class _KernelForward(torch.autograd.Function):
                 *(next(grads) if need else None for need in needs))
 
 
-def kernel_forward(kernel, plain, *tensors):
-    """``kernel(*tensors)``, differentiable through ``plain(*tensors)``.
+def kernel_forward(kernel, plain, *tensors, name: str = "kernel"):
+    """``kernel(*tensors)``, differentiable through ``plain(*tensors)``,
+    under the profiler range ``name`` (the kernel's) while a profiler
+    records.
 
     Both take the same tensors and return a tuple of tensors of the same
     shapes; ``kernel`` launches a CUDA kernel, ``plain`` is its plain
@@ -51,7 +55,8 @@ def kernel_forward(kernel, plain, *tensors):
     the backward pass re-runs ``plain`` on the saved tensors under
     autograd and pulls the cotangents of the floating-point outputs
     through it; integer and bool outputs take none."""
-    if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in tensors)):
-        return tuple(kernel(*tensors))
-    return _KernelForward.apply(kernel, plain, *tensors)
+    with span(name):
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)):
+            return tuple(kernel(*tensors))
+        return _KernelForward.apply(kernel, plain, *tensors)

@@ -26,6 +26,7 @@ import torch
 
 from raytrace_tpu_torch.render.integrator import sample_pixels
 from raytrace_tpu_torch.scene.schema import SceneData, SceneSpec
+from raytrace_tpu_torch.utils.profiling import GRAD_PSUM, span
 
 
 def render_loss(data: SceneData, spec: SceneSpec, px, py, sample_ids,
@@ -82,9 +83,10 @@ def make_sharded_step(spec: SceneSpec, mesh, seed: int,
         loss, grads = loss_and_grad(data, spec, px[lo:hi], py[lo:hi],
                                     sample_ids, seed, target[lo:hi],
                                     trainable)
-        all_reduce_sum_(loss, mesh)
-        for g in _leaves(grads).values():
-            all_reduce_sum_(g, mesh)
+        with span(GRAD_PSUM):
+            all_reduce_sum_(loss, mesh)
+            for g in _leaves(grads).values():
+                all_reduce_sum_(g, mesh)
         return loss, grads
 
     return step

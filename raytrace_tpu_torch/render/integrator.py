@@ -32,6 +32,7 @@ from raytrace_tpu_torch.ops.intersect import closest_hit
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.render import megakernel
 from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
+from raytrace_tpu_torch.utils.profiling import RAYGEN, annotate
 
 
 def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
@@ -248,6 +249,7 @@ def radiance(data: SceneData, spec: SceneSpec, ro, rd, k1, k2,
                        significance))
 
 
+@annotate(RAYGEN)
 def primary_rays(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
                  seed: int):
     """Jittered primary rays for per-lane (pixel-x, pixel-y, aa-sample,
@@ -280,9 +282,9 @@ def sample_pixels(data: SceneData, spec: SceneSpec, px, py, sample_ids,
     (P,) each, as a (P, 3) tensor (main.rs:45-55 x raytrace.rs:270-276).
     y counts from the bottom row.  Every lane goes through
     :func:`raytrace_tpu_torch.render.megakernel.radiance_lanes`: on CUDA
-    tensors a kernel (a scene the kernels do not take, float64 or a DFS
-    stack above 64 entries, raises there, naming its ROADMAP item), on CPU
-    tensors the kernels' plain version, for every scene."""
+    tensors a kernel, for every float32 scene whatever its DFS stack (a
+    float64 scene raises there, naming its ROADMAP item), on CPU tensors
+    the kernels' plain version, for every scene."""
     p, s = px.shape[0], sample_ids.shape[0]
     lanes = lane_ids(px, py, sample_ids, spec.cam_samples)
     rad = megakernel.radiance_lanes(data, spec, *lanes, seed)

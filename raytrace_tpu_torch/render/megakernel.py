@@ -11,8 +11,9 @@ scenes to ``csrc/megakernel_tree.cu``, one thread per lane each.  Above
 and shadow queries by folding over the scene's unified primitive table
 (their large instances; the table staged in shared memory when it fits,
 :func:`raytrace_tpu_torch.ops.intersect_scan.fold_in_shared`), the tree
-kernel takes the stack instance that :func:`tree_instance` names, and a
-skybox scene takes the
+kernel takes the stack instance that :func:`tree_instance` names (its
+stack in local memory up to 256 entries, above that in a slab of device
+memory that the wrapper allocates), and a skybox scene takes the
 instances that look the cube up where a ray misses.  On CPU tensors it
 runs their plain PyTorch version, :func:`radiance_lanes_reference`.
 Gradients: the forward pass is the kernel, the backward pass
@@ -24,10 +25,10 @@ plain chain or DFS with every scan answered by the CUDA scan kernel
 (:mod:`raytrace_tpu_torch.ops.intersect_scan`).  While a ring context is
 installed, every scene takes the plain version, whose queries go round
 the ring: no kernel holds the scene then.  On CPU tensors every scene
-renders, float64 and DFS stacks of any depth included; on CUDA tensors a
-scene outside :func:`usable` (float64, DFS stacks above 64 entries)
-raises ``NotImplementedError`` naming the ROADMAP item, and nothing there
-gives way to the plain version.
+renders, float64 included; on CUDA tensors every float32 scene goes
+through a kernel, whatever its DFS stack, and a float64 scene (outside
+:func:`usable`) raises ``NotImplementedError`` naming the ROADMAP item:
+nothing there gives way to the plain version.
 """
 
 from __future__ import annotations
@@ -56,10 +57,16 @@ KERNELS = _build.KERNELS
 # kernel launches in this process, per kernel
 LAUNCHES = _build.LAUNCHES
 
-# the largest DFS stack csrc/megakernel_tree.cu takes (its largest CAP)
-MAX_TREE_STACK = 64
-# its stack instances: entries of a thread's stack in local memory
-TREE_STACK_CAPS = (8, 16, 32, 64)
+# the tree kernel's stack instances: entries of a thread's stack in local
+# memory (csrc/megakernel_tree.cu, CAP)
+TREE_STACK_CAPS = (8, 16, 32, 64, 128, 256)
+# the instance of deeper stacks: the stack in a slab of device memory
+TREE_SLAB = 0
+# bytes of stack a thread takes per entry: 13 words
+TREE_ENTRY_BYTES = 52
+# the most device memory one launch's slab takes; a deeper stack gets
+# fewer threads in flight, each walking more lanes
+TREE_SLAB_MAX_BYTES = 4 << 30
 
 # floats per object row in the scene buffer: object_table()'s 22 columns,
 # a small scene's precomputed constant and a pad (csrc/render_common.cuh,
@@ -78,19 +85,16 @@ def is_large(spec: SceneSpec) -> bool:
 
 
 def tree_instance(cap: int) -> int:
-    """The tree kernel's stack instance, one of ``TREE_STACK_CAPS``, for a
-    tree whose plain walk needs ``cap`` entries (``tree_loop_stack``:
-    ``1 + (levels - 1)(m - 1)``): the smallest that holds them.  The kernel
-    keeps the node it runs in registers, so its own stack, a per-thread
-    array in local memory, never holds more than ``cap - 1``; it takes no
-    shared memory."""
+    """The tree kernel's stack instance for a tree whose plain walk needs
+    ``cap`` entries (``tree_loop_stack``: ``1 + (levels - 1)(m - 1)``):
+    the smallest of ``TREE_STACK_CAPS`` that holds them, or ``TREE_SLAB``
+    above 256.  The kernel keeps the node it runs in registers, so its own
+    stack never holds more than ``cap - 1``; the instance holds ``cap``, as
+    the kernel's guard asks.  A local-memory stack takes no shared memory;
+    the slab is ``cap`` entries for each thread of the launch."""
     if cap < 1:
         raise ValueError(f"a DFS stack of {cap} entries")
-    if cap > MAX_TREE_STACK:
-        raise NotImplementedError(
-            f"fan-out trees whose DFS stack exceeds {MAX_TREE_STACK} entries "
-            f"({cap}) are not ported (ROADMAP item 9)")
-    return min(c for c in TREE_STACK_CAPS if c >= cap)
+    return next((c for c in TREE_STACK_CAPS if c >= cap), TREE_SLAB)
 
 
 def scene_shared_bytes(spec: SceneSpec) -> int:
@@ -102,18 +106,11 @@ def scene_shared_bytes(spec: SceneSpec) -> int:
 
 
 def unsupported_reason(data: SceneData, spec: SceneSpec) -> str | None:
-    """Why this scene is outside the ported slice, or None."""
-    from raytrace_tpu_torch.render.integrator import tree_loop_stack
-
+    """Why the kernels do not take this scene, or None: they take every
+    float32 scene."""
     if data.dtype != torch.float32:
         return ("the kernels are float32; float64 renders on CPU tensors, "
                 "as in the reference (ROADMAP item 12)")
-    if kernel_for(spec) == KERNEL_TREE:
-        m, levels, _, cap = tree_loop_stack(spec)
-        if cap > MAX_TREE_STACK:
-            return (f"fan-out trees whose DFS stack exceeds {MAX_TREE_STACK} "
-                    f"entries (m={m}, {levels} levels: {cap}) are not ported "
-                    f"(ROADMAP item 9)")
     return None
 
 
@@ -150,7 +147,7 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
                                 seed),
             lambda *ls: radiance_lanes_reference(SceneData(*ls), spec, pix,
                                                  piy, aa, cam, seed),
-            *leaves))
+            *leaves, name=kernel_for(spec)))
     raise ValueError(f"no megakernel for device {device}")
 
 
@@ -246,14 +243,61 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, f"rt_{name}")
-    # the tree kernel: m, stack instance
-    extra = [ctypes.c_int] * 2 if name == KERNEL_TREE else []
+    # the tree kernel: m, stack entries, the slab, its threads and its
+    # counter of lanes taken
+    extra = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong,
+                                   ctypes.c_void_p]
+             if name == KERNEL_TREE else [])
     fn.argtypes = _ARGTYPES + extra + [ctypes.c_uint32, ctypes.c_void_p,
                                        ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if name == KERNEL_TREE:
+        lib.rt_megakernel_tree_slab_threads.argtypes = (
+            [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2
+            + [ctypes.POINTER(ctypes.c_longlong)])
+        lib.rt_megakernel_tree_attrs.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: "
+                           f"{lib.rt_error_string(rc).decode()}")
+
+
+def tree_instance_attrs(cap: int, large: int, sky: bool) -> dict:
+    """What the runtime reports of the tree kernel's instance ``cap``
+    (``TREE_SLAB`` or one of ``TREE_STACK_CAPS``; ``large`` 0 for a small
+    scene, 1 or 2 for a large one with its fold buffer in device or shared
+    memory) on the current card: registers and local memory a thread
+    (``cudaFuncGetAttributes``).  Builds the kernel if needed."""
+    lib = _lib(KERNEL_TREE)
+    out = (ctypes.c_int * 4)()
+    _check(lib, lib.rt_megakernel_tree_attrs(cap, large, int(sky), out),
+           "cudaFuncGetAttributes")
+    return {"registers": out[0], "local_bytes": out[1],
+            "static_shared_bytes": out[2], "max_block_threads": out[3]}
+
+
+def tree_slab(lib, cap: int, n: int, n_obj: int, n_light: int, tables,
+              sky: bool, device) -> tuple[torch.Tensor, int]:
+    """The slab of a launch of the slab instance for ``n`` lanes with
+    ``cap`` entries a thread, and its threads
+    (``rt_megakernel_tree_slab_threads``: those the card holds resident,
+    within ``TREE_SLAB_MAX_BYTES``), after two words that hold the launch's
+    counter of lanes taken (8-byte aligned, as the allocator's blocks
+    are)."""
+    threads = ctypes.c_longlong()
+    with torch.cuda.device(device):
+        _check(lib, lib.rt_megakernel_tree_slab_threads(
+            n_obj, n_light, tables[2], tables[3], int(sky), cap, n,
+            TREE_SLAB_MAX_BYTES, ctypes.byref(threads)), "the slab's sizing")
+    words = threads.value * cap * (TREE_ENTRY_BYTES // 4)
+    return (torch.empty(words + 2, dtype=torch.int32, device=device),
+            threads.value)
 
 
 def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
@@ -283,7 +327,7 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
         n_chunks = tb.table.shape[0] // OBJ_CHUNK
         tables = [fold.data_ptr(), tb.n_sph_pad // OBJ_CHUNK, n_chunks,
                   int(intersect_scan.fold_in_shared(
-                      n_chunks, scene_shared_bytes(spec)))]
+                      n_chunks, scene_shared_bytes(spec), device))]
         n_obj = spec.n_objects
         if tables[0] % 16:
             raise ValueError("the fold buffer must be 16-byte aligned")
@@ -304,13 +348,17 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             int(spec.cam_type == CAM_DEPTH_OF_FIELD)]
     if name == KERNEL_TREE:
         m, _, _, cap = tree_loop_stack(spec)
-        args += [m, tree_instance(cap)]
+        inst = tree_instance(cap)
+        if inst == TREE_SLAB:
+            slab, threads = tree_slab(lib, cap, n, n_obj, spec.n_lights,
+                                      tables, sky[0] is not None, device)
+            args += [m, cap, slab.data_ptr() + 8, threads, slab.data_ptr()]
+        else:
+            args += [m, inst, None, 0, None]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"rt_{name}")(*args, int(seed) & 0xFFFFFFFF,
                                         out.data_ptr(), n, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.rt_error_string(rc).decode()}")
+    _check(lib, rc, f"{name} launch")
     LAUNCHES[name] += 1
     return V3(out[0], out[1], out[2])

@@ -1,9 +1,10 @@
 """What a launch's paths need of the render kernels, counted by walking
 the plain version: live nodes per lane and per warp, skybox lookups, and
 for a large scene the sphere chunks that the rays enter, per lane and as
-the union over a warp.  ``chip_smoke.py`` makes the kernels' bounds from
-these counts and prints them beside the kernels' times; nothing on the
-render path calls this module.
+the union over a warp.  ``utils/flops.py`` makes the kernels' bounds from
+these counts, and ``chip_smoke.py`` and ``tools/torch_mfu_report.py``
+print them beside the kernels' times; nothing on the render path calls
+this module.
 """
 
 from __future__ import annotations

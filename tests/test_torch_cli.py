@@ -65,16 +65,21 @@ def test_cli_cpu_bmp_matches_jax(tmp_path):
                                        (["--f64", "--device", "cuda"], 12),
                                        (["--profile", "trace"], 5)])
 def test_cli_unported_flags(tmp_path, flag, item):
-    """``--profile`` (item 5) and ``--f64`` on ``--device cuda`` (float64
-    renders on the CPU, as in the reference; item 12) are refused before
-    any device is looked at (the last ``--device`` wins).  Item 13's
-    ``--shard`` and ``--shard-objects``, refused until it was ported,
-    render on ``--device cpu`` the same bytes as the plain CLI."""
+    """``--f64`` on ``--device cuda`` (float64 renders on the CPU, as in
+    the reference; item 12) is refused before any device is looked at
+    (the last ``--device`` wins).  Item 13's ``--shard`` and
+    ``--shard-objects`` and item 5's ``--profile``, refused until they
+    were ported, render on ``--device cpu`` the same bytes as the plain
+    CLI, and ``--profile`` writes its trace."""
     common = [CORNELL, "--width", "8", "--height", "8", "--spp", "2", "-q",
               "--device", "cpu"]
+    # the trace goes into the test's own directory
+    flag = [str(tmp_path / f) if f == "trace" else f for f in flag]
     r = _run([*common, "-o", str(tmp_path / "x.bmp"), *flag])
-    if item == 13:
+    if item in (5, 13):
         assert r.returncode == 0, r.stderr
+        if item == 5:
+            assert (tmp_path / "trace" / "trace.json").exists()
         plain = _run([*common, "-o", str(tmp_path / "plain.bmp")])
         assert plain.returncode == 0, plain.stderr
         assert ((tmp_path / "x.bmp").read_bytes()

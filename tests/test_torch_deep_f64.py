@@ -1,6 +1,7 @@
-"""What the port renders on CPU tensors beyond the kernels' slice: a
-fan-out tree whose DFS stack exceeds the tree kernel's 64 entries, and
-float64 scenes, each against the JAX package's jnp wavefront
+"""What the port renders on CPU tensors through the kernels' plain
+version: a fan-out tree whose DFS stack exceeds 64 entries (on the card,
+the tree kernel's 128-entry stack), and float64 scenes (beyond the
+kernels' slice), each against the JAX package's jnp wavefront
 ``radiance_v``.  The JAX side runs eagerly (``jax.disable_jit``): its
 compiled programs for these scenes take minutes to build on the CPU."""
 
@@ -64,13 +65,15 @@ def _torch_radiance(ts, lanes, seed):
 
 
 def test_deep_tree_renders_on_cpu_and_matches_jax():
-    """A DFS stack of 65 entries is beyond every kernel instance: on CPU
-    tensors radiance_lanes takes the plain walk and agrees with the JAX
-    package's jnp path (float32, the port's per-lane rule)."""
+    """A DFS stack of 65 entries (the tree kernel's 128-entry instance on
+    the card): on CPU tensors radiance_lanes takes the plain walk and
+    agrees with the JAX package's jnp path (float32, the port's per-lane
+    rule)."""
     ts = _with_depth(torch_build(tdsl.parse(DEEP), device="cpu"), 0)
     js = _with_depth(jax_build(jdsl.parse(DEEP), dtype=jnp.float32), 0)
     assert integrator.tree_loop_stack(ts.spec) == (65, 2, 66, 65)
-    assert not megakernel.usable(ts.data, ts.spec)
+    assert megakernel.usable(ts.data, ts.spec)
+    assert megakernel.tree_instance(65) == 128
     lanes = _image_lanes(ts.spec, 2)
     before = dict(megakernel.LAUNCHES)
     got = _torch_radiance(ts, lanes, 2)

@@ -129,13 +129,22 @@ def test_fold_buffer_masks_what_the_plain_scan_rejects():
             :tb.n_sph_pad] < 0].any()
 
 
-def test_fold_gives_way_to_device_memory_by_size():
-    """The table is staged in shared memory up to FOLD_SHARED_MAX_BYTES
-    with whatever else the block keeps there, and read from device memory
+def test_fold_gives_way_to_device_memory_by_size(monkeypatch):
+    """The table is staged in shared memory up to the limit derived from
+    the card (here an H100's, with the scan kernel at 48 registers) with
+    whatever else the block keeps there, and read from device memory
     above that."""
+    from test_torch_gpu_info import H100
+
+    from raytrace_tpu_torch.utils import gpu_info
+
+    monkeypatch.setattr(intersect_scan, "FOLD_SHARED_MAX_BYTES",
+                        gpu_info.fold_shared_max_bytes(gpu_info.card(H100),
+                                                       48))
     per_chunk = intersect_scan.fold_bytes(1)
     assert per_chunk == 32 * 20 + 16
-    limit = intersect_scan.FOLD_SHARED_MAX_BYTES
+    limit = intersect_scan.fold_shared_max_bytes()
+    assert limit == 44 * 1024
     last = limit // per_chunk
     assert intersect_scan.fold_in_shared(last)
     assert not intersect_scan.fold_in_shared(last + 1)
@@ -290,8 +299,11 @@ def test_tree_instance(cap):
 
 
 def test_tree_instance_refuses_deep_stacks():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        megakernel.tree_instance(65)
+    """No stack is refused but an empty one: a stack above 64 entries
+    takes the 128- or 256-entry instance, above 256 the slab
+    (tests/test_torch_deep_tree.py)."""
+    assert megakernel.tree_instance(65) == 128
+    assert megakernel.tree_instance(257) == megakernel.TREE_SLAB
     with pytest.raises(ValueError):
         megakernel.tree_instance(0)
     # the scenes of the card tests take the instances 8, 16, 32 and 64

@@ -74,13 +74,15 @@ def _variant(**spec_changes):
 
 
 def _out_of_slice():
-    """Scenes the kernels do not take: float64, and a fan-out tree whose
-    DFS stack exceeds 64 entries (65 indirect slots at max_depth 0: a
-    stack of 65, 66 nodes per lane)."""
+    """Scenes the kernels do not take: float64 ones, among them a fan-out
+    tree whose DFS stack exceeds 64 entries (65 indirect slots at
+    max_depth 0: a stack of 65, 66 nodes per lane), which the kernels take
+    in float32 (tests/test_torch_deep_tree.py)."""
     f64 = torch_load(CORNELL, device="cpu", dtype=torch.float64)
     return {
         "f64": (f64.data, f64.spec, 12),
-        "deep tree": (*_variant(n_indirect=65, max_depth=0), 9),
+        "deep tree": (f64.data, dataclasses.replace(
+            f64.spec, n_indirect=65, max_depth=0), 12),
     }
 
 
@@ -328,7 +330,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "('jax', 'jaxlib', 'raytrace_tpu')]\n"
         "for m in ('scene.procedural', 'ops.intersect_scan', 'optim',\n"
         "          'models.backgrounds', 'ops.kernel_grad', 'parallel.mesh',\n"
-        "          'parallel.tile', 'parallel.multihost', 'parallel.ring'):\n"
+        "          'parallel.tile', 'parallel.multihost', 'parallel.ring',\n"
+        "          'utils.profiling', 'utils.gpu_info', 'utils.flops'):\n"
         "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
@@ -337,7 +340,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n_mods, rest = r.stdout.split(" ", 1)
-    assert int(n_mods) >= 29
+    assert int(n_mods) >= 32
     assert rest.strip() == "[] []"
     after = sorted(os.listdir(build)) if os.path.isdir(build) else None
     assert after == before

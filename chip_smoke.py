@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``raytrace_tpu_torch/csrc``
+Builds the port's five CUDA kernels from ``raytrace_tpu_torch/csrc``
 (one nvcc each, in parallel) and holds each against its plain PyTorch
 version on the card. The linear kernel: on
 ``examples/cornell_indirect.txt``, which it renders at 512x512 with 16
@@ -49,15 +49,26 @@ Adam at betas 0.8/0.99, and the same fits with ``fit``'s default
 optimiser beside them (phase 18). Multi-device, with one rank: the CLI
 with ``--shard`` on cornell and the showcase (the same BMP as without
 it), with ``--shard-objects`` on the 1,006-object fields at 256x256 with
-4 samples per pixel, through the ring, whose every query launches the
-scan kernel (the expected count, and no render kernel), held to the
-fused kernels' image; a ring render under the sky, whose misses launch
-the skybox kernel; the ring's step (the scan kernel on a shard) on the
-4,006-object field whole and halved, and the shard's build (phase 19).
+4 samples per pixel, through the ring instances of the linear and tree
+kernels (``ring_shade.cu``: a node of every lane a round, the scan kernel
+answering each round's queries; the expected counts, no fused render
+kernel and no call of the plain version on the card), held to the fused
+kernels' image and timed per image; a ring render under the sky, whose
+misses the ring's sky instance looks up inline; the ring instances
+against their plain twin (``ring_shade_reference``) on the linear and
+mixed fields, the lit mirror scene, the open field under the sky and a
+65-sample tree at 262,144 lanes (stacks of 65 entries); a round of each
+instance timed at 2,097,152 lanes beside its bound, the round's scan
+kernel and the rows' gather; the ring's step (the scan kernel on a
+shard) on the 4,006-object field whole and halved, and the shard's build
+(phase 19; phases 11 and 13 hold the split path, a one-shard ring, to
+the fused large instances and time it beside its scan kernel launches).
 Two ranks on the one card (gloo), this script started twice under the
 environment protocol: the multi-process CLI's BMP against the
 one-process CLI's, byte for byte; the ring at k = 2 against k = 1, to
-the bit, in intersection and in a render; the sharded fitting step
+the bit, in intersection and in renders of the linear field and of the
+mixed one (the tree instance, whose ranks agree on the rounds by a MAX
+all-reduce); the sharded fitting step
 against ``loss_and_grad``; the ring's hand-off timed (phase 20). Deep
 fan-out trees (phase 21): the tree kernel's 128- and 256-entry stacks
 and its slab (the stack in device memory) on 65-, 129- and 300-sample
@@ -163,6 +174,10 @@ DEEP_STACKS = ((8, 2), (24, 1))
 # and 163 s, so these trees are timed at 262,144
 DEEP_SAMPLES = (65, 129, 300)
 DEEP_LANES = 1 << 18
+# the ring instances' deep tree: IndirectPhong samples of the sphere at
+# max_depth 0 (stacks of 65 entries, 3.4 KB a lane) and its lanes
+RING_DEEP_SAMPLES = 65
+RING_DEEP_LANES = 1 << 18
 # and the scenes the CLI renders at the fixed max_depth 4: stacks of 76,
 # 256 and 316 entries.  The first is that sphere with 16 samples over the
 # mirror floor.  A child ray that leaves a sphere at a grazing angle may
@@ -851,7 +866,7 @@ def cli_render(cli, megakernel, kernel, scene_path, args, spec):
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out.bmp")
         log = os.path.join(tmp, "log.jsonl")
-        for k in megakernel.KERNELS:
+        for k in megakernel.LAUNCHES:
             megakernel.LAUNCHES[k] = 0
         t0 = time.perf_counter()
         rc = cli.main([scene_path, "-o", out, *args, "--device", "cuda",
@@ -896,28 +911,198 @@ def time_pair(kernel, plain, k_reps: int, p_reps: int):
     return min(times["kernel"]), min(times["plain"]), times
 
 
-def ring_k5_launches(spec, aa: int, k: int, max_lanes: int = 1 << 22) -> int:
-    """The scan kernel's launches on one rank of a ring render of k ranks
-    (render_image_ring): each closest-hit and shadow query of the plain
-    chain or DFS goes round the ring, k launches, and the image loop makes
-    this many sample_pixels calls."""
+def ring_calls(spec, aa: int, k: int, max_lanes: int = 1 << 22) -> int:
+    """The sample_pixels calls on one rank of a ring render of k ranks
+    (render_image_ring), whose launches the ring kernels' lane state
+    sizes."""
+    from raytrace_tpu_torch.render import ring_shade
     from raytrace_tpu_torch.render.integrator import (_s_p_launch,
-                                                      _wavefront_widest,
-                                                      sample_groups,
-                                                      tree_loop_stack)
+                                                      sample_groups)
 
-    s_launch, p_launch = _s_p_launch(spec, aa, max_lanes * k,
-                                     _wavefront_widest(spec))
+    s_launch, p_launch = _s_p_launch(
+        spec, aa, ring_shade.max_lanes(spec, max_lanes) * k)
     per_rank = -(-spec.width * spec.height // k)
     tiles = -(-per_rank // max(p_launch // k, 1))
-    calls = sum(g for _, _, g in sample_groups(spec, aa, s_launch)) * tiles
-    if spec.children_per_ray > 1:
-        m, levels, nodes, _ = tree_loop_stack(spec)
-        shaded = nodes - m ** (levels - 1)
-    else:
-        nodes = spec.max_depth + 2 if spec.children_per_ray else 1
-        shaded = min(nodes, spec.max_depth + 1)
-    return calls * (nodes + spec.n_lights * shaded) * k
+    return sum(g for _, _, g in sample_groups(spec, aa, s_launch)) * tiles
+
+
+def expected_ring_launches(spec, calls: int, rounds: int, k: int = 1) -> dict:
+    """The launches of a ring render on one rank of k, per kernel of
+    ``ring_shade.cu``, in all (``ring_shade``) and of the scan kernel,
+    from its sample_pixels calls and their rounds (all calls together: a
+    linear scene's call takes max_depth + 2, one where no material spawns
+    a child, and a fan-out scene's as many as its longest lane has live
+    nodes).  A call starts once; a round takes the ring's closest hit (k
+    scan launches), the rows' ring (k ring_rows) and ring_finish; on a
+    lit scene each round that shades (a linear scene's last does not)
+    also ring_shadow and each light's shadow query round the ring (k scan
+    launches)."""
+    from raytrace_tpu_torch.ops import _build
+
+    linear = spec.children_per_ray <= 1
+    shaded = 0
+    if spec.n_lights:
+        shaded = (calls * min(rounds // calls, spec.max_depth + 1) if linear
+                  else rounds)
+    out = {"ring_start": calls, "ring_rows": k * rounds,
+           "ring_shadow": shaded, "ring_finish": rounds,
+           _build.KERNEL_SCAN: k * (rounds + spec.n_lights * shaded)}
+    out[_build.KERNEL_RING] = sum(out[e] for e in _build.RING_KERNELS)
+    return out
+
+
+def ring_rounds(sc, calls: int, lanes=None, seed: int = 0) -> int:
+    """The rounds of a ring render's ``calls`` sample_pixels calls: a
+    linear scene's max_depth + 2 a call (1 without child slots); a
+    fan-out scene's, rendered in one call of ``lanes``, the most live
+    nodes of any lane, counted on the plain walk (``work.path_work``,
+    65,536 lanes at a time)."""
+    from raytrace_tpu_torch.render.work import path_work
+
+    spec = sc.spec
+    if spec.children_per_ray <= 1:
+        return calls * (spec.max_depth + 2 if spec.children_per_ray else 1)
+    if calls != 1:
+        raise ValueError("a fan-out scene's rounds are counted for one call")
+    step = 1 << 16
+    return max(path_work(sc.data, spec, [t[i:i + step] for t in lanes],
+                         seed)["most"]
+               for i in range(0, lanes[0].shape[0], step))
+
+
+def ring_round(ringlib, ring_shade, intersect, sc, lanes, mesh) -> dict:
+    """The first round of a ring render of ``lanes`` (every lane live),
+    each ring kernel against its plain version on the same inputs (the
+    state restored before each call): per kernel (``ring_start``,
+    ``ring_rows``, on a lit scene ``ring_shadow``, ``ring_finish``) the
+    CUDA-event ms of its wrapper's call and of the plain one's, whether
+    the two agree to the bit, the largest difference and the bytes the
+    kernel must move, each input read once and each output written once:
+    ``ring_start`` the four ids in, the node, sum, flag and stack pointer
+    out; ``ring_rows`` the id in and the 24-float row out a lane, and the
+    shard's rows; ``ring_shadow`` the node, flag and answers (t, hit, the
+    row) in, a query of 7 floats a light out; ``ring_finish`` the node and
+    sum in and out, the answers and blocked bits, the flag, the stack
+    pointer (a fan-out scene) and the entries pushed.  The rows' gather
+    also beside ``torch.index_select``, the same function on one rank
+    (``library_ms``); and the round's scan kernel launch (``scan_ms``)."""
+    from raytrace_tpu_torch.ops.vec import V3
+    from raytrace_tpu_torch.scene.schema import LIGHT_DIRECTIONAL
+
+    spec = sc.spec
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    def diff(a, b):
+        """Largest difference of two float tensors, or of the floats of
+        two node-word tensors."""
+        if a.dtype == torch.int32:
+            a, b = a[:10].view(torch.float32), b[:10].view(torch.float32)
+        return float((a.float() - b.float()).abs().max())
+
+    def entry(kernel, plain, got, want, nbytes, before=lambda: None):
+        """``before`` runs ahead of each timed call, outside its events."""
+        def best(fn, reps):
+            out = []
+            for _ in range(reps):
+                before()
+                out.append(timed(fn))
+            return min(out)
+
+        ms, plain_ms = best(kernel, 5), best(plain, 2)
+        pairs = list(zip(got, want))
+        return {"ms": ms, "plain_ms": plain_ms,
+                "equal": all(torch.equal(a, b) for a, b in pairs),
+                "max_abs_err": max(diff(a, b) for a, b in pairs),
+                "bytes": nbytes}
+
+    n = lanes[0].shape[0]
+    n_light = spec.n_lights
+    tree = spec.children_per_ray > 1
+    out = {}
+    with ringlib.ring_context(sc.data, spec, mesh) as st:
+        ctx = intersect.ring_ctx()
+        state = ring_shade.ring_start(st, spec, *lanes, 0)
+        twin = ring_shade.start_reference(st, spec, *lanes, 0)
+        # the stack's entries are written before they are read: only the
+        # node, sum, flag and stack pointer are made
+        out["ring_start"] = entry(
+            lambda: ring_shade.ring_start(st, spec, *lanes, 0),
+            lambda: ring_shade.start_reference(st, spec, *lanes, 0),
+            state[:4], twin[:4], n * (16 + 52 + 12 + 4 + 4))
+        del twin
+        ro, rd = state.rays()
+
+        def scan():
+            return ringlib.ring_closest_hit_local(ctx.shard, ctx.n_sph_pad,
+                                                  ro, rd, ctx.mesh)
+
+        t, obj, hit = scan()
+        out["scan_ms"] = min(timed(scan) for _ in range(3))
+        rows = ringlib.ring_gather_rows(ctx.mat_rows, obj, ctx.mesh)
+        want = ringlib.ring_gather_rows_reference(ctx.mat_rows, obj,
+                                                  ctx.mesh)
+        out["ring_rows"] = entry(
+            lambda: ringlib.ring_gather_rows(ctx.mat_rows, obj, ctx.mesh),
+            lambda: ringlib.ring_gather_rows_reference(ctx.mat_rows, obj,
+                                                       ctx.mesh),
+            [rows], [want], n * (4 + 96) + ctx.mat_rows.numel() * 4)
+        if mesh.ranks == 1:
+            ids = obj.to(torch.int64)
+            lib_rows = torch.index_select(ctx.mat_rows, 0, ids)
+            out["ring_rows"]["library_ms"] = min(timed(
+                lambda: torch.index_select(ctx.mat_rows, 0, ids))
+                for _ in range(3))
+            out["ring_rows"]["equal"] &= torch.equal(lib_rows, want)
+            del lib_rows, ids
+        del want
+        blocked = None
+        if n_light:
+            q = ring_shade.ring_shadow(st, spec, state, t, hit, rows)
+            q_twin = ring_shade.shadow_reference(st, spec, state, t, hit,
+                                                 rows)
+            out["ring_shadow"] = entry(
+                lambda: ring_shade.ring_shadow(st, spec, state, t, hit, rows),
+                lambda: ring_shade.shadow_reference(st, spec, state, t, hit,
+                                                    rows),
+                [q], [q_twin], n * (52 + 4 + 4 + 1 + 96 + 28 * n_light))
+            ranged = [lt != LIGHT_DIRECTIONAL for lt in spec.light_type]
+            blocked = torch.stack([ringlib.ring_occluded(
+                ctx, V3(*q[li, :3]), V3(*q[li, 3:6]), q[li, 6], ranged[li])
+                for li in range(n_light)])
+            del q, q_twin
+        saved = [x.clone() for x in state]
+
+        def restore():
+            for a, b in zip(state, saved):
+                a.copy_(b)
+
+        def run(step):
+            step.finish(st, spec, state, t, hit, rows, blocked)
+            return state
+
+        restore()
+        got = [x.clone() for x in run(ring_shade.ring_shade_kernels)]
+        restore()
+        twin = run(ring_shade.ring_shade_reference)
+        pushed = int(got[3].sum()) if tree else 0
+        per_lane = (2 * 52 + 2 * 12 + 4 + 1 + 96 + 4 + n_light
+                    + (8 if tree else 0))
+        # the state restored before each call, outside its time
+        out["ring_finish"] = entry(
+            lambda: run(ring_shade.ring_shade_kernels),
+            lambda: run(ring_shade.ring_shade_reference),
+            got[:4], twin[:4], n * per_lane + pushed * 52, before=restore)
+        del saved, got, twin, state
+    return out
 
 
 def host_ms(fn, reps: int) -> float:
@@ -937,6 +1122,9 @@ RANKS = 2
 RING_FIELD = 4000               # the ring's field, and its rays:
 RING_RAYS = 1 << 21             # the camera rays of 1024x1024 x 2 spp
 RING_IMAGE = (256, 256, 2)      # the ring render: 1,006 objects, w, h, spp
+# the ring render of the mixed 1,006-object field (the tree instance and
+# the ranks' agreement on the rounds): w, h, spp
+RING_MIXED_IMAGE = (128, 128, 2)
 STEP_IMAGE = (64, 64, 2)        # the sharded step: cornell, w, h, spp
 # the sharded step against loss_and_grad: float32 sums over 4,096 pixels,
 # split over two ranks, in another order
@@ -974,6 +1162,8 @@ def rank_worker(out_dir: str) -> int:
 
     from raytrace_tpu_torch import cli
     from raytrace_tpu_torch.ops import _build
+    from raytrace_tpu_torch.ops import intersect
+    from raytrace_tpu_torch.ops.vec import V3
     from raytrace_tpu_torch.optim import make_sharded_step
     from raytrace_tpu_torch.parallel import mesh as meshlib
     from raytrace_tpu_torch.parallel import ring
@@ -1001,6 +1191,20 @@ def rank_worker(out_dir: str) -> int:
     shard = ring.make_shard(tables[r].clone(), ids[r].clone(), n_sph)
     res["shard_bytes"] = sum(x.numel() * x.element_size() for x in shard)
     res["handoff_ms"] = host_ms(lambda: meshlib.ring_shift(shard, mesh), 10)
+    # the rows' ring at k = 2 (ring_rows on each resident row shard)
+    # against its plain selects, on this rank's half of the rays
+    with ring.ring_context(sc.data, sc.spec, mesh):
+        ctx = intersect.ring_ctx()
+        half = ro.shape[0] // mesh.ranks
+        o, d = (V3(*x[r * half:(r + 1) * half].unbind(1)) for x in (ro, rd))
+        _, obj, _ = ring.ring_closest_hit_local(ctx.shard, ctx.n_sph_pad, o,
+                                                d, mesh)
+        got = ring.ring_gather_rows(ctx.mat_rows, obj, mesh)
+        want = ring.ring_gather_rows_reference(ctx.mat_rows, obj, mesh)
+        res["rows_equal"] = torch.equal(got, want)
+        res["rows_from_the_other_shard"] = float(
+            (obj // ctx.mat_rows.shape[0] != r).float().mean())
+        del got, want
     w, h, spp = RING_IMAGE
     field = make_sphere_field(1000, mix_materials=False, width=w, height=h,
                               device=device)
@@ -1008,6 +1212,15 @@ def rank_worker(out_dir: str) -> int:
     res["ring_image"] = torch.from_numpy(ring.render_image_ring(
         field, seed=SEED, spp=spp, mesh=mesh))
     res["ring_render_s"] = time.perf_counter() - t0
+    # the mixed field through the tree instance: the ranks' lanes end at
+    # different rounds, and both must take the same ring steps
+    w, h, spp = RING_MIXED_IMAGE
+    field = make_sphere_field(1000, mix_materials=True, width=w, height=h,
+                              device=device)
+    t0 = time.perf_counter()
+    res["ring_mixed_image"] = torch.from_numpy(ring.render_image_ring(
+        field, seed=SEED, spp=spp, mesh=mesh))
+    res["ring_mixed_render_s"] = time.perf_counter() - t0
     data, spec, px, py, sids, target = step_inputs(device)
     loss, grads = make_sharded_step(spec, mesh, SEED)(data, px, py, sids,
                                                       target)
@@ -1111,6 +1324,7 @@ def main() -> int:
 
     k_lin, k_tree = megakernel.KERNEL_LINEAR, megakernel.KERNEL_TREE
     k_scan, k_sky = megakernel.KERNEL_SCAN, megakernel.KERNEL_SKY
+    k_ring = megakernel.KERNEL_RING
     srcs = {k: os.path.join("raytrace_tpu_torch", "csrc", k + ".cu")
             for k in megakernel.KERNELS}
 
@@ -1138,7 +1352,8 @@ def main() -> int:
     for k in megakernel.KERNELS:
         for line in _build.build_logs.get(k, "").splitlines():
             inst = re.search(r"(megakernel_[a-z]+|scan_hit_kernel|"
-                             r"skybox_kernel)(?:I((?:L[bi]\d+E)+)E|E)", line)
+                             r"skybox_kernel|ring_[a-z]+_kernel)"
+                             r"(?:I((?:L[bi]\d+E)+)E|E)", line)
             if "entry function" in line and inst:
                 args = re.findall(r"\d+", inst.group(2) or "")
                 print(f"    {inst.group(1)}<{', '.join(args)}>:")
@@ -1189,8 +1404,17 @@ def main() -> int:
     # entries, and in the slab above that
     k_tree_128, k_tree_256 = k_tree + " (stack 128)", k_tree + " (stack 256)"
     k_tree_slab = k_tree + " (slab)"
+    # and the kernels of ring_shade.cu, what an object-sharded render runs
+    # on the card between the scan kernel's launches: the primary rays,
+    # the rows' ring, the shadow rays, and the ring instances of K1 and K3
+    k_ring_start = k_ring + " (ring_start)"
+    k_ring_rows = k_ring + " (ring_rows)"
+    k_ring_shadow = k_ring + " (ring_shadow)"
+    k_ring_lin = k_ring + " (ring_finish, linear)"
+    k_ring_tree = k_ring + " (ring_finish, tree)"
     rows = (k_lin, k_tree, k_lin_large, k_tree_large, k_scan, k_sky,
-            k_lin_sky, k_tree_sky, k_tree_128, k_tree_256, k_tree_slab)
+            k_lin_sky, k_tree_sky, k_tree_128, k_tree_256, k_tree_slab,
+            k_ring_start, k_ring_rows, k_ring_shadow, k_ring_lin, k_ring_tree)
     max_err = {k: 0.0 for k in rows}
 
     # ---- phase 3: the linear kernel vs plain version on the card ----
@@ -1510,18 +1734,27 @@ def main() -> int:
             raise AssertionError(f"{label}: a lane outside the rule")
         print(f"    no lane outside the rule "
               f"({time.perf_counter() - t0:.2f} s)")
-    lanes = random_lanes(lin.spec, n_chk, SEED, device)
-    before = dict(megakernel.LAUNCHES)
-    split = megakernel.radiance_lanes_split(lin.data, lin.spec, *lanes, SEED)
-    torch.cuda.synchronize()
-    rose = {k: megakernel.LAUNCHES[k] - before[k] for k in megakernel.KERNELS}
-    if rose != {k_lin: 0, k_tree: 0, k_scan: lin.spec.max_depth + 2,
-                k_sky: 0}:
-        raise AssertionError(f"split path launches: {rose}")
-    print(f"    split path (the plain chain, {rose[k_scan]} scan kernel "
-          f"launches) vs the fused kernel, linear field:")
-    compare(split, megakernel.radiance_lanes(lin.data, lin.spec, *lanes,
-                                             SEED))
+    for label, sc in (("linear field", lin), ("mixed field", mixed)):
+        lanes = random_lanes(sc.spec, n_chk, SEED, device)
+        before = dict(megakernel.LAUNCHES)
+        split = megakernel.radiance_lanes_split(sc.data, sc.spec, *lanes,
+                                                SEED)
+        torch.cuda.synchronize()
+        rose = {k: megakernel.LAUNCHES[k] - before[k]
+                for k in megakernel.KERNELS}
+        # a round a node: one scan launch, the rows' gather and
+        # ring_finish, and a ring_start (a linear scene takes max_depth + 2
+        # rounds)
+        rounds = rose[k_scan]
+        if (rose != {k_lin: 0, k_tree: 0, k_scan: rounds, k_sky: 0,
+                     k_ring: 2 * rounds + 1}
+                or (sc is lin and rounds != lin.spec.max_depth + 2)):
+            raise AssertionError(f"split path launches: {rose}")
+        print(f"    split path (the ring instances, {rounds} rounds: "
+              f"{rose[k_scan]} scan kernel and {rose[k_ring]} ring kernel "
+              f"launches) vs the fused kernel, {label}:")
+        compare(split, megakernel.radiance_lanes(sc.data, sc.spec, *lanes,
+                                                 SEED))
 
     # ---- phase 12: large scenes through the CLI at their own settings ----
     print(f"[12, {at()}] "
@@ -1600,23 +1833,37 @@ def main() -> int:
             bounds[row] = (b_ms, b_by)
         if sc is lin:
             fused = got
+        elif sc is mixed:
+            fused_mixed = got
 
-    def split_path():
-        return megakernel.radiance_lanes_split(lin.data, lin.spec, *lanes, 0)
+    # the split path: the ring instances on a one-shard ring, each round's
+    # scan kernel launch and ring kernels between them
+    for label, sc, fused_out in (("linear", lin, fused),
+                                 ("mixed", mixed, fused_mixed)):
+        def split_path():
+            return megakernel.radiance_lanes_split(sc.data, sc.spec, *lanes,
+                                                   0)
 
-    for k in megakernel.KERNELS:
-        megakernel.LAUNCHES[k] = 0
-    split = split_path()
-    split_launches = megakernel.LAUNCHES[k_scan]
-    if split_launches < 1 or megakernel.LAUNCHES[k_lin] != 0:
-        raise AssertionError("the split path did not go through the scan "
-                             "kernel alone")
-    split_ms = min(ms_per_launch(split_path, 1, 3) for _ in range(2))
-    scan_dev = device_ms(split_path, 2, "scan_hit", split_launches)
-    print(f"    split path, 1,006 objects: {split_ms:.4f} ms/call, of which "
-          f"{scan_dev:.4f} ms in its {split_launches} scan kernel launches "
-          f"(device time); vs the fused kernel on the same lanes:")
-    compare(split, fused)
+        for k in megakernel.LAUNCHES:
+            megakernel.LAUNCHES[k] = 0
+        split = split_path()
+        split_launches = megakernel.LAUNCHES[k_scan]
+        ring_n = megakernel.LAUNCHES[k_ring]
+        if (split_launches < 1 or ring_n != 2 * split_launches + 1
+                or megakernel.LAUNCHES[k_lin] or megakernel.LAUNCHES[k_tree]):
+            raise AssertionError(f"the split path's launches "
+                                 f"{dict(megakernel.LAUNCHES)}")
+        split_ms = min(ms_per_launch(split_path, 1, 3) for _ in range(2))
+        scan_dev = device_ms(split_path, 2, "scan_hit", split_launches)
+        ring_dev = device_ms(split_path, 2, "ring_", ring_n)
+        print(f"    split path, 1,006 objects, {label} field: {split_ms:.4f} "
+              f"ms/call, of which "
+              f"{scan_dev:.4f} ms in its {split_launches} scan kernel "
+              f"launches and {ring_dev:.4f} ms in its {ring_n} ring kernel "
+              f"launches (device time); on {smi}; vs the fused kernel on "
+              f"the same lanes:")
+        compare(split, fused_out)
+    del fused_mixed
     for n_sph, (sc, tb) in fields.items():
         o, d, _, _ = primary_rays(sc.data, sc.spec, *lanes, 0)
 
@@ -1710,6 +1957,14 @@ def main() -> int:
         raise AssertionError("a tie for the largest component is not black")
     sky_check(sky.data, coherent, f"{coherent.shape[0]} primary-ray "
                                   f"directions of the cornell sky launch")
+    # the kernel's entry point, background_color on CUDA tensors, on those
+    # directions: its launches in that run (the render kernels and the
+    # ring's call sky_lookup inline)
+    for k in megakernel.LAUNCHES:
+        megakernel.LAUNCHES[k] = 0
+    backgrounds.background_color(sky.data, sky.spec, coherent)
+    torch.cuda.synchronize()
+    sky_entry_launches = megakernel.LAUNCHES[k_sky]
     # the cube changed in place between two calls, as a fitting step
     # changes it: the packed faces follow, in both kernels that read them
     moved = dataclasses.replace(sky.data, bg_cube=sky.data.bg_cube.clone())
@@ -1990,7 +2245,7 @@ def main() -> int:
             moved[leaf][row] = torch.tensor(value, device=device)
         perturbed = dataclasses.replace(sc.data, **moved)
         mask = SceneData(**{n: n in names for n in fields})
-        for k in megakernel.KERNELS:
+        for k in megakernel.LAUNCHES:
             megakernel.LAUNCHES[k] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2073,14 +2328,16 @@ def main() -> int:
               "2 lens samples)", lit, k_lin, (1, 0),
               ([0.5, 0.5, 0.45], [0.2, 0.15, 0.1]), 100.0, 0.05)
 
-    # ---- phase 19: one rank: --shard, --shard-objects (the ring, K5) ----
+    # ---- phase 19: one rank: --shard, --shard-objects (the ring) ----
+    from raytrace_tpu_torch.ops import intersect
     from raytrace_tpu_torch.parallel import ring as ringlib
     from raytrace_tpu_torch.parallel.mesh import Mesh
+    from raytrace_tpu_torch.render import ring_shade
     from raytrace_tpu_torch.render.integrator import render_image
 
     print(f"[19, {at()}] one rank on the card: the CLI with --shard, then "
-          f"the ring of --shard-objects (K5 per query, misses through "
-          f"skybox.cu under the sky):")
+          f"the ring of --shard-objects (the ring instances of K1 and K3, "
+          f"K5 per query, misses under the sky looked up inline):")
     one_rank = Mesh(device)
 
     def cli_bytes(path, args, out):
@@ -2088,6 +2345,31 @@ def main() -> int:
             raise AssertionError(f"CLI {args} failed")
         with open(out, "rb") as f:
             return f.read()
+
+    # the plain version must not run on the card under the ring: every
+    # call of it on CUDA tensors is counted
+    plain_on_card = []
+    real_reference = megakernel.radiance_lanes_reference
+
+    def guarded_reference(data, *args):
+        if data.device.type == "cuda":
+            plain_on_card.append(str(data.device))
+        return real_reference(data, *args)
+
+    @contextlib.contextmanager
+    def no_plain_on_card(label):
+        megakernel.radiance_lanes_reference = guarded_reference
+        try:
+            yield
+        finally:
+            megakernel.radiance_lanes_reference = real_reference
+        if plain_on_card:
+            raise AssertionError(f"{label}: the plain version ran on the "
+                                 f"card {len(plain_on_card)} times")
+
+    def image_s(fn, reps=3):
+        """The best of ``reps`` calls' seconds, by CUDA events."""
+        return min(once_ms(fn)[0] for _ in range(reps)) / 1e3
 
     with tempfile.TemporaryDirectory() as tmp:
         for label, path, args in (("cornell", SCENE, ["--spp", "16"]),
@@ -2104,61 +2386,187 @@ def main() -> int:
             if sharded != plain:
                 raise AssertionError(f"{label}: --shard changed the BMP")
         ring_launches = {}
-        for label, mix, kname in (("linear", False, k_lin),
-                                  ("mixed", True, k_tree)):
+        for label, mix in (("linear", False), ("mixed", True)):
             path = os.path.join(tmp, f"ring_{label}.txt")
             with open(path, "w") as f:
                 f.write(sphere_field_source(1000, mix_materials=mix,
                                             width=256, height=256,
                                             antialias=4))
             sc = load_scene_file(path, device=device)
-            want_k5 = ring_k5_launches(sc.spec, 4, 1)
-            for k in megakernel.KERNELS:
+            calls = ring_calls(sc.spec, 4, 1)
+            # the CLI's seed is 0, and one call renders every lane
+            rounds = ring_rounds(sc, calls, pixel_lanes(
+                256, 256 * 256, 4, sc.spec.cam_samples, device), 0)
+            want = expected_ring_launches(sc.spec, calls, rounds)
+            for k in megakernel.LAUNCHES:
                 megakernel.LAUNCHES[k] = 0
             t0 = time.perf_counter()
-            cli_bytes(path, ["--shard-objects"],
-                      os.path.join(tmp, "ring.bmp"))
+            with no_plain_on_card(f"--shard-objects, {label} field"):
+                cli_bytes(path, ["--shard-objects"],
+                          os.path.join(tmp, "ring.bmp"))
             wall = time.perf_counter() - t0
-            rose = dict(megakernel.LAUNCHES)
-            ring_launches[label] = rose[k_scan]
+            rose = ring_launches[label] = dict(megakernel.LAUNCHES)
             print(f"    --shard-objects, the {label} field at 256x256 x 4 "
-                  f"spp: launches {rose} in {wall:.2f} s wall (K5: "
-                  f"{want_k5} expected)")
-            if rose != {k_lin: 0, k_tree: 0, k_scan: want_k5, k_sky: 0}:
+                  f"spp: launches {rose} in {wall:.2f} s wall ({calls} "
+                  f"sample_pixels call(s) of {rounds} rounds, counted on "
+                  f"the plain walk; expected {want}), no plain version on "
+                  f"the card")
+            if ({k: rose[k] for k in want} != want
+                    or rose[k_lin] or rose[k_tree] or rose[k_sky]):
                 raise AssertionError(f"the ring's launches {rose}")
-            t0 = time.perf_counter()
-            ring_img = ringlib.render_image_ring(sc, seed=SEED, mesh=one_rank)
-            t1 = time.perf_counter()
+            with no_plain_on_card(f"render_image_ring, {label} field"):
+                ring_img = ringlib.render_image_ring(sc, seed=SEED,
+                                                     mesh=one_rank)
+                ring_s = image_s(lambda: ringlib.render_image_ring(
+                    sc, seed=SEED, mesh=one_rank))
             fused = render_image(sc, seed=SEED)
-            t2 = time.perf_counter()
-            print(f"    render_image_ring {t1 - t0:.3f} s against the fused "
-                  f"{kname} (large) {t2 - t1:.3f} s per image; on {smi}; "
-                  f"the ring's image vs the fused kernel's, per pixel:")
+            fused_s = image_s(lambda: render_image(sc, seed=SEED))
+            print(f"    render_image_ring {ring_s:.4f} s per image against "
+                  f"the fused {k_lin if not mix else k_tree} (large) "
+                  f"{fused_s:.4f} s; on {smi}; the ring's image vs the "
+                  f"fused kernel's, per pixel:")
             compare(torch.from_numpy(ring_img.reshape(-1, 3).T),
                     torch.from_numpy(fused.reshape(-1, 3).T))
-    scan_launches = ring_launches["linear"]
-    # a skybox ring render: the linear field opened under the sky, its
-    # misses through skybox.cu, held to K1-large+sky
-    sc = sky_scenes["field_linear"][1]
-    sc = dataclasses.replace(sc, spec=dataclasses.replace(
-        sc.spec, width=256, height=256))
-    for k in megakernel.KERNELS:
-        megakernel.LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    ring_img = ringlib.render_image_ring(sc, seed=SEED, spp=4, mesh=one_rank)
-    t1 = time.perf_counter()
-    rose = dict(megakernel.LAUNCHES)
-    sky_launches[k_sky] = rose[k_sky]
-    if not (rose[k_sky] > 0 and rose[k_scan] > 0 and rose[k_lin] == 0
-            and rose[k_tree] == 0):
-        raise AssertionError(f"the sky ring's launches {rose}")
-    fused = render_image(sc, seed=SEED, spp=4)
-    t2 = time.perf_counter()
-    print(f"    render_image_ring, the linear field under the sky, 256x256 x "
-          f"4 spp: launches {rose}, {t1 - t0:.3f} s against the fused "
-          f"{t2 - t1:.3f} s; vs the fused kernel, per pixel:")
-    compare(torch.from_numpy(ring_img.reshape(-1, 3).T),
-            torch.from_numpy(fused.reshape(-1, 3).T))
+    def twin_image(sc, spp):
+        """(3, P) pixel means of every lane of ``sc``'s image through the
+        ring's round loop with the plain twin as its step, as
+        sample_pixels makes them."""
+        from raytrace_tpu_torch.render.integrator import lane_ids
+
+        w, h = sc.spec.width, sc.spec.height
+        pix = torch.arange(w * h, device=device)
+        lanes = lane_ids(pix % w, pix // w, torch.arange(spp, device=device),
+                         sc.spec.cam_samples)
+        with ringlib.ring_context(sc.data, sc.spec, one_rank) as st:
+            rad = ringlib.ring_radiance(intersect.ring_ctx(), st, sc.spec,
+                                        *lanes, SEED,
+                                        step=ring_shade.ring_shade_reference)
+        return torch.stack([r.reshape(w * h, -1).mean(dim=1) for r in rad])
+
+    # two more ring renders through render_image_ring at 256x256 x 4 spp:
+    # the linear field opened under the sky, its misses looked up inline by
+    # the ring's sky instance, held to K1-large+sky; and the lit mirror
+    # scene, whose shadow rays ring_shadow writes, held to the twin's image
+    # (K1 parts from the plain version on 0.2% of this scene's lanes,
+    # phase 6, too many for the rule on pixels of eight lanes each)
+    lit_mirror = build_scene(dsl.parse(LIT_MIRROR), device=device)
+    for label, sc in (("the linear field under the sky",
+                       sky_scenes["field_linear"][1]),
+                      ("the lit mirror scene (two lights, DoF)", lit_mirror)):
+        sc = dataclasses.replace(sc, spec=dataclasses.replace(
+            sc.spec, width=256, height=256))
+        calls = ring_calls(sc.spec, 4, 1)
+        want = expected_ring_launches(sc.spec, calls, ring_rounds(sc, calls))
+        for k in megakernel.LAUNCHES:
+            megakernel.LAUNCHES[k] = 0
+        with no_plain_on_card(f"render_image_ring, {label}"):
+            ring_img = ringlib.render_image_ring(sc, seed=SEED, spp=4,
+                                                 mesh=one_rank)
+        rose = dict(megakernel.LAUNCHES)
+        if ({k: rose[k] for k in want} != want
+                or rose[k_lin] or rose[k_tree] or rose[k_sky]):
+            raise AssertionError(f"{label}: the ring's launches {rose}, "
+                                 f"expected {want}")
+        if sc.spec.n_lights:
+            ring_launches["lit"] = rose
+        ring_s = image_s(lambda: ringlib.render_image_ring(
+            sc, seed=SEED, spp=4, mesh=one_rank))
+        fused = render_image(sc, seed=SEED, spp=4)
+        fused_s = image_s(lambda: render_image(sc, seed=SEED, spp=4))
+        print(f"    render_image_ring, {label}, 256x256 x 4 spp: launches "
+              f"{rose} (expected {want}), {ring_s:.4f} s against the fused "
+              f"{fused_s:.4f} s; on {smi}; vs the "
+              f"{'twin' if sc.spec.n_lights else 'fused kernel'}, per "
+              f"pixel:")
+        compare(torch.from_numpy(ring_img.reshape(-1, 3).T),
+                twin_image(sc, 4) if sc.spec.n_lights
+                else torch.from_numpy(fused.reshape(-1, 3).T))
+
+    # the ring instances against their plain twin (the same round loop
+    # with ring_shade_reference as its step): the tree to the bit, the
+    # linear instance by the K1 rule (it is built without contraction,
+    # so its bit-equal share is printed beside it)
+    print(f"    the ring instances vs their plain twin "
+          f"(ring_shade_reference), {n_chk} random lanes unless said:")
+    deep = build_scene(dsl.parse(INDIRECT4.replace(
+        "samples: 4", f"samples: {RING_DEEP_SAMPLES}")), device=device)
+    deep = dataclasses.replace(deep, spec=dataclasses.replace(deep.spec,
+                                                              max_depth=0))
+    for label, sc, n_lanes in (
+            ("1,006-object linear field", lin, n_chk),
+            ("1,006-object mixed field", mixed, n_chk),
+            ("lit mirror + DoF", lit_mirror, n_chk),
+            ("open linear field under the sky", sky_scenes["field_linear"][1],
+             n_chk),
+            (f"{RING_DEEP_SAMPLES}-sample IndirectPhong sphere, max_depth 0 "
+             f"(stacks of {ring_shade.stack_entries(deep.spec)} entries)",
+             deep, RING_DEEP_LANES)):
+        lanes_r = random_lanes(sc.spec, n_lanes, SEED, device)
+        row = k_ring_lin if sc.spec.children_per_ray <= 1 else k_ring_tree
+        with ringlib.ring_context(sc.data, sc.spec, one_rank) as st:
+            before = megakernel.LAUNCHES[k_ring]
+            t0 = time.perf_counter()
+            with no_plain_on_card(f"the ring instances, {label}"):
+                got = megakernel.radiance_lanes(st, sc.spec, *lanes_r, SEED)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n_launch = megakernel.LAUNCHES[k_ring] - before
+            want = ringlib.ring_radiance(
+                intersect.ring_ctx(), st, sc.spec, *lanes_r, SEED,
+                step=ring_shade.ring_shade_reference)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        print(f"    {label}, {n_lanes} lanes: {n_launch} ring kernel "
+              f"launches, {t1 - t0:.3f} s (the twin {t2 - t1:.3f} s):")
+        stats = compare(got, want, exact=row == k_ring_tree)
+        max_err[row] = max(max_err[row], stats["max_abs_err"])
+        del got, want
+    torch.cuda.empty_cache()
+
+    # a round of the ring kernels at 2,097,152 lanes (the first: every lane
+    # live), each kernel against its plain version on the same inputs, to
+    # the bit: pixel-ordered lanes of the 1,006-object fields (the linear
+    # field's round times ring_start and ring_rows, each field's its
+    # ring_finish), and random lanes of the lit mirror scene (ring_shadow)
+    n = 1 << 21
+    lanes_p = [t.to(torch.int32) for t in pixel_lanes(1024, n // 2, 2, 1,
+                                                      device)]
+    lanes_l = [t.to(torch.int32)
+               for t in random_lanes(lit_mirror.spec, n, SEED, device)]
+    for label, sc, lanes_r, times in (
+            ("the 1,006-object linear field", lin, lanes_p,
+             {"ring_start": k_ring_start, "ring_rows": k_ring_rows,
+              "ring_finish": k_ring_lin}),
+            ("the 1,006-object mixed field", mixed, lanes_p,
+             {"ring_finish": k_ring_tree}),
+            ("the lit mirror scene, random lanes", lit_mirror, lanes_l,
+             {"ring_shadow": k_ring_shadow})):
+        r = ring_round(ringlib, ring_shade, intersect, sc, lanes_r, one_rank)
+        print(f"    a round at {n} lanes, {label}: the round's scan kernel "
+              f"{r.pop('scan_ms'):.4f} ms; on {smi}:")
+        for kname, e in r.items():
+            b_ms, b_by = bound(0.0, e["bytes"])
+            lib = (f", torch.index_select {e['library_ms']:.4f} ms"
+                   if "library_ms" in e else "")
+            print(f"      {kname}: {e['ms']:.4f} ms, plain "
+                  f"{e['plain_ms']:.4f} ms{lib}; equal to the plain version "
+                  f"to the bit: {e['equal']} (largest difference "
+                  f"{e['max_abs_err']}); "
+                  f"bound {b_ms:.4f} ms ({b_by}: {e['bytes']} B; the "
+                  f"shading's operations left out)")
+            if not e["equal"]:
+                raise AssertionError(f"{kname} differs from its plain "
+                                     f"version on {label}")
+            row = times.get(kname)
+            if row is not None:
+                timing[row] = (e["ms"], e["plain_ms"])
+                bounds[row] = (b_ms, b_by)
+                max_err[row] = max(max_err[row], e["max_abs_err"])
+                if "library_ms" in e:
+                    library_ms[row] = e["library_ms"]
+    del lanes_p, lanes_l
+    torch.cuda.empty_cache()
+    scan_launches = ring_launches["linear"][k_scan]
     # K5 per ring step on the 4,006-object field: the whole table against
     # every ray (k = 1), and each half against half the rays (k = 2); the
     # shard's bounds and fold buffer, built once per shard
@@ -2220,6 +2628,14 @@ def main() -> int:
               f"per step (staged through the host)")
         if not all(same):
             raise AssertionError("the ring at k = 2 differs from k = 1")
+        print(f"    rank {r['rank']}: the rows' ring at k = 2 (ring_rows) on "
+              f"its {RING_RAYS // RANKS} rays' winners, "
+              f"{r['rows_from_the_other_shard']:.3f} of them in the other "
+              f"rank's row shard, equal to its plain selects to the bit: "
+              f"{r['rows_equal']}")
+        if not r["rows_equal"]:
+            raise AssertionError("the rows' ring at k = 2 differs from its "
+                                 "plain version")
     w, h, spp = RING_IMAGE
     field = make_sphere_field(1000, mix_materials=False, width=w, height=h,
                               device=device)
@@ -2234,6 +2650,21 @@ def main() -> int:
               f"{torch.equal(r['ring_image'], img1)}")
         if not torch.equal(r["ring_image"], img1):
             raise AssertionError("the ring render at k = 2 differs")
+    w, h, spp = RING_MIXED_IMAGE
+    field = make_sphere_field(1000, mix_materials=True, width=w, height=h,
+                              device=device)
+    t0 = time.perf_counter()
+    img1 = torch.from_numpy(ringlib.render_image_ring(
+        field, seed=SEED, spp=spp, mesh=one_rank))
+    one_s = time.perf_counter() - t0
+    for r in ranks:
+        same = torch.equal(r["ring_mixed_image"], img1)
+        print(f"    rank {r['rank']}: ring render of the mixed field (the "
+              f"tree instance, rounds agreed by a MAX all-reduce) {w}x{h} x "
+              f"{spp} spp at k = 2 {r['ring_mixed_render_s']:.3f} s (k = 1 "
+              f"here {one_s:.3f} s), equal to k = 1 to the bit: {same}")
+        if not same:
+            raise AssertionError("the mixed ring render at k = 2 differs")
     data, spec_s, px, py, sids, target = step_inputs(device)
     loss0, g0 = optim.loss_and_grad(data, spec_s, px, py, sids, SEED, target)
     for r in ranks:
@@ -2421,28 +2852,44 @@ def main() -> int:
         raise AssertionError("the CLI did not render through every deep "
                              "instance")
     launches = {k_lin: lin_launches, k_tree: tree_launches,
-                k_scan: scan_launches, **large_launches, **sky_launches,
-                **deep_launches}
+                k_scan: scan_launches, k_sky: sky_entry_launches,
+                **large_launches, **sky_launches, **deep_launches,
+                k_ring_start: ring_launches["linear"]["ring_start"],
+                k_ring_rows: ring_launches["linear"]["ring_rows"],
+                k_ring_shadow: ring_launches["lit"]["ring_shadow"],
+                k_ring_lin: ring_launches["linear"]["ring_finish"],
+                k_ring_tree: ring_launches["mixed"]["ring_finish"]}
     # the pallas_call of the render kernel, in its linear regime, its
     # fan-out regimes (radiance_tree_v traced in _kernel, :424, and
     # _tree_loop_scratch, :509) and its large regimes (the in-kernel table
     # fold), the pallas_call of the scan kernel, and the render kernel's
     # skybox regime (its miss records, :458-489, and the post-pass that
-    # looks them up, :794-821)
+    # looks them up, :794-821); where the ring holds the scene the ring's
+    # kernels replace the render kernel's regimes: its primary rays, shadow
+    # rays and node bodies, and the winner's row that its large regime's
+    # fold reads
     fold = "raytrace_tpu/ops/intersect_inline.py:100"
     call = "raytrace_tpu/render/megakernel.py:773"
     replaces = {k_lin: call, k_tree: call,
                 k_lin_large: fold, k_tree_large: fold,
                 k_scan: "raytrace_tpu/ops/intersect_pallas.py:302",
                 k_sky: call, k_lin_sky: call, k_tree_sky: call,
-                k_tree_128: call, k_tree_256: call, k_tree_slab: call}
-    # what launched each row's count: the scan kernel's, the CLI with
-    # --shard-objects (the ring) on the 1,006-object linear field; the
-    # skybox kernel's, a ring render under the sky (the skybox lookup's
-    # launches on the plain CLI's path are those of the (sky) rows, whose
-    # kernels call it inline)
-    direct = {k_scan: "the CLI with --shard-objects (render_image_ring)",
-              k_sky: "render_image_ring under the sky"}
+                k_tree_128: call, k_tree_256: call, k_tree_slab: call,
+                k_ring_start: call, k_ring_rows: fold, k_ring_shadow: call,
+                k_ring_lin: call, k_ring_tree: call}
+    # what launched each row's count: the scan kernel's and the ring
+    # kernels', the CLI with --shard-objects (the ring) on the 1,006-object
+    # linear field (K5, ring_start, ring_rows, the linear ring_finish) and
+    # mixed field (the tree's ring_finish), and render_image_ring on the
+    # lit mirror scene (ring_shadow); the skybox kernel's, its entry point
+    # background_color on the cornell sky launch's primary directions (the
+    # skybox lookup's launches on the CLI's paths are those of the (sky)
+    # rows, whose kernels call it inline, as the ring's do)
+    shard = "the CLI with --shard-objects (render_image_ring)"
+    direct = {k_scan: shard, k_ring_start: shard, k_ring_rows: shard,
+              k_ring_shadow: "render_image_ring on the lit mirror scene",
+              k_ring_lin: shard, k_ring_tree: shard,
+              k_sky: "backgrounds.background_color on CUDA tensors"}
     for k in rows:
         if launches[k] < 1:
             raise AssertionError(f"{k} was launched no time by "

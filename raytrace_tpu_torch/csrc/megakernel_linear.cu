@@ -70,7 +70,7 @@ constexpr int linear_min_blocks(bool lit, int large) {
                     : (lit ? LINEAR_LIT_MIN_BLOCKS : LINEAR_MIN_BLOCKS);
 }
 
-// LARGE as shade_node takes it: 0 a small scene, 1 and 2 a large one with
+// LARGE as SceneAnswers takes it: 0 a small scene, 1 and 2 a large one with
 // its fold buffer in device memory or staged in shared memory
 template <bool LIT, int LARGE, bool SKY>
 __global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
@@ -111,7 +111,7 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
     float cx, cy, cz;
     Node next;
     next.live = false;
-    shade_node<LIT, LARGE, SKY>(sc, e, depth, cx, cy, cz,
+    shade_node<LIT, SKY>(sc, SceneAnswers<LARGE>{}, e, depth, cx, cy, cz,
                [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
                    float sig, float wx, float wy, float wz) {
                  next = child_node(e, slot, ox, oy, oz, dx, dy, dz, sig, wx, wy, wz);

@@ -84,59 +84,12 @@ namespace {
 
 using namespace rt;
 
-constexpr int ENTRY_WORDS = 13;
-
 // the stack in local memory: CAP entries of this thread's own
 template <int CAP>
 struct LocalStack {
   uint32_t w[CAP][ENTRY_WORDS];
   __device__ __forceinline__ uint32_t& at(int i, int k) { return w[i][k]; }
 };
-
-// the stack in the slab: this thread's words `stride` apart, so that the
-// threads of a warp at one depth of their stacks read one line together
-struct SlabStack {
-  uint32_t* base;  // the slab plus the thread's index in the grid
-  long long stride;  // the grid's threads
-  __device__ __forceinline__ uint32_t& at(int i, int k) {
-    return base[(long long)(i * ENTRY_WORDS + k) * stride];
-  }
-};
-
-template <class Stack>
-__device__ __forceinline__ void put(Stack& st, int i, const Node& e, int depth) {
-  st.at(i, 0) = __float_as_uint(e.ox);
-  st.at(i, 1) = __float_as_uint(e.oy);
-  st.at(i, 2) = __float_as_uint(e.oz);
-  st.at(i, 3) = __float_as_uint(e.dx);
-  st.at(i, 4) = __float_as_uint(e.dy);
-  st.at(i, 5) = __float_as_uint(e.dz);
-  st.at(i, 6) = __float_as_uint(e.sig);
-  st.at(i, 7) = __float_as_uint(e.tx);
-  st.at(i, 8) = __float_as_uint(e.ty);
-  st.at(i, 9) = __float_as_uint(e.tz);
-  st.at(i, 10) = e.k1;
-  st.at(i, 11) = e.k2;
-  st.at(i, 12) = (uint32_t)depth;
-}
-
-template <class Stack>
-__device__ __forceinline__ void get(Stack& st, int i, Node& e, int& depth) {
-  e.ox = __uint_as_float(st.at(i, 0));
-  e.oy = __uint_as_float(st.at(i, 1));
-  e.oz = __uint_as_float(st.at(i, 2));
-  e.dx = __uint_as_float(st.at(i, 3));
-  e.dy = __uint_as_float(st.at(i, 4));
-  e.dz = __uint_as_float(st.at(i, 5));
-  e.sig = __uint_as_float(st.at(i, 6));
-  e.tx = __uint_as_float(st.at(i, 7));
-  e.ty = __uint_as_float(st.at(i, 8));
-  e.tz = __uint_as_float(st.at(i, 9));
-  e.k1 = st.at(i, 10);
-  e.k2 = st.at(i, 11);
-  e.live = true;
-  depth = (int)st.at(i, 12);
-}
 
 // blocks per SM that the register allocation must leave room for.  The
 // sparse walk is bound by latency more than by throughput, so warps in flight
@@ -175,39 +128,11 @@ __device__ __forceinline__ void walk_lane(const Scene& sc, const float* s, Stack
   while (__any_sync(warp, walking)) {
     if (!walking) continue;
     float cx, cy, cz;
-    Node next;
-    int taken = 0;  // this node's live children so far
-    const int sp0 = sp;
-    shade_node<true, LARGE, SKY>(sc, e, depth, cx, cy, cz,
-               [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
-                   float sig, float wx, float wy, float wz) {
-                 if (!direct && taken >= m) return;
-                 const Node c = child_node(e, slot, ox, oy, oz, dx, dy, dz, sig, wx, wy, wz);
-                 if (taken++ == 0)
-                   next = c;
-                 else
-                   put(stack, sp++, c, depth + 1);
-               });
+    walking = dfs_node<SKY>(sc, SceneAnswers<LARGE>{}, stack, sp, e, depth, m, direct, cx, cy,
+                            cz);
     accx += cx;
     accy += cy;
     accz += cz;
-    // the pushed children lie in slot order: turn them round, so that the
-    // lowest slot pops first
-    for (int i = sp0, j = sp - 1; i < j; ++i, --j) {
-      for (int k = 0; k < ENTRY_WORDS; ++k) {
-        const uint32_t t = stack.at(i, k);
-        stack.at(i, k) = stack.at(j, k);
-        stack.at(j, k) = t;
-      }
-    }
-    if (taken > 0) {
-      e = next;
-      ++depth;
-    } else if (sp > 0) {
-      get(stack, --sp, e, depth);
-    } else {
-      walking = false;
-    }
   }
   out[lane] = accx;
   out[n + lane] = accy;
@@ -217,7 +142,7 @@ __device__ __forceinline__ void walk_lane(const Scene& sc, const float* s, Stack
 // CAP: the entries of the stack in local memory, or 0 for the slab (then
 // every warp of the grid takes the next 32 lanes from the counter `next`
 // until none is left, each thread's stack at slab + its index in the
-// grid).  LARGE as shade_node takes it.
+// grid).  LARGE as SceneAnswers takes it.
 template <int CAP, int LARGE, bool SKY>
 __global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
                                   tree_min_blocks(CAP, LARGE))

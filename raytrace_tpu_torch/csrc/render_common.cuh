@@ -1,11 +1,13 @@
 // Device code shared by the render kernels (megakernel_linear.cu and
-// megakernel_tree.cu) and the scan kernel (scan_hit.cu): the scene
-// buffer's layout, the counter-based RNG, the primary ray, closest hit and
-// the shadow any-hit query in their two forms (a loop over the object rows
-// in shared memory for small scenes, a fold over the unified primitive
-// table for large ones, which a warp runs one ray at a time with a table
-// row per thread), light sampling, the skybox lookup and the shading of
-// one node.  One thread handles one lane.
+// megakernel_tree.cu), their ring instances (ring_shade.cu) and the scan
+// kernel (scan_hit.cu): the scene buffer's layout, the counter-based RNG,
+// the primary ray, closest hit and the shadow any-hit query in their two
+// forms (a loop over the object rows in shared memory for small scenes, a
+// fold over the unified primitive table for large ones, which a warp runs
+// one ray at a time with a table row per thread), light sampling, the
+// skybox lookup, the shading of one node (its two queries answered by a
+// policy: the scene, or the ring's buffers) and a step of the DFS.  One
+// thread handles one lane.
 //
 // The arithmetic follows the plain PyTorch version operation by operation
 // (raytrace_tpu_torch/render/integrator.py, models/materials.py,
@@ -13,10 +15,11 @@
 // bit-identical (uint32 wraparound).  In the linear kernel floats may
 // differ by the rounding of contracted multiply-adds; the comparison that
 // decides whether light refracts (sin^2 < 1) is computed without
-// contraction, so it rounds as the plain version does.  The tree kernel is
-// compiled without contraction altogether (ops/_build.py, KERNEL_FLAGS) and
-// gives the plain version's floats to the bit on the card, whose sqrtf,
-// rsqrtf, sinf, cosf and powf are the ones PyTorch's CUDA operators call.
+// contraction, so it rounds as the plain version does.  The tree kernel and
+// the ring instances are compiled without contraction altogether
+// (ops/_build.py, KERNEL_FLAGS) and give the plain version's floats to the
+// bit on the card, whose sqrtf, rsqrtf, sinf, cosf and powf are the ones
+// PyTorch's CUDA operators call.
 
 #pragma once
 
@@ -839,6 +842,50 @@ __device__ __forceinline__ bool fold_any(const Tables& tb, float ox, float oy, f
   return fold_any_lane<SH>(tb, q, sq_range, has_range);
 }
 
+// ---- where shade_node takes the answers to its two questions, the closest
+// hit of the node's ray and, for each light, whether its shadow ray is
+// blocked.  A policy class: the fused render kernels ask the scene
+// (SceneAnswers, below), the ring's kernels read answers that the ring
+// filled in between launches (ring_shade.cu).  A policy has
+//   closest(sc, e, t, best): whether the ray hits, its t and the winner;
+//   row(sc, best): the winner's ROW floats;
+//   blocked(sc, li, sx, sy, sz, lx, ly, lz, sq, has_range): light li's
+//     shadow ray (origin, direction, squared range) is blocked;
+//   GLOBAL: the rows are a large scene's (no R_PRE constant) and the hit
+//     record takes RN arithmetic;
+//   TO_LIGHTS: shade_node returns after the lights (the ring's first pass,
+//     which only wants the shadow rays).
+// LARGE (1: the table in device memory, 2: staged in shared memory; 0 for
+// a small scene) answers closest hit and the shadow queries by the folds
+// over the scene's tables and reads the winner's row from device memory by
+// object id; the small instances keep the loops over shared memory.
+template <int LARGE>
+struct SceneAnswers {
+  static constexpr bool GLOBAL = LARGE != 0;
+  static constexpr bool TO_LIGHTS = false;
+  __device__ __forceinline__ bool closest(const Scene& sc, const Node& e, float& t_best,
+                                          int& best) const {
+    if constexpr (LARGE != 0)
+      return fold_closest<LARGE == 2>(sc.tb, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
+    else
+      return closest_hit(sc, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
+  }
+  __device__ __forceinline__ const float* row(const Scene& sc, int best) const {
+    if constexpr (LARGE != 0)
+      return sc.row_by_id(best);
+    else
+      return sc.row(best);
+  }
+  __device__ __forceinline__ bool blocked(const Scene& sc, int, float sx, float sy, float sz,
+                                          float lx, float ly, float lz, float sq,
+                                          bool has_range) const {
+    if constexpr (LARGE != 0)
+      return fold_any<LARGE == 2>(sc.tb, sx, sy, sz, lx, ly, lz, sq, has_range);
+    else
+      return occluded(sc, sx, sy, sz, lx, ly, lz, sq, has_range);
+  }
+};
+
 // ---- shading of one node (integrator.tree_loop_node without the routing):
 // closest hit, local radiance times throughput into (cx, cy, cz), and
 // emit(slot, child) for every live child slot in slot order (reflect,
@@ -851,24 +898,19 @@ __device__ __forceinline__ bool fold_any(const Tables& tb, float ox, float oy, f
 // specular light and the reflect child, the only children, indirect ones,
 // keep their parent's significance, which starts at 1, and a linear scene
 // has at most one slot.  It keeps the IndirectPhong-only chain short.
-// LARGE (1: the table in device memory, 2: staged in shared memory; 0 for a
-// small scene) answers closest hit and the shadow queries by the folds over
-// the scene's tables and reads the winner's row from device memory by
-// object id; the small instances keep the loops over shared memory.  Every
-// thread of a warp whose path is still alive calls this together, whatever
-// its depth: the folds share their work across the warp.  SKY takes a
-// miss's radiance from the skybox (sky_lookup); the instances without it
-// carry none of its code.
-template <bool LIT, int LARGE, bool SKY, class Emit>
-__device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int depth,
-                                           float& cx, float& cy, float& cz, Emit&& emit) {
+// `ask` answers the closest hit and the shadow queries (SceneAnswers, or
+// the ring's buffers).  With SceneAnswers of a large scene every thread of
+// a warp whose path is still alive calls this together, whatever its
+// depth: the folds share their work across the warp.  SKY takes a miss's
+// radiance from the skybox (sky_lookup); the instances without it carry
+// none of its code.
+template <bool LIT, bool SKY, class Ask, class Emit>
+__device__ __forceinline__ void shade_node(const Scene& sc, const Ask& ask, const Node& e,
+                                           int depth, float& cx, float& cy, float& cz,
+                                           Emit&& emit) {
   float t_best;
   int best;
-  bool hit;
-  if constexpr (LARGE != 0)
-    hit = fold_closest<LARGE == 2>(sc.tb, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
-  else
-    hit = closest_hit(sc, e.ox, e.oy, e.oz, e.dx, e.dy, e.dz, t_best, best);
+  const bool hit = ask.closest(sc, e, t_best, best);
   if (!hit) {  // background; a miss spawns nothing
     float bx, by, bz;
     if constexpr (SKY) {
@@ -883,11 +925,7 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     cz = e.tz * bz;
     return;
   }
-  const float* r;  // the one load of the winner's row
-  if constexpr (LARGE != 0)
-    r = sc.row_by_id(best);
-  else
-    r = sc.row(best);
+  const float* r = ask.row(sc, best);  // the one load of the winner's row
   if (depth > sc.max_depth) {  // ambient only, no recursion (raytrace.rs:33)
     cx = e.tx * r[R_AMB];
     cy = e.ty * r[R_AMB + 1];
@@ -898,7 +936,7 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
 
   // hit record: point, normal, snap onto the surface; RN in the large
   // instances, like the origins of the shadow and child rays
-  constexpr bool RN = LARGE != 0;
+  constexpr bool RN = Ask::GLOBAL;
   float ptx = add_<RN>(e.ox, mul_<RN>(e.dx, t_best));
   float pty = add_<RN>(e.oy, mul_<RN>(e.dy, t_best));
   float ptz = add_<RN>(e.oz, mul_<RN>(e.dz, t_best));
@@ -921,7 +959,7 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
     const float nn = dot_<RN>(nx, ny, nz, nx, ny, nz);
     // p.n: ready in a small scene's row, in the same rounding as RN's
     const float p_dot_n =
-        LARGE != 0 ? dot_<RN>(r[R_P], r[R_P + 1], r[R_P + 2], nx, ny, nz) : r[R_PRE];
+        Ask::GLOBAL ? dot_<RN>(r[R_P], r[R_P + 1], r[R_P + 2], nx, ny, nz) : r[R_PRE];
     const float dist = sub_<RN>(dot_<RN>(ptx, pty, ptz, nx, ny, nz), p_dot_n)
                        / (nn > 0.0f ? nn : 1.0f);
     const float sc_ = nn > 0.0f ? dist : 0.0f;
@@ -1004,12 +1042,7 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
       lz = rz * il;
     }
     const float sx = off(ptx, lx), sy = off(pty, ly), sz = off(ptz, lz);
-    bool blocked;
-    if constexpr (LARGE != 0)
-      blocked = fold_any<LARGE == 2>(sc.tb, sx, sy, sz, lx, ly, lz, sq, has_range);
-    else
-      blocked = occluded(sc, sx, sy, sz, lx, ly, lz, sq, has_range);
-    if (blocked) continue;
+    if (ask.blocked(sc, li, sx, sy, sz, lx, ly, lz, sq, has_range)) continue;
     const float* lc = L + L_COLOR;
     if (diffuse_gate) {
       const float lam = fmaxf(lx * nfx + ly * nfy + lz * nfz, 0.0f) * INV_PI;
@@ -1029,6 +1062,7 @@ __device__ __forceinline__ void shade_node(const Scene& sc, const Node& e, int d
       emz = emz + r[R_SPEC + 2] * lc[2] * ws;
     }
   }
+  if constexpr (Ask::TO_LIGHTS) return;
   cx = e.tx * emx;
   cy = e.ty * emy;
   cz = e.tz * emz;
@@ -1101,6 +1135,103 @@ __device__ __forceinline__ Node child_node(const Node& e, int slot, float ox, fl
   derive(c.k1, c.k2, (uint32_t)slot);
   c.live = true;
   return c;
+}
+
+// ---- a DFS stack entry: a Node's 13 words (ray 6, significance,
+// throughput 3, two key words) and its depth, in a stack that gives word k
+// of entry i as at(i, k) (megakernel_tree.cu's local stack; the slab)
+constexpr int ENTRY_WORDS = 13;
+
+// the stack in a slab of device memory: this thread's words `stride`
+// apart, so that the threads of a warp at one depth of their stacks read
+// one line together (K3's slab; the ring's lane state and stacks)
+struct SlabStack {
+  uint32_t* base;  // the slab plus the thread's index in the grid
+  long long stride;  // the grid's threads
+  __device__ __forceinline__ uint32_t& at(int i, int k) {
+    return base[(long long)(i * ENTRY_WORDS + k) * stride];
+  }
+};
+
+template <class Stack>
+__device__ __forceinline__ void put(Stack& st, int i, const Node& e, int depth) {
+  st.at(i, 0) = __float_as_uint(e.ox);
+  st.at(i, 1) = __float_as_uint(e.oy);
+  st.at(i, 2) = __float_as_uint(e.oz);
+  st.at(i, 3) = __float_as_uint(e.dx);
+  st.at(i, 4) = __float_as_uint(e.dy);
+  st.at(i, 5) = __float_as_uint(e.dz);
+  st.at(i, 6) = __float_as_uint(e.sig);
+  st.at(i, 7) = __float_as_uint(e.tx);
+  st.at(i, 8) = __float_as_uint(e.ty);
+  st.at(i, 9) = __float_as_uint(e.tz);
+  st.at(i, 10) = e.k1;
+  st.at(i, 11) = e.k2;
+  st.at(i, 12) = (uint32_t)depth;
+}
+
+template <class Stack>
+__device__ __forceinline__ void get(Stack& st, int i, Node& e, int& depth) {
+  e.ox = __uint_as_float(st.at(i, 0));
+  e.oy = __uint_as_float(st.at(i, 1));
+  e.oz = __uint_as_float(st.at(i, 2));
+  e.dx = __uint_as_float(st.at(i, 3));
+  e.dy = __uint_as_float(st.at(i, 4));
+  e.dz = __uint_as_float(st.at(i, 5));
+  e.sig = __uint_as_float(st.at(i, 6));
+  e.tx = __uint_as_float(st.at(i, 7));
+  e.ty = __uint_as_float(st.at(i, 8));
+  e.tz = __uint_as_float(st.at(i, 9));
+  e.k1 = st.at(i, 10);
+  e.k2 = st.at(i, 11);
+  e.live = true;
+  depth = (int)st.at(i, 12);
+}
+
+// One node of the DFS (megakernel_tree.cu's walk; the ring's tree instance,
+// one node a launch): shade e, its contribution into (cx, cy, cz), and its
+// live children, of which the first becomes e at depth + 1 and the others
+// are pushed onto the stack at sp in slot order and turned round, so that
+// the lowest slot pops first; a node without a live child pops the next
+// one.  Returns whether the walk goes on (false: the stack was empty).  A
+// node's b child slots are routed to at most m children: slot j is child j
+// when `direct` (b <= m), else the first m live slots in slot order.
+template <bool SKY, class Ask, class Stack>
+__device__ __forceinline__ bool dfs_node(const Scene& sc, const Ask& ask, Stack& stack, int& sp,
+                                         Node& e, int& depth, int m, bool direct, float& cx,
+                                         float& cy, float& cz) {
+  Node next;
+  int taken = 0;  // this node's live children so far
+  const int sp0 = sp;
+  shade_node<true, SKY>(sc, ask, e, depth, cx, cy, cz,
+                        [&](int slot, float ox, float oy, float oz, float dx, float dy, float dz,
+                            float sig, float wx, float wy, float wz) {
+                          if (!direct && taken >= m) return;
+                          const Node c =
+                              child_node(e, slot, ox, oy, oz, dx, dy, dz, sig, wx, wy, wz);
+                          if (taken++ == 0)
+                            next = c;
+                          else
+                            put(stack, sp++, c, depth + 1);
+                        });
+  // the pushed children lie in slot order: turn them round, so that the
+  // lowest slot pops first
+  for (int i = sp0, j = sp - 1; i < j; ++i, --j) {
+    for (int k = 0; k < ENTRY_WORDS; ++k) {
+      const uint32_t t = stack.at(i, k);
+      stack.at(i, k) = stack.at(j, k);
+      stack.at(j, k) = t;
+    }
+  }
+  if (taken > 0) {
+    e = next;
+    ++depth;
+  } else if (sp > 0) {
+    get(stack, --sp, e, depth);
+  } else {
+    return false;
+  }
+  return true;
 }
 
 // ---- what the runtime reports of a kernel, for the C entries rt_*_attrs:

@@ -75,11 +75,18 @@ class Child(NamedTuple):
 
 @annotate(SHADE)
 def shade(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, hit: HitRec,
-          sig, live, k1, k2, depth: int):
+          sig, live, k1, k2, depth: int, occluded=None):
     """Shade one level.  Returns ``(emit: V3, children: list[Child])``:
     the local radiance of each lane (ambient plus direct light; the
     background of miss lanes is the integrator's) and the child-ray
-    slots (none past ``max_depth``)."""
+    slots (none past ``max_depth``).
+
+    ``occluded(li, origin, ldir, sq_range, has_range, need)`` answers
+    light ``li``'s shadow rays (``need``: the lanes whose light term can
+    be nonzero, live hits with a significance gate open); by default
+    :func:`raytrace_tpu_torch.ops.intersect.occluded_v` (the ring's
+    shading asks the ring instead:
+    :mod:`raytrace_tpu_torch.render.ring_shade`)."""
     dtype = ro.x.dtype
     diffuse, specular = hit.diffuse, hit.specular
     exponent, ior, msamples = hit.exponent, hit.ior, hit.msamples
@@ -142,11 +149,14 @@ def shade(data: SceneData, spec: SceneSpec, ro: V3, rd: V3, hit: HitRec,
 
     # ---- direct lighting, one light at a time ----
     shaded = live & hit.hit
+    need = None if occluded is None else shaded & (diffuse_gate | spec_gate)
     for li, lt in enumerate(spec.light_type):
         ldir, sqr, has_range = light_dir_and_sq_range(data, lt, li, pt, k1,
                                                       k2, dtype)
-        blocked = occluded_v(data, spec, pt + ldir.scale(_OFFSET), ldir, sqr,
-                             has_range)
+        origin = pt + ldir.scale(_OFFSET)
+        blocked = (occluded_v(data, spec, origin, ldir, sqr, has_range)
+                   if occluded is None
+                   else occluded(li, origin, ldir, sqr, has_range, need))
         vis = shaded & ~blocked
         lr, lg, lb = (data.light_color[li, 0], data.light_color[li, 1],
                       data.light_color[li, 2])

@@ -34,19 +34,26 @@ KERNEL_LINEAR = "megakernel_linear"
 KERNEL_TREE = "megakernel_tree"
 KERNEL_SCAN = "scan_hit"
 KERNEL_SKY = "skybox"
-KERNELS = (KERNEL_LINEAR, KERNEL_TREE, KERNEL_SCAN, KERNEL_SKY)
+KERNEL_RING = "ring_shade"
+KERNELS = (KERNEL_LINEAR, KERNEL_TREE, KERNEL_SCAN, KERNEL_SKY, KERNEL_RING)
 
-# flags of one kernel on top of NVCC_FLAGS.  The tree kernel is compiled
-# without contraction of multiply-adds, so every product and sum rounds as
-# the plain PyTorch path's does and its lanes agree with that path to the
-# bit: a lane of a wide tree visits hundreds of nodes, and one contracted
-# sphere or plane test that turns a grazing child ray's self-hit forks it.
-KERNEL_FLAGS = {KERNEL_TREE: ("-fmad=false",)}
+# flags of one kernel on top of NVCC_FLAGS.  The tree kernel and the ring's
+# kernels are compiled without contraction of multiply-adds, so every
+# product and sum rounds as the plain PyTorch path's does and their lanes
+# agree with that path to the bit: a lane of a wide tree visits hundreds of
+# nodes, and one contracted sphere or plane test that turns a grazing child
+# ray's self-hit forks it.
+KERNEL_FLAGS = {KERNEL_TREE: ("-fmad=false",),
+                KERNEL_RING: ("-fmad=false",)}
 
-# kernel launches in this process, per kernel: a wrapper adds one where
-# it launches its kernel and nowhere else (chip_smoke.py resets and reads
-# them to show that a run went through the kernels)
-LAUNCHES = {k: 0 for k in KERNELS}
+# the kernels of csrc/ring_shade.cu, each counted apart too
+RING_KERNELS = ("ring_start", "ring_shadow", "ring_rows", "ring_finish")
+
+# kernel launches in this process, per kernel source, and for the ring's
+# source also per kernel: a wrapper adds one where it launches its kernel
+# and nowhere else (chip_smoke.py resets and reads them to show that a run
+# went through the kernels)
+LAUNCHES = {k: 0 for k in KERNELS + RING_KERNELS}
 
 # one lock per kernel, so that kernels build in parallel threads
 _locks_lock = threading.Lock()

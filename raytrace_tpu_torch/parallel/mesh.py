@@ -165,6 +165,17 @@ def all_reduce_sum_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return t
 
 
+def all_reduce_max(value: int, mesh: Mesh) -> int:
+    """The largest of the ranks' ``value`` (on the host for gloo, on the
+    mesh's device for NCCL)."""
+    if mesh.ranks == 1:
+        return int(value)
+    device = "cpu" if dist.get_backend() == "gloo" else mesh.device
+    t = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t.item())
+
+
 def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     """Overwrite ``t`` with rank ``src``'s, in place."""
     if mesh.ranks > 1:

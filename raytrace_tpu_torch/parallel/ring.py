@@ -13,18 +13,20 @@ CUDA scan kernel on CUDA float32 tensors, the plain scan on CPU tensors.
 What it reads circulates with the shard, built once per shard: the table
 (for the plain scan) and its fold buffer (the kernel's layout of the
 table, which holds the ids and the chunk bounds too).  The winners'
-material rows come round a second ring of the packed object table's row
-shards.
+material rows, in the render kernels' row layout, come round a second
+ring of the packed object table's row shards.
 
 A ring render (:func:`render_image_ring`) installs a :class:`RingContext`
-(:func:`raytrace_tpu_torch.ops.intersect.set_ring_ctx`): every
-closest-hit and shadow query of the plain chain or DFS then goes round
-the ring, and a skybox's misses go through
-:func:`raytrace_tpu_torch.models.backgrounds.background_color`, the
-skybox kernel on CUDA tensors.  The scene's per-object leaves are
-replaced by one-row dummies, which nothing reads while the context is in
-place.  No kernel holds a ring's shards, so the render kernels are not
-used there.
+(:func:`raytrace_tpu_torch.ops.intersect.set_ring_ctx`) and replaces the
+scene's per-object leaves by one-row dummies.  On CUDA tensors the lanes
+then go through the ring instances of the render kernels
+(:mod:`raytrace_tpu_torch.render.ring_shade`), one node of every lane a
+round, with this module's round loop, :func:`ring_radiance`, between
+their launches: the closest hit round the ring, the winners' rows, and
+the shadow rays round the ring.  On CPU tensors every closest-hit and
+shadow query of the plain chain or DFS goes round the ring, and a
+skybox's misses through
+:func:`raytrace_tpu_torch.models.backgrounds.background_color`.
 """
 
 from __future__ import annotations
@@ -38,11 +40,15 @@ import numpy as np
 import torch
 
 from raytrace_tpu_torch.ops import intersect, intersect_scan
-from raytrace_tpu_torch.ops.intersect_scan import ID_SENTINEL, OBJ_CHUNK
+from raytrace_tpu_torch.ops.intersect_scan import OBJ_CHUNK
+from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.ops.vec import V3
-from raytrace_tpu_torch.parallel.mesh import (Mesh, all_gather, make_mesh,
+from raytrace_tpu_torch.parallel.mesh import (Mesh, all_gather,
+                                              all_reduce_max, make_mesh,
                                               ring_shift)
-from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
+from raytrace_tpu_torch.render.megakernel import kernel_rows
+from raytrace_tpu_torch.scene.schema import (LIGHT_DIRECTIONAL, Scene,
+                                             SceneData, SceneSpec)
 
 
 def shard_geometry(data: SceneData, spec: SceneSpec, k: int):
@@ -107,17 +113,18 @@ def ring_closest_hit_local(shard: RingShard, n_sph_pad: int, ro: V3, rd: V3,
     circulate ``mesh.ranks`` times.  Returns ``(t (N,), obj (N,) int32,
     hit (N,))`` with the first minimum in scene order winning: on an exact
     t tie the lower global id (scene.rs:248).  Miss lanes carry obj 0."""
-    t_best = torch.full_like(ro.x, float("inf"))
-    obj = torch.full(ro.x.shape, ID_SENTINEL, dtype=torch.int32,
-                     device=ro.x.device)
-    hit = torch.zeros(ro.x.shape, dtype=torch.bool, device=ro.x.device)
     for step in range(mesh.ranks):
         t_s, gid, h_s = _shard_hit(shard, n_sph_pad, ro, rd)
         t_s = torch.where(h_s, t_s, float("inf"))
-        better = (t_s < t_best) | ((t_s == t_best) & h_s & (gid < obj))
-        t_best = torch.where(better, t_s, t_best)
-        obj = torch.where(better, gid, obj)
-        hit = hit | h_s
+        if step == 0:
+            # the first shard's answer is the running minimum so far (a
+            # miss carries t = inf and the sentinel id)
+            t_best, obj, hit = t_s, gid, h_s
+        else:
+            better = (t_s < t_best) | ((t_s == t_best) & h_s & (gid < obj))
+            t_best = torch.where(better, t_s, t_best)
+            obj = torch.where(better, gid, obj)
+            hit = hit | h_s
         if step + 1 < mesh.ranks:
             shard = RingShard(*ring_shift(shard, mesh))
     return t_best, torch.where(hit, obj, 0), hit
@@ -130,14 +137,45 @@ class RingContext(NamedTuple):
     mesh: Mesh
     shard: RingShard        # this rank's geometry shard
     n_sph_pad: int          # sphere rows of every shard
-    mat_rows: torch.Tensor  # (per, 22) this rank's rows of the packed
-                            # object table: rows [rank*per, (rank+1)*per)
+    mat_rows: torch.Tensor  # (per, 24) this rank's rows of the packed
+                            # object table in the kernels' row layout
+                            # (megakernel.kernel_rows): rows [rank*per,
+                            # (rank+1)*per)
 
 
 def ring_gather_rows(mat_rows, obj, mesh: Mesh):
     """The winners' rows of the packed object table, whose contiguous row
     shards circulate: each lane takes its row while the shard that owns it
-    is resident (exact: pure selects)."""
+    is resident.  (N, 24) rows in the render kernels' layout for (N,)
+    lanes.  On CUDA tensors each step is the ring's row kernel
+    (:func:`raytrace_tpu_torch.render.ring_shade.gather_rows`), whose
+    gradient in the rows is the plain version's; on CPU tensors the plain
+    version, :func:`ring_gather_rows_reference`."""
+    from raytrace_tpu_torch.render import ring_shade
+
+    if obj.device.type == "cpu":
+        return ring_gather_rows_reference(mat_rows, obj, mesh)
+
+    ids = obj.to(torch.int32)
+
+    def kernel(rows):
+        k, per = mesh.ranks, rows.shape[0]
+        out = rows.new_empty(obj.shape + rows.shape[1:])
+        for step in range(k):
+            ring_shade.gather_rows(rows, (mesh.rank - step) % k * per, ids,
+                                   out)
+            if step + 1 < k:
+                rows, = ring_shift([rows], mesh)
+        return (out,)
+
+    return kernel_forward(
+        kernel, lambda rows: (ring_gather_rows_reference(rows, obj, mesh),),
+        mat_rows, name=ring_shade.KERNEL_RING)[0]
+
+
+def ring_gather_rows_reference(mat_rows, obj, mesh: Mesh):
+    """The plain :func:`ring_gather_rows`: each step's rows taken by pure
+    selects (exact)."""
     k, per = mesh.ranks, mat_rows.shape[0]
     out = mat_rows.new_zeros(obj.shape + mat_rows.shape[1:])
     rows = mat_rows
@@ -173,8 +211,8 @@ def ring_occluded(ctx: RingContext, ro: V3, rd: V3, sq_range,
 
 
 def shard_object_table(table: torch.Tensor, k: int) -> torch.Tensor:
-    """The (O, 22) packed object table padded to k contiguous row shards,
-    (k, per, 22); pad rows are never selected (obj < O)."""
+    """The (O, C) packed object table padded to k contiguous row shards,
+    (k, per, C); pad rows are never selected (obj < O)."""
     o = table.shape[0]
     per = -(-o // k)
     table = torch.cat([table, table.new_zeros((per * k - o,
@@ -202,7 +240,8 @@ def ring_context(data: SceneData, spec: SceneSpec, mesh: Mesh):
                          f"{mesh.device}")
     k = mesh.ranks
     tables, ids, n_sph_pad = shard_geometry(data, spec, k)
-    mats = shard_object_table(intersect.object_table(data, spec), k)
+    mats = shard_object_table(kernel_rows(intersect.object_table(data, spec)),
+                              k)
     ctx = RingContext(mesh, make_shard(tables[mesh.rank].clone(),
                                        ids[mesh.rank].clone(), n_sph_pad),
                       n_sph_pad, mats[mesh.rank].clone())
@@ -211,6 +250,48 @@ def ring_context(data: SceneData, spec: SceneSpec, mesh: Mesh):
         yield strip_object_data(data)
     finally:
         intersect.set_ring_ctx(prev)
+
+
+def ring_radiance(ctx: RingContext, data: SceneData, spec: SceneSpec, pix,
+                  piy, aa, cam, seed: int, step=None) -> V3:
+    """Radiance of (N,) lanes through the ring, one node of every lane a
+    round: ``step.start`` makes the primary rays, then each round takes
+    the ring's closest hit of the nodes (K5 on each resident shard), the
+    winners' rows, for a lit scene ``step.shadow``'s shadow rays and their
+    blocked bits round the ring (:func:`ring_occluded`), and
+    ``step.finish``.  A linear scene takes
+    ``max_depth + 2`` rounds (one where no material spawns a child, as the
+    plain chain does); a fan-out scene takes rounds while any rank
+    has a live lane, which a MAX all-reduce of the ranks' counts decides
+    once a round, so that every rank makes the same ring steps.  ``step``
+    is a :class:`raytrace_tpu_torch.render.ring_shade.RingStep`: by
+    default the ring kernels (CUDA tensors; their plain twin on CPU
+    tensors); every rank of the ring calls this together."""
+    from raytrace_tpu_torch.render import ring_shade
+
+    step = ring_shade.ring_shade_kernels if step is None else step
+    lanes = step.start(data, spec, pix, piy, aa, cam, seed)
+    tree = spec.children_per_ray > 1
+    rounds = spec.max_depth + 2 if spec.children_per_ray else 1
+    ranged = [lt != LIGHT_DIRECTIONAL for lt in spec.light_type]
+    depth = 0
+    while (all_reduce_max(int(lanes.live.sum()), ctx.mesh) > 0 if tree
+           else depth < rounds):
+        ro, rd = lanes.rays()
+        t, obj, hit = ring_closest_hit_local(ctx.shard, ctx.n_sph_pad, ro, rd,
+                                             ctx.mesh)
+        rows = step.rows(ctx.mat_rows, obj, ctx.mesh)
+        blocked = None
+        # a linear scene's last round shades past max_depth: no lights
+        if spec.n_lights and (tree or depth <= spec.max_depth):
+            # per light (origin, direction, squared range) of each lane
+            q = step.shadow(data, spec, lanes, t, hit, rows)
+            blocked = torch.stack([
+                ring_occluded(ctx, V3(*q[li, :3]), V3(*q[li, 3:6]), q[li, 6],
+                              ranged[li]) for li in range(spec.n_lights)])
+        step.finish(data, spec, lanes, t, hit, rows, blocked)
+        depth += 1
+    return V3(*lanes.acc)
 
 
 def render_image_ring(scene: Scene, *, seed: int = 0,
@@ -225,22 +306,23 @@ def render_image_ring(scene: Scene, *, seed: int = 0,
     the RNG is keyed by identity and the ring's fold is the dense scan's
     (t, id) minimum.  Every rank calls it and gets the whole image."""
     from raytrace_tpu_torch.parallel.tile import render_chunks_sharded
-    from raytrace_tpu_torch.render.integrator import (_image_loop,
-                                                      _wavefront_widest)
+    from raytrace_tpu_torch.render import ring_shade
+    from raytrace_tpu_torch.render.integrator import _image_loop
 
     mesh = mesh if mesh is not None else make_mesh(scene.data.device)
     if len(mesh.axis_names) > 1:
         raise ValueError("ring rendering wants a flat 1-axis mesh; got "
                          + str(mesh.axis_names))
     with ring_context(scene.data, scene.spec, mesh) as stripped:
-        # launches sized for the plain path's widest level, as the
-        # reference sizes them for its wavefront under the ring
+        # launches sized for the ring kernels' lane state: one lane a
+        # primary sample, and a fan-out scene's DFS stacks within their
+        # budget
         return _image_loop(dataclasses.replace(scene, data=stripped),
                            seed=seed, spp=spp,
-                           max_lanes=max_lanes * mesh.ranks,
+                           max_lanes=ring_shade.max_lanes(
+                               scene.spec, max_lanes) * mesh.ranks,
                            progress=progress, checkpoint=checkpoint,
-                           launch_chunks=partial(render_chunks_sharded, mesh),
-                           lane_width=_wavefront_widest(scene.spec))
+                           launch_chunks=partial(render_chunks_sharded, mesh))
 
 
 def make_ring_intersector(spec: SceneSpec, mesh: Mesh):

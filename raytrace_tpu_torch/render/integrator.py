@@ -320,13 +320,11 @@ def _render_chunks(data: SceneData, spec: SceneSpec, px, py, s0: int,
     return out
 
 
-def _s_p_launch(spec: SceneSpec, aa: int, max_lanes: int,
-                lane_width: int = 1):
+def _s_p_launch(spec: SceneSpec, aa: int, max_lanes: int):
     """(samples, pixels) per launch: fill the lane budget without
-    exceeding it, taking more samples per launch for small images.
-    ``lane_width`` is the lanes a primary sample takes at once (1 for the
-    kernels)."""
-    lane_budget = max(max_lanes // (spec.cam_samples * lane_width), 1)
+    exceeding it, taking more samples per launch for small images (a
+    primary sample takes one lane)."""
+    lane_budget = max(max_lanes // spec.cam_samples, 1)
     n_pix = spec.width * spec.height
     if n_pix <= lane_budget:
         return min(aa, max(lane_budget // n_pix, 1)), n_pix
@@ -418,20 +416,18 @@ def sample_groups(spec: SceneSpec, aa: int, s_launch: int, s_done: int = 0,
 
 def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                 max_lanes: int, progress, checkpoint: str | None,
-                launch_chunks=None, chunk_group: int = 32,
-                lane_width: int = 1) -> np.ndarray:
+                launch_chunks=None, chunk_group: int = 32) -> np.ndarray:
     """Host loop over groups of sample chunks.  The float64 host
     accumulator is checkpointed after every group, so a killed render
     resumes at the last group boundary.  ``progress`` gets the completed
     fraction in [0, 1].  ``launch_chunks`` renders one group with
     :func:`_render_chunks`'s signature (the sharded renders pass their
-    own; default :func:`_render_chunks`); ``lane_width`` sizes its
-    launches (:func:`_s_p_launch`)."""
+    own; default :func:`_render_chunks`)."""
     launch_chunks = launch_chunks or _render_chunks
     data, spec = scene.data, scene.spec
     w, h = spec.width, spec.height
     aa = spp if spp is not None else max(spec.antialias, 1)
-    s_launch, p_launch = _s_p_launch(spec, aa, max_lanes, lane_width)
+    s_launch, p_launch = _s_p_launch(spec, aa, max_lanes)
 
     image = np.zeros((h * w, 3), np.float64)
     s_done = 0

@@ -14,21 +14,24 @@ and shadow queries by folding over the scene's unified primitive table
 kernel takes the stack instance that :func:`tree_instance` names (its
 stack in local memory up to 256 entries, above that in a slab of device
 memory that the wrapper allocates), and a skybox scene takes the
-instances that look the cube up where a ray misses.  On CPU tensors it
-runs their plain PyTorch version, :func:`radiance_lanes_reference`.
-Gradients: the forward pass is the kernel, the backward pass
-differentiates the plain version on the same lanes
+instances that look the cube up where a ray misses.  While a ring
+context is installed (an object-sharded render,
+:mod:`raytrace_tpu_torch.parallel.ring`) no kernel holds the scene, and
+:func:`radiance_lanes_ring` runs the ring instances of both kernels
+(``csrc/ring_shade.cu``, :mod:`raytrace_tpu_torch.render.ring_shade`):
+their node body one round a launch, the ring answering its queries
+between launches.  On CPU tensors it runs their plain PyTorch version,
+:func:`radiance_lanes_reference` (under a ring context, its queries go
+round the ring).  Gradients: the forward pass is the kernel, the
+backward pass differentiates the plain version on the same lanes
 (:mod:`raytrace_tpu_torch.ops.kernel_grad`).
-:func:`radiance_lanes_split` is a one-shard ring
-(:mod:`raytrace_tpu_torch.parallel.ring`) on the lanes' device: the
-plain chain or DFS with every scan answered by the CUDA scan kernel
-(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  While a ring context is
-installed, every scene takes the plain version, whose queries go round
-the ring: no kernel holds the scene then.  On CPU tensors every scene
-renders, float64 included; on CUDA tensors every float32 scene goes
-through a kernel, whatever its DFS stack, and a float64 scene (outside
-:func:`usable`) raises ``NotImplementedError`` naming the ROADMAP item:
-nothing there gives way to the plain version.
+:func:`radiance_lanes_split` is a one-shard ring on the lanes' device:
+the ring instances with every scan answered by the CUDA scan kernel
+(:mod:`raytrace_tpu_torch.ops.intersect_scan`).  On CPU tensors every
+scene renders, float64 included; on CUDA tensors every float32 scene
+goes through a kernel, whatever its DFS stack, and a float64 scene
+(outside :func:`usable`) raises ``NotImplementedError`` naming the
+ROADMAP item: nothing there gives way to the plain version.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ KERNEL_LINEAR = _build.KERNEL_LINEAR
 KERNEL_TREE = _build.KERNEL_TREE
 KERNEL_SCAN = _build.KERNEL_SCAN
 KERNEL_SKY = _build.KERNEL_SKY
+KERNEL_RING = _build.KERNEL_RING
 KERNELS = _build.KERNELS
 # kernel launches in this process, per kernel
 LAUNCHES = _build.LAUNCHES
@@ -125,8 +129,8 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
     """Radiance of each lane, given (N,) integer identity tensors on the
     scene's device.  Returns a V3 of (N,) tensors of the scene's dtype,
     differentiable in every float leaf of the scene.  CPU tensors take the
-    plain version whatever the scene, as does every scene while a ring
-    context is installed; CUDA tensors a kernel, or
+    plain version whatever the scene; CUDA tensors a kernel (the ring
+    instances while a ring context is installed), or
     ``NotImplementedError`` for a scene outside :func:`usable`."""
     device = pix.device
     for t in (pix, piy, aa, cam):
@@ -134,21 +138,48 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             raise ValueError("lane ids must be (N,) tensors on one device")
     if data.device != device:
         raise ValueError(f"scene on {data.device}, lanes on {device}")
-    if device.type == "cpu" or intersect.ring_ctx() is not None:
+    if device.type == "cpu":
         return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed)
     if device.type == "cuda":
         reason = unsupported_reason(data, spec)
         if reason is not None:
             raise NotImplementedError(reason)
-        # the kernel forward; backward through the plain version
+        ctx = intersect.ring_ctx()
+        fwd, name = ((_launch, kernel_for(spec)) if ctx is None
+                     else (radiance_lanes_ring, KERNEL_RING))
+        # the kernel forward; backward through the plain version, under the
+        # ring context of the forward pass
         leaves = [getattr(data, f.name) for f in dataclasses.fields(data)]
         return V3(*kernel_forward(
-            lambda *ls: _launch(SceneData(*ls), spec, pix, piy, aa, cam,
-                                seed),
-            lambda *ls: radiance_lanes_reference(SceneData(*ls), spec, pix,
-                                                 piy, aa, cam, seed),
-            *leaves, name=kernel_for(spec)))
+            lambda *ls: fwd(SceneData(*ls), spec, pix, piy, aa, cam, seed),
+            lambda *ls: _reference_under(ctx, SceneData(*ls), spec, pix, piy,
+                                         aa, cam, seed),
+            *leaves, name=name))
     raise ValueError(f"no megakernel for device {device}")
+
+
+def _reference_under(ctx, *args) -> V3:
+    """:func:`radiance_lanes_reference` with the ring context ``ctx`` (or
+    none) installed."""
+    prev = intersect.set_ring_ctx(ctx)
+    try:
+        return radiance_lanes_reference(*args)
+    finally:
+        intersect.set_ring_ctx(prev)
+
+
+def radiance_lanes_ring(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
+                        seed: int) -> V3:
+    """The ring instances of the render kernels on the installed ring
+    context's shards: :func:`raytrace_tpu_torch.parallel.ring.ring_radiance`
+    with the kernels of ``csrc/ring_shade.cu`` as its step (on CUDA
+    tensors they launch or raise)."""
+    from raytrace_tpu_torch.parallel.ring import ring_radiance
+
+    ctx = intersect.ring_ctx()
+    if ctx is None:
+        raise ValueError("the ring instances need an installed ring context")
+    return ring_radiance(ctx, data, spec, pix, piy, aa, cam, seed)
 
 
 def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
@@ -156,7 +187,8 @@ def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
     """The plain PyTorch version of the kernels, on any device: the
     linear chain or the DFS, as :func:`kernel_for` picks the kernel.  A
     large scene goes through the plain scan of its table and launches no
-    kernel (unless a ring context is installed)."""
+    kernel (unless a ring context is installed: its queries then go round
+    the ring, whose steps are the scan kernel on CUDA tensors)."""
     from raytrace_tpu_torch.render.integrator import (primary_rays,
                                                       radiance_linear_v,
                                                       radiance_tree_loop_v)
@@ -170,11 +202,11 @@ def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
 def radiance_lanes_split(data: SceneData, spec: SceneSpec, pix, piy, aa,
                          cam, seed: int) -> V3:
     """The split path of a large scene: a ring of one shard on the lanes'
-    device (:func:`raytrace_tpu_torch.parallel.ring.ring_context`), so the
-    plain chain or DFS with every closest-hit and shadow scan answered by
-    :func:`raytrace_tpu_torch.ops.intersect_scan.scan_hit`, the CUDA scan
-    kernel on CUDA tensors (one launch per scan), and a skybox's misses by
-    :func:`raytrace_tpu_torch.models.backgrounds.background_color`."""
+    device (:func:`raytrace_tpu_torch.parallel.ring.ring_context`), so
+    :func:`radiance_lanes` under the ring: on CUDA tensors the ring
+    instances, whose closest-hit and shadow queries are answered by
+    :func:`raytrace_tpu_torch.ops.intersect_scan.scan_hit` (the CUDA scan
+    kernel, one launch per query); on CPU tensors the plain version."""
     from raytrace_tpu_torch.parallel.mesh import Mesh
     from raytrace_tpu_torch.parallel.ring import ring_context
 
@@ -182,8 +214,34 @@ def radiance_lanes_split(data: SceneData, spec: SceneSpec, pix, piy, aa,
         raise ValueError(f"the split path is for scenes of more than "
                          f"{LARGE_SCENE_THRESHOLD} objects")
     with ring_context(data, spec, Mesh(pix.device)) as stripped:
-        return radiance_lanes_reference(stripped, spec, pix, piy, aa, cam,
-                                        seed)
+        return radiance_lanes(stripped, spec, pix, piy, aa, cam, seed)
+
+
+def _header_parts(data: SceneData, spec: SceneSpec) -> list:
+    """The scene buffer's header and light rows (:func:`pack_scene`), as
+    the tensors to concatenate."""
+    halfw, halfh = spec.width / 2.0, spec.height / 2.0
+    # every number taken from the spec, in one host-to-device copy
+    host = torch.tensor([halfw, halfh, max(1.0 / halfw, 1.0 / halfh),
+                         spec.min_significance, 0.0, 0.0, *spec.light_type],
+                        dtype=torch.float64).to(device=data.device,
+                                                dtype=data.dtype)
+    n_l = spec.n_lights
+    lights = torch.cat([host[6:, None], data.light_p[:n_l],
+                        data.light_e1[:n_l], data.light_e2[:n_l],
+                        data.light_color[:n_l],
+                        torch.zeros_like(data.light_p[:n_l])], dim=1)
+    return [data.cam_position, data.cam_matrix.reshape(9), data.bg_color,
+            host[:4], data.cam_focus.reshape(1), data.cam_aperture.reshape(1),
+            data.cam_im_dist.reshape(1), host[4:6], lights.reshape(-1)]
+
+
+def kernel_rows(rows: torch.Tensor) -> torch.Tensor:
+    """``object_table`` rows padded to the kernels' ``_ROW`` floats, as a
+    large scene's rows are packed (the two columns of a small scene's
+    constant and pad left 0)."""
+    return torch.cat([rows, rows.new_zeros((*rows.shape[:-1],
+                                            _ROW - rows.shape[-1]))], dim=-1)
 
 
 def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
@@ -200,20 +258,10 @@ def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
     per object, indexed by object id, with the constant left 0 (the large
     instances read these rows from device memory and fold over
     :func:`raytrace_tpu_torch.ops.intersect.scene_tables`)."""
-    halfw, halfh = spec.width / 2.0, spec.height / 2.0
-    # every number taken from the spec, in one host-to-device copy
-    host = torch.tensor([halfw, halfh, max(1.0 / halfw, 1.0 / halfh),
-                         spec.min_significance, 0.0, 0.0, *spec.light_type],
-                        dtype=torch.float64).to(device=data.device,
-                                                dtype=data.dtype)
-    n_l = spec.n_lights
-    lights = torch.cat([host[6:, None], data.light_p[:n_l],
-                        data.light_e1[:n_l], data.light_e2[:n_l],
-                        data.light_color[:n_l],
-                        torch.zeros_like(data.light_p[:n_l])], dim=1)
     rows = object_table(data, spec)
-    pre = torch.zeros_like(rows[:, :_ROW - rows.shape[1]])
-    if not is_large(spec):
+    if is_large(spec):
+        rows = kernel_rows(rows)
+    else:
         rows = rows[spec.live_objects()]
         p, q = rows[:, 0:3], rows[:, 3:6]
         # the plain version's roundings: r * r; (p0 q0 + p1 q1) + p2 q2
@@ -221,12 +269,16 @@ def pack_scene(data: SceneData, spec: SceneSpec) -> torch.Tensor:
             rows[:, 21] > 0.5, q[:, 0] * q[:, 0],
             p[:, 0] * q[:, 0] + p[:, 1] * q[:, 1] + p[:, 2] * q[:, 2]),
             torch.zeros_like(rows[:, 0])], dim=1)
-    rows = torch.cat([rows, pre], dim=1)
-    parts = [data.cam_position, data.cam_matrix.reshape(9), data.bg_color,
-             host[:4], data.cam_focus.reshape(1), data.cam_aperture.reshape(1),
-             data.cam_im_dist.reshape(1), host[4:6], lights.reshape(-1),
-             rows.reshape(-1)]
-    return torch.cat(parts).to(torch.float32).contiguous()
+        rows = torch.cat([rows, pre], dim=1)
+    return torch.cat(_header_parts(data, spec)
+                     + [rows.reshape(-1)]).to(torch.float32).contiguous()
+
+
+def pack_header(data: SceneData, spec: SceneSpec) -> torch.Tensor:
+    """:func:`pack_scene` without object rows: the header and the lights,
+    which is what the ring instances read of the scene (the rows come
+    round the ring).  Reads no per-object leaf."""
+    return torch.cat(_header_parts(data, spec)).to(torch.float32).contiguous()
 
 
 # the last scene buffer packed, reused while the scene is unchanged

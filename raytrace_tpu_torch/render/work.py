@@ -48,6 +48,9 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
     * ``warp_visits``: the largest number of live nodes among a warp's
       lanes, averaged over the warps (the rounds a warp of the tree kernel
       takes);
+    * ``most``: the largest number of live nodes of any lane (the rounds
+      that the ring's walk, one node of every lane a round, takes over
+      these lanes);
     * ``misses``: live nodes per lane whose ray hits nothing (each a
       skybox lookup in a skybox scene; 0 for a solid background);
     * ``hits``: live nodes per lane whose ray hits an object, and
@@ -119,6 +122,7 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
     return {"visits": float(per_lane.sum()) / n,
             "warp_visits": float(per_lane.reshape(-1, WARP).amax(dim=1)
                                  .double().mean()),
+            "most": int(per_lane.max()),
             "misses": misses / n, "hits": hits / n,
             "last_hits": last_hits / n, "chunks": chunks / n,
             "by_depth": by_depth}

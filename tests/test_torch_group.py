@@ -129,3 +129,28 @@ def mesh_job():
         "shifted": m.ring_shift([mine, mine.to(torch.int32)], mesh),
         "replicated": replicate_to_mesh(scene.data, mesh).prim_p,
     }
+
+
+def ring_radiance_job(scene, lanes, seed):
+    """Rank r's lanes ``lanes[r]`` through the ring's round loop with
+    the plain twin as its step: their radiance (3, N), and the live lanes
+    of this rank at each round the rank took."""
+    import torch
+
+    from raytrace_tpu_torch.ops import intersect
+    from raytrace_tpu_torch.parallel import ring
+    from raytrace_tpu_torch.render import ring_shade
+
+    mesh = _mesh()
+    ref = ring_shade.ring_shade_reference
+    live = []
+
+    def finish(data, spec, state, *answers):
+        live.append(int(state.live.sum()))
+        ref.finish(data, spec, state, *answers)
+
+    step = ref._replace(finish=finish)
+    with ring.ring_context(scene.data, scene.spec, mesh) as stripped:
+        acc = ring.ring_radiance(intersect.ring_ctx(), stripped, scene.spec,
+                                 *lanes[mesh.rank], seed, step=step)
+    return torch.stack(list(acc)), live

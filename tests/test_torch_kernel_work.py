@@ -378,6 +378,7 @@ def test_showcase_work_counters_match_a_live_only_walk():
     assert got["visits"] == counts.mean() and 2 < got["visits"] < 63
     assert got["warp_visits"] == counts.reshape(8, 32).max(axis=1).mean()
     assert got["warp_visits"] > got["visits"]
+    assert got["most"] == counts.max()
     assert (got["chunks"], got["misses"], got["by_depth"]) == (0.0, 0.0, {})
 
 
@@ -414,6 +415,7 @@ def test_field_work_counters_match_brute_force(mix):
     got = work.path_work(sc.data, spec, lanes, 9)
     assert got["visits"] == visits.mean()
     assert got["warp_visits"] == visits.reshape(-1, 32).max(axis=1).mean()
+    assert got["most"] == visits.max()
     assert got["chunks"] == chunks.sum() / n and got["chunks"] > 1
     for d, (share, per_lane, union) in got["by_depth"].items():
         assert share == live[d] / n and per_lane == chunks[d] / live[d]

@@ -2,7 +2,7 @@
 beside what the port ships, on one NVIDIA GPU, each held against its plain
 PyTorch version.
 
-    python3 tools/torch_kernel_variants.py [--only k1|k4|tree|fold]
+    python3 tools/torch_kernel_variants.py [--only k1|k4|tree|fold|fused]
         [--parent DIR] [--sass-dir DIR]
 
 The linear kernel (K1, ``--only k1``): the steps of its redesign one after
@@ -37,6 +37,15 @@ sky), each held against its plain version, with the registers and
 texture objects are also made and freed 100 times against the card's
 used bytes.
 
+The fused kernels against the parent (``--only fused --parent DIR``): K1
+on cornell_indirect, K3 on materials_showcase, K1-large and K3-large on
+the 1,006-object linear and mixed fields, each on 2,097,152 random lanes,
+and ``csrc/skybox.cu`` on 2,097,152 random directions of a random 6 x 1024
+x 1024 cube, built from the parent's sources and from the port's in turns
+(parent, port, port, parent): each one's best time of three runs of five
+calls, and a hash of its output, which must be the same in all four (a
+change to the shared device code that leaves these kernels' bits alone).
+
 The port itself has one form of each choice.  A variant is built here from
 a copy of ``raytrace_tpu_torch/csrc`` with lines of the source replaced
 (``patched_sources``), or by setting the size up to which the wrappers
@@ -61,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import os
 import re
 import shutil
@@ -790,12 +800,72 @@ def k4_variants(parent: str | None, smi: str, sass_dir: str | None) -> None:
             f"{label} {min(v):.4f}" for label, v in times[i].items() if v))
 
 
+def fused_against_parent(parent: str, smi: str) -> None:
+    """The fused render kernels and the skybox kernel from the parent's
+    sources and from the port's, in turns: times and output hashes."""
+    import chip_smoke as cs
+
+    from raytrace_tpu_torch.models import backgrounds
+    from raytrace_tpu_torch.render import megakernel
+    from raytrace_tpu_torch.scene.builder import load_scene_file
+    from raytrace_tpu_torch.scene.procedural import make_sphere_field
+    from raytrace_tpu_torch.scene.schema import BG_SKYBOX
+
+    device = torch.device("cuda", 0)
+    n = 1 << 21
+    cornell = load_scene_file(cs.SCENE, device=device)
+    calls = {}
+    for label, sc in (
+            ("K1, cornell", cornell),
+            ("K3, showcase", load_scene_file(cs.SHOWCASE, device=device)),
+            ("K1-large, 1,006 objects",
+             make_sphere_field(1000, mix_materials=False, device=device)),
+            ("K3-large, 1,006 mixed",
+             make_sphere_field(1000, mix_materials=True, device=device))):
+        lanes = [t.to(torch.int32)
+                 for t in cs.random_lanes(sc.spec, n, cs.SEED, device)]
+        calls[label] = (lambda sc=sc, lanes=lanes: torch.stack(list(
+            megakernel.radiance_lanes(sc.data, sc.spec, *lanes, 0))))
+    cube = torch.rand((6, 1024, 1024, 3), generator=torch.Generator(
+        device=device).manual_seed(cs.SEED), device=device)
+    spec = dataclasses.replace(cornell.spec, bg_type=BG_SKYBOX,
+                               face_sizes=((1024, 1024),) * 6)
+    data = dataclasses.replace(cornell.data, bg_cube=cube)
+    dirs = cs.sky_random_directions(n, cs.SEED, device)
+    calls["skybox.cu"] = lambda: backgrounds.background_color(data, spec,
+                                                              dirs)
+    runs = {label: [] for label in calls}
+    parent_csrc = os.path.join(parent, "raytrace_tpu_torch", "csrc")
+    for form, base in (("parent", parent_csrc), ("port", OWN_CSRC),
+                       ("port", OWN_CSRC), ("parent", parent_csrc)):
+        patched_sources(base=base)
+        for label, fn in calls.items():
+            digest = hashlib.sha256(
+                fn().cpu().numpy().tobytes()).hexdigest()[:16]
+            ms = min(cs.ms_per_launch(fn, 2, 5) for _ in range(3))
+            runs[label].append((form, ms, digest))
+            print(f"  {form}: {label} {ms:.4f} ms, output {digest}; on "
+                  f"{smi}", flush=True)
+    patched_sources()
+    for label, rs in runs.items():
+        best = {f: min(ms for g, ms, _ in rs if g == f)
+                for f in ("parent", "port")}
+        same = len({d for _, _, d in rs}) == 1
+        print(f"{label}: best {best['parent']:.4f} ms (parent), "
+              f"{best['port']:.4f} ms (port), "
+              f"{best['port'] / best['parent']:.4f}x; "
+              f"the same output in all four runs: {same}")
+        if not same:
+            raise AssertionError(f"{label}: the output differs from the "
+                                 f"parent's")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("k1", "k4", "tree", "fold"))
+    ap.add_argument("--only", choices=("k1", "k4", "tree", "fold", "fused"))
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent tree, for K1's steps and "
-                         "K4's parent form")
+                    help="a checkout of the parent tree, for K1's steps, "
+                         "K4's parent form and the fused kernels' hashes")
     ap.add_argument("--sass-dir", default=None,
                     help="where to keep the SASS of each of K1's forms")
     args = ap.parse_args()
@@ -825,6 +895,12 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s")
     instance_report(_build.build_logs)
 
+    if args.only == "fused":
+        if args.parent is None:
+            raise SystemExit("--only fused needs --parent")
+        fused_against_parent(args.parent, smi)
+        print(f"on {smi}")
+        return 0
     if args.only in (None, "k1"):
         k1_variants(args.parent, smi, args.sass_dir)
     if args.only in (None, "k4"):

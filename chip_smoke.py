@@ -60,16 +60,26 @@ mixed fields, the lit mirror scene, the open field under the sky and a
 65-sample tree at 262,144 lanes (stacks of 65 entries); a round of each
 instance timed at 2,097,152 lanes beside its bound, the round's scan
 kernel and the rows' gather; the ring's step (the scan kernel on a
-shard) on the 4,006-object field whole and halved, and the shard's build
-(phase 19; phases 11 and 13 hold the split path, a one-shard ring, to
-the fused large instances and time it beside its scan kernel launches).
+shard) on the 4,006-object field whole and halved, and the shard's build;
+the ring's gradients at k = 1 on 65,536 camera rays of the 1,006-object
+field (t through ``make_ring_intersector`` in the geometry and the rays,
+the hit records through ``ring_closest_hit`` in every per-object leaf),
+their forwards through the scan kernel and ``ring_rows``, against the
+dense path's, each backward timed (phase 19; phases 11 and 13 hold the
+split path, a one-shard ring, to the fused large instances and time it
+beside its scan kernel launches).
 Two ranks on the one card (gloo), this script started twice under the
 environment protocol: the multi-process CLI's BMP against the
 one-process CLI's, byte for byte; the ring at k = 2 against k = 1, to
 the bit, in intersection and in renders of the linear field and of the
 mixed one (the tree instance, whose ranks agree on the rounds by a MAX
 all-reduce); the sharded fitting step
-against ``loss_and_grad``; the ring's hand-off timed (phase 20). Deep
+against ``loss_and_grad``; the ring's hand-off timed; the ring's
+gradients at k = 2 against the dense path's; ``render_image_sharded`` and
+``render_image_ring`` with a checkpoint at a path of each rank's own,
+stopped after the first launch group and resumed, to the bit, rank 0's
+file the only one, and a resume with another seed refused on both ranks
+(phase 20). Deep
 fan-out trees (phase 21): the tree kernel's 128- and 256-entry stacks
 and its slab (the stack in device memory) on 65-, 129- and 300-sample
 IndirectPhong scenes at max_depth 0, solid, under the sky and in the
@@ -77,7 +87,8 @@ IndirectPhong scenes at max_depth 0, solid, under the sky and in the
 the local stacks also through the slab; each solid scene timed at
 262,144 random lanes beside its bound, its registers, stack frame and
 local memory, the slab and the local stack in turns (and so a 16-sample
-tree at max_depth 4); then the CLI on a scene per instance at the fixed
+tree at max_depth 4, whose bound is counted on its live nodes,
+``work.path_work``); then the CLI on a scene per instance at the fixed
 max_depth 4. Phase 1 prints what the
 runtime reports of the card and its published peaks (the bounds'
 figures, ``utils/gpu_info.py``), phase 2 the fold's staging limit
@@ -1153,11 +1164,219 @@ def step_inputs(device):
         spp, device=device), target
 
 
+# the ring's gradients (phases 19-20): the 65,536 camera rays of the
+# 1,006-object linear field at 256x256, one sample a pixel
+GRAD_IMAGE = 256
+# the sharded renders with a checkpoint (phase 20): w, h, spp, and the
+# lanes per rank, so that a render takes two launch groups of 2-sample
+# chunks (32 chunks, then 16)
+CK_IMAGE, CK_LANES = (64, 64, 96), 4096
+
+
+def grad_inputs(device):
+    """The 1,006-object linear field at ``GRAD_IMAGE`` square and its
+    camera rays, (N, 3) origins and directions."""
+    from raytrace_tpu_torch.render.integrator import primary_rays
+    from raytrace_tpu_torch.scene.procedural import make_sphere_field
+
+    sc = make_sphere_field(1000, mix_materials=False, width=GRAD_IMAGE,
+                           height=GRAD_IMAGE, device=device)
+    lanes = pixel_lanes(GRAD_IMAGE, GRAD_IMAGE ** 2, 1, 1, device)
+    o, d, _, _ = primary_rays(sc.data, sc.spec, *lanes, SEED)
+    return sc, torch.stack(list(o), 1), torch.stack(list(d), 1)
+
+
+# the timed runs of each gradient path (phases 19-20), after its first
+# run, which gives the gradients and warms it up
+GRAD_REPS = 3
+
+
+def place_weights(n: int, dtype, device="cpu") -> torch.Tensor:
+    """The ring gradients' weight of each of ``n`` rays, by its place, so
+    that a ray's cotangent names the ray."""
+    return 1.0 + torch.arange(n, dtype=dtype, device=device) / n
+
+
+def t_loss(t, hit):
+    """The ring gradients' loss of a closest hit: the hit rays' t,
+    weighted by place."""
+    return (place_weights(t.shape[0], t.dtype, t.device)
+            * torch.where(hit, t, 0.0)).sum()
+
+
+def rec_loss(rec, w):
+    """The ring gradients' loss of hit records: t, the normal and the
+    winner's material values of the hit lanes, each lane weighted by
+    ``w``."""
+    parts = [rec.t, *rec.normal, *rec.diffuse, *rec.specular, *rec.ambient,
+             rec.exponent, rec.ior, rec.msamples]
+    return sum((w * torch.where(rec.hit, x, 0.0)).sum() for x in parts)
+
+
+def grad_run(make_loss):
+    """One forward and backward: ``make_loss() -> (loss, leaves)``.
+    Returns the leaves' gradients and the forward's and the backward's ms
+    by CUDA events, the device synchronised before (a ring's steps wait
+    on host hand-offs, which the events' gap then holds)."""
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    torch.cuda.synchronize()
+    start.record()
+    loss, leaves = make_loss()
+    mid.record()
+    loss.backward()
+    end.record()
+    torch.cuda.synchronize()
+    return ([x.grad for x in leaves], start.elapsed_time(mid),
+            mid.elapsed_time(end))
+
+
+def best_grad_ms(make_loss) -> tuple[float, float]:
+    """The best forward and the best backward ms of ``GRAD_REPS`` runs of
+    :func:`grad_run`."""
+    runs = [grad_run(make_loss)[1:] for _ in range(GRAD_REPS)]
+    return min(f for f, _ in runs), min(b for _, b in runs)
+
+
+def grad_losses(data, spec, ro, rd, mesh=None) -> dict:
+    """The two gradient paths' ``make_loss``: ``t``, ``t_loss`` of the
+    closest hits in prim_p, prim_q, ro and rd; ``records``, ``rec_loss``
+    of the hit records in the per-object leaves (``ring.OBJECT_LEAVES``).
+    Through the ring on ``mesh`` (``make_ring_intersector``; this rank's
+    slice of the rays through ``ring_closest_hit`` under a ring context),
+    every rank calling together; with no mesh through the dense closest
+    hit (the plain scan of the whole table).  The gloo tests' ring and
+    dense gradients take the same losses (``tests/test_torch_group.py``)."""
+    from raytrace_tpu_torch.ops import intersect, vec
+    from raytrace_tpu_torch.parallel import ring
+
+    rays = slice(None)
+    if mesh is not None:
+        per = ro.shape[0] // mesh.ranks
+        rays = slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+    def t():
+        leaves = [x.clone().requires_grad_(True)
+                  for x in (data.prim_p, data.prim_q, ro, rd)]
+        wants = dataclasses.replace(data, prim_p=leaves[0], prim_q=leaves[1])
+        if mesh is None:
+            rec = intersect.closest_hit(wants, spec, vec.splat(leaves[2]),
+                                        vec.splat(leaves[3]))
+            return t_loss(rec.t, rec.hit), leaves
+        t, _, hit = ring.make_ring_intersector(spec, mesh)(wants,
+                                                           *leaves[2:])
+        return t_loss(t, hit), leaves
+
+    def records():
+        leaves = [getattr(data, n).clone().requires_grad_(True)
+                  for n in ring.OBJECT_LEAVES]
+        wants = dataclasses.replace(data,
+                                    **dict(zip(ring.OBJECT_LEAVES, leaves)))
+        with (contextlib.nullcontext(wants) if mesh is None
+              else ring.ring_context(wants, spec, mesh)) as used:
+            rec = intersect.closest_hit(used, spec, vec.splat(ro[rays]),
+                                        vec.splat(rd[rays]))
+        w = place_weights(ro.shape[0], ro.dtype, ro.device)[rays]
+        return rec_loss(rec, w), leaves
+
+    return {"t": t, "records": records}
+
+
+def path_grads(sc, ro, rd, mesh=None) -> dict:
+    """Each of :func:`grad_losses`' paths run once for its gradients,
+    ``_build``'s launch counts set to 0 just before those runs and read
+    just after, then timed: ``{"grads": {path: gradients}, "launches":
+    {...}, "ms": {path: (best forward, best backward)}}``."""
+    from raytrace_tpu_torch.ops import _build
+
+    losses = grad_losses(sc.data, sc.spec, ro, rd, mesh)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    grads = {p: grad_run(f)[0] for p, f in losses.items()}
+    launches = dict(_build.LAUNCHES)
+    return {"grads": grads, "launches": launches,
+            "ms": {p: best_grad_ms(f) for p, f in losses.items()}}
+
+
+def grad_excess(got: dict, want: dict):
+    """``(excess, difference)``: the largest excess of ``got``'s gradients
+    (``{path: gradients}``) over the float32 gradient rule against
+    ``want``'s (``rtol 1e-5``, ``atol 1e-6`` plus 1e-6 of the leaf's
+    largest gradient: ranks sum a leaf's gradient in another order), at
+    most 0 where every entry holds and inf where one is not finite; and
+    the largest absolute difference."""
+    worst, diff = -math.inf, 0.0
+    for g, w in ((g, w) for p in want for g, w in zip(got[p], want[p])):
+        g, w = g.detach().cpu(), w.detach().cpu()
+        if not torch.isfinite(g).all():
+            return math.inf, math.inf
+        tol = 1e-6 + 1e-6 * float(w.abs().max()) + 1e-5 * w.abs()
+        worst = max(worst, float(((g - w).abs() - tol).max()))
+        diff = max(diff, float((g - w).abs().max()))
+    return worst, diff
+
+
+class StopRender(Exception):
+    """Raised from a render's progress, as a kill would stop it."""
+
+
+def checkpoint_renders(out_dir: str, mesh) -> dict:
+    """``render_image_sharded`` (cornell) and ``render_image_ring`` (the
+    1,006-object linear field) at ``CK_IMAGE``, each with a checkpoint at a
+    path of this rank's own: rendered without it, then stopped from its
+    progress after the first launch group, resumed, and resumed with
+    another seed, which must raise.  Per render: whether the resumed image
+    equals the uncheckpointed one to the bit, the progress seen before the
+    stop, the refusal, and whether this rank's file exists."""
+    from raytrace_tpu_torch.parallel.ring import render_image_ring
+    from raytrace_tpu_torch.parallel.tile import render_image_sharded
+    from raytrace_tpu_torch.scene.builder import load_scene_file
+    from raytrace_tpu_torch.scene.procedural import make_sphere_field
+
+    w, h, spp = CK_IMAGE
+    cornell = load_scene_file(SCENE, device=mesh.device)
+    cornell = dataclasses.replace(cornell, spec=dataclasses.replace(
+        cornell.spec, width=w, height=h))
+    field = make_sphere_field(1000, mix_materials=False, width=w, height=h,
+                              device=mesh.device)
+    out = {}
+    for name, render, sc in (
+            ("render_image_sharded, cornell", render_image_sharded, cornell),
+            ("render_image_ring, the 1,006-object field", render_image_ring,
+             field)):
+        path = os.path.join(out_dir, f"ck_{render.__name__}_{mesh.rank}.npz")
+        kw = dict(seed=SEED, spp=spp, mesh=mesh, max_lanes=CK_LANES)
+        full = render(sc, **kw)
+        seen = []
+
+        def stop(frac):
+            seen.append(frac)
+            if len(seen) == 2:
+                raise StopRender
+
+        try:
+            render(sc, progress=stop, checkpoint=path, **kw)
+        except StopRender:
+            pass
+        resumed = render(sc, checkpoint=path, **kw)
+        try:
+            render(sc, checkpoint=path, **dict(kw, seed=SEED + 1))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        out[name] = {"equal": bool(np.array_equal(resumed, full)),
+                     "seen": seen, "refused": refused,
+                     "file": os.path.exists(path),
+                     "mean": float(full.mean())}
+    return out
+
+
 def rank_worker(out_dir: str) -> int:
     """One rank of the two-rank run on the one card, joined through the
     environment protocol that chip_smoke.py sets: the multi-process CLI,
-    the ring at k = 2 (intersection and a render), the sharded step, and
-    the ring's hand-off timed; its results saved for the parent."""
+    the ring at k = 2 (intersection and a render), the sharded step, the
+    ring's hand-off timed, the ring's gradients, and the sharded renders
+    with a checkpoint; its results saved for the parent."""
     import torch.distributed as dist
 
     from raytrace_tpu_torch import cli
@@ -1228,11 +1447,18 @@ def rank_worker(out_dir: str) -> int:
     res["grads"] = {f.name: getattr(grads, f.name).cpu()
                     for f in dataclasses.fields(grads)}
     res["launches"] = dict(_build.LAUNCHES)
+    # the ring's gradients at k = 2 (K5 and ring_rows carry the forwards)
+    gsc, gro, grd = grad_inputs(device)
+    g = path_grads(gsc, gro, grd, mesh)
+    g["grads"] = {p: [x.cpu() for x in gs] for p, gs in g["grads"].items()}
+    res["grads_ring"] = g
+    del g, gsc, gro, grd
+    res["checkpoint"] = checkpoint_renders(out_dir, mesh)
     dist.destroy_process_group()
     torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
     print(json.dumps({k: v for k, v in res.items()
                       if isinstance(v, (int, float, str, dict))
-                      and k != "grads"}))
+                      and k not in ("grads", "grads_ring")}))
     return 0
 
 
@@ -2566,7 +2792,6 @@ def main() -> int:
                     library_ms[row] = e["library_ms"]
     del lanes_p, lanes_l
     torch.cuda.empty_cache()
-    scan_launches = ring_launches["linear"][k_scan]
     # K5 per ring step on the 4,006-object field: the whole table against
     # every ray (k = 1), and each half against half the rays (k = 2); the
     # shard's bounds and fold buffer, built once per shard
@@ -2598,6 +2823,40 @@ def main() -> int:
                 intersect_scan.scan_hit_reference(shard.table, parts[0],
                                                   n_sph, o, d_))
             max_err[k_scan] = max(max_err[k_scan], stats["max_abs_err"])
+
+    # the ring's gradients at k = 1 against the dense path's: forwards
+    # through K5 and ring_rows, backwards through their plain versions;
+    # each path's forward and backward timed apart, so that the ring's
+    # backward reads beside the plain scan's forward and backward (the
+    # dense path's), which it re-runs
+    gsc, gro, grd = grad_inputs(device)
+    dense_g = path_grads(gsc, gro, grd)
+    ring_g = path_grads(gsc, gro, grd, one_rank)
+    grad_launches = {"grad_k1": ring_g["launches"]}
+    excess, diff = grad_excess(ring_g["grads"], dense_g["grads"])
+    print(f"    the ring's gradients at k = 1, {gro.shape[0]} camera rays of "
+          f"the 1,006-object field at {GRAD_IMAGE}x{GRAD_IMAGE}: t through "
+          f"make_ring_intersector in prim_p, prim_q, ro, rd, and the records "
+          f"through ring_closest_hit in the {len(dense_g['grads']['records'])}"
+          f" per-object leaves, against the dense path's (the plain scan): "
+          f"within the float32 gradient rule: {excess <= 0} (largest "
+          f"excess {excess:.3e}, largest difference {diff:.3e}); the "
+          f"forwards' launches {ring_g['launches']}, the dense path's "
+          f"{dense_g['launches']}; on {smi}")
+    for p in ("t", "records"):
+        (rf, rb), (df, db) = ring_g["ms"][p], dense_g["ms"][p]
+        print(f"    {p}: ms by CUDA events, the best of {GRAD_REPS} after a "
+              f"first run: the ring's forward {rf:.4f}, backward {rb:.4f}; "
+              f"the dense path's (the plain scan) forward {df:.4f}, "
+              f"backward {db:.4f}, the two {df + db:.4f}; the ring's "
+              f"backward over them {rb / (df + db):.3f}")
+    if (excess > 0 or ring_g["launches"][k_scan] != 2
+            or ring_g["launches"]["ring_rows"] != 1):
+        raise AssertionError("the ring's gradients at k = 1")
+    k1_ms = ring_g["ms"]
+    dense_g = {p: [x.cpu() for x in gs] for p, gs in dense_g["grads"].items()}
+    del ring_g, gsc, gro, grd
+    torch.cuda.empty_cache()
 
     # ---- phase 20: two ranks on the one card ----
     print(f"[20, {at()}] two ranks on the one card (gloo: NCCL takes one "
@@ -2680,6 +2939,39 @@ def main() -> int:
               f"(largest excess {worst:.2e}); launches {r['launches']}")
         if loss_rel > STEP_RTOL or worst > 0:
             raise AssertionError("the sharded step differs")
+    for r in ranks:
+        g = r["grads_ring"]
+        excess, diff = grad_excess(g["grads"], dense_g)
+        ms = "; ".join(
+            f"{p} forward {g['ms'][p][0]:.4f}, backward {g['ms'][p][1]:.4f} "
+            f"(k = 1 here {k1_ms[p][0]:.4f}, {k1_ms[p][1]:.4f})"
+            for p in ("t", "records"))
+        print(f"    rank {r['rank']}: the ring's gradients at k = 2 (each "
+              f"rank's records of its half of the rays) within the float32 "
+              f"gradient rule of the dense path's: {excess <= 0} (largest "
+              f"excess {excess:.3e}, largest difference {diff:.3e}); the "
+              f"forwards' launches {g['launches']}; ms by CUDA events, the "
+              f"best of {GRAD_REPS} after a first run, the two ranks "
+              f"time-sharing the card: {ms}")
+        if (excess > 0 or g["launches"][k_scan] != 2 * RANKS
+                or g["launches"]["ring_rows"] != RANKS):
+            raise AssertionError("the ring's gradients at k = 2")
+    for r in ranks:
+        for name, c in r["checkpoint"].items():
+            print(f"    rank {r['rank']}: {name}, {CK_IMAGE[0]}x"
+                  f"{CK_IMAGE[1]} x {CK_IMAGE[2]} spp with a checkpoint: "
+                  f"stopped after the group at {c['seen'][0]:.4f} of the "
+                  f"samples, resumed equal to the uncheckpointed image to "
+                  f"the bit: {c['equal']} (mean {c['mean']:.6f}); another "
+                  f"seed refused: {c['refused'] is not None}; this rank's "
+                  f"file exists: {c['file']}")
+            if not (c["equal"] and len(c["seen"]) == 2
+                    and c["refused"] is not None
+                    and "different render config" in c["refused"]
+                    and c["file"] == (r["rank"] == 0)):
+                raise AssertionError(f"rank {r['rank']}: {name} with a "
+                                     f"checkpoint")
+    grad_launches["grad_k2_rank0"] = ranks[0]["grads_ring"]["launches"]
 
     # ---- phase 21: deep trees, K3's stacks above 64 entries ----
     print(f"[21, {at()}] deep fan-out trees: the tree kernel's 128- and "
@@ -2806,11 +3098,24 @@ def main() -> int:
             outs[form] = kernel()
     same = all(torch.equal(a, b) for a, b in zip(outs["own"], outs["slab"]))
     slab_vs_local.append((cap, min(times["own"]), min(times["slab"])))
+    del outs
+    # what its paths need, on 512 of its warps, 64 warps at a time (the
+    # walk holds a depth's live nodes, some 1,400 a lane at the last)
+    sampled = [warp_sample(t) for t in big]
+    parts = [count_work(sc.data, sc.spec, [t[i:i + 2048] for t in sampled], 0)
+             for i in range(0, sampled[0].shape[0], 2048)]
+    work = {k: sum(p[k] for p in parts) / len(parts)
+            for k in ("visits", "warp_visits", "misses", "hits",
+                      "last_hits", "chunks")}
+    work["most"] = max(p["most"] for p in parts)
+    b = render_bound(sc.spec, 1 << 16, work)
     print(f"    16-sample sphere over the mirror floor at max_depth 4 (stack "
           f"{cap}, instance {megakernel.tree_instance(cap)}), 65,536 random "
           f"lanes: own {[round(x, 4) for x in times['own']]} ms, slab "
           f"{[round(x, 4) for x in times['slab']]} ms, equal to the bit: "
-          f"{same}")
+          f"{same}; needs {work['visits']:.3f} live nodes per lane, "
+          f"{work['warp_visits']:.3f} the largest of a warp, {work['most']} "
+          f"the most of a lane; bound {b[0]:.4f} ms ({b[1]}); on {smi}")
     if not same:
         raise AssertionError("the slab and the local stack differ")
     print(f"    local stack against the slab, (stack, local ms, slab ms): "
@@ -2851,11 +3156,19 @@ def main() -> int:
     if set(deep_launches) != set(deep_rows.values()):
         raise AssertionError("the CLI did not render through every deep "
                              "instance")
+    # K5's and ring_rows' launches on each path that runs them: the CLI
+    # with --shard-objects, and the ring's gradient forwards at k = 1 and
+    # on rank 0 at k = 2, each held to its own count above; the row's
+    # launches are their sum
+    by_path = {row: {"shard_objects": ring_launches["linear"][k],
+                     **{p: c[k] for p, c in grad_launches.items()}}
+               for row, k in ((k_scan, k_scan), (k_ring_rows, "ring_rows"))}
     launches = {k_lin: lin_launches, k_tree: tree_launches,
-                k_scan: scan_launches, k_sky: sky_entry_launches,
+                k_scan: sum(by_path[k_scan].values()),
+                k_sky: sky_entry_launches,
                 **large_launches, **sky_launches, **deep_launches,
                 k_ring_start: ring_launches["linear"]["ring_start"],
-                k_ring_rows: ring_launches["linear"]["ring_rows"],
+                k_ring_rows: sum(by_path[k_ring_rows].values()),
                 k_ring_shadow: ring_launches["lit"]["ring_shadow"],
                 k_ring_lin: ring_launches["linear"]["ring_finish"],
                 k_ring_tree: ring_launches["mixed"]["ring_finish"]}
@@ -2886,7 +3199,12 @@ def main() -> int:
     # skybox lookup's launches on the CLI's paths are those of the (sky)
     # rows, whose kernels call it inline, as the ring's do)
     shard = "the CLI with --shard-objects (render_image_ring)"
-    direct = {k_scan: shard, k_ring_start: shard, k_ring_rows: shard,
+    # and the forwards of the ring's gradients (make_ring_intersector,
+    # ring_closest_hit) at k = 1 and on rank 0 at k = 2
+    grads = (", and the ring's gradient forwards at k = 1 and on rank 0 at "
+             "k = 2")
+    direct = {k_scan: shard + grads, k_ring_start: shard,
+              k_ring_rows: shard + grads,
               k_ring_shadow: "render_image_ring on the lit mirror scene",
               k_ring_lin: shard, k_ring_tree: shard,
               k_sky: "backgrounds.background_color on CUDA tensors"}
@@ -2901,7 +3219,8 @@ def main() -> int:
         "launches": launches[k], "max_abs_err": max_err[k],
         "ms": timing[k][0], "plain_ms": timing[k][1],
         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-        "library_ms": library_ms.get(k)}
+        "library_ms": library_ms.get(k),
+        **({"launches_by_path": by_path[k]} if k in by_path else {})}
         for k in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -147,15 +147,63 @@ def _staged(t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend() == "gloo"
 
 
-def all_gather(t: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
-    """Every rank's ``t`` (equal shapes), in rank order, on ``t``'s
-    device."""
-    if mesh.ranks == 1:
-        return [t]
+def _all_gather(t: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
     src = t.cpu() if _staged(t) else t.contiguous()
     outs = [torch.empty_like(src) for _ in range(mesh.ranks)]
     dist.all_gather(outs, src)
     return [o.to(t.device) for o in outs]
+
+
+class _AllGather(torch.autograd.Function):
+    """:func:`all_gather` under autograd: every rank holds the same loss
+    of the gathered tensors, so a rank's cotangent of its own ``t`` is its
+    slice of the cotangents (a sum over the ranks would count it k
+    times)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.rank = mesh.rank
+        return tuple(_all_gather(t, mesh))
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        return cotangents[ctx.rank], None
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """Every rank's ``t`` (equal shapes), in rank order, on ``t``'s
+    device.  Differentiable in ``t`` when every rank computes the same
+    loss of the result; every rank then calls ``backward()``."""
+    if mesh.ranks == 1:
+        return [t]
+    return list(_AllGather.apply(t, mesh))
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; backward sums each cotangent over the ranks."""
+
+    @staticmethod
+    def forward(ctx, mesh, *tensors):
+        ctx.mesh = mesh
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        return None, *(all_reduce_sum_(c.contiguous().clone(), ctx.mesh)
+                       if need else None
+                       for c, need in zip(cotangents,
+                                          ctx.needs_input_grad[1:]))
+
+
+def replicated(mesh: Mesh, *tensors) -> tuple[torch.Tensor, ...]:
+    """The entry of tensors that every rank holds alike (the scene's leaves,
+    the rays that the ranks split) into work that each rank does on its
+    own part: the same tensors, whose gradient is the sum of every rank's,
+    so that each rank ends with the whole gradient.  Every rank calls
+    ``backward()`` together."""
+    if mesh.ranks == 1:
+        return tensors
+    return _Replicated.apply(mesh, *tensors)
 
 
 def all_reduce_sum_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -165,13 +213,20 @@ def all_reduce_sum_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return t
 
 
+def collective_device(mesh: Mesh) -> torch.device:
+    """Where a small tensor made for a collective lives: the host for
+    gloo, the mesh's device for NCCL."""
+    return (torch.device("cpu") if dist.get_backend() == "gloo"
+            else mesh.device)
+
+
 def all_reduce_max(value: int, mesh: Mesh) -> int:
     """The largest of the ranks' ``value`` (on the host for gloo, on the
     mesh's device for NCCL)."""
     if mesh.ranks == 1:
         return int(value)
-    device = "cpu" if dist.get_backend() == "gloo" else mesh.device
-    t = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=collective_device(mesh))
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return int(t.item())
 
@@ -183,18 +238,46 @@ def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     return t
 
 
-def ring_shift(tensors, mesh: Mesh) -> list[torch.Tensor]:
-    """The ring's hand-off: send each tensor to rank + 1 and return what
-    rank - 1 sent (same shapes and dtypes), on the tensors' devices."""
+def _shift(tensors, mesh: Mesh, by: int) -> list[torch.Tensor]:
+    """Send each tensor to rank + ``by`` and return what rank - ``by``
+    sent."""
     k = mesh.ranks
-    if k == 1:
-        return list(tensors)
     send = [t.cpu() if _staged(t) else t.contiguous() for t in tensors]
     recv = [torch.empty_like(s) for s in send]
     ops = []
     for tag, (s, r) in enumerate(zip(send, recv)):
-        ops.append(dist.P2POp(dist.isend, s, (mesh.rank + 1) % k, tag=tag))
-        ops.append(dist.P2POp(dist.irecv, r, (mesh.rank - 1) % k, tag=tag))
+        ops.append(dist.P2POp(dist.isend, s, (mesh.rank + by) % k, tag=tag))
+        ops.append(dist.P2POp(dist.irecv, r, (mesh.rank - by) % k, tag=tag))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [r.to(t.device) for r, t in zip(recv, tensors)]
+
+
+class _RingShift(torch.autograd.Function):
+    """:func:`ring_shift` under autograd: the cotangents of the floating
+    tensors go the other way round the ring, to rank - 1."""
+
+    @staticmethod
+    def forward(ctx, mesh, *tensors):
+        ctx.mesh = mesh
+        ctx.floating = [t.is_floating_point() for t in tensors]
+        out = _shift(tensors, mesh, 1)
+        ctx.mark_non_differentiable(
+            *(o for o in out if not o.is_floating_point()))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        back = iter(_shift([c for c, f in zip(cotangents, ctx.floating) if f],
+                           ctx.mesh, -1))
+        return None, *(next(back) if f else None for f in ctx.floating)
+
+
+def ring_shift(tensors, mesh: Mesh) -> list[torch.Tensor]:
+    """The ring's hand-off: send each tensor to rank + 1 and return what
+    rank - 1 sent (same shapes and dtypes), on the tensors' devices.
+    Differentiable in the floating tensors: their cotangents go back to
+    rank - 1, so every rank of the ring calls ``backward()`` together."""
+    if mesh.ranks == 1:
+        return list(tensors)
+    return list(_RingShift.apply(mesh, *tensors))

@@ -45,7 +45,7 @@ from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.parallel.mesh import (Mesh, all_gather,
                                               all_reduce_max, make_mesh,
-                                              ring_shift)
+                                              replicated, ring_shift)
 from raytrace_tpu_torch.render.megakernel import kernel_rows
 from raytrace_tpu_torch.scene.schema import (LIGHT_DIRECTIONAL, Scene,
                                              SceneData, SceneSpec)
@@ -149,41 +149,56 @@ def ring_gather_rows(mat_rows, obj, mesh: Mesh):
     is resident.  (N, 24) rows in the render kernels' layout for (N,)
     lanes.  On CUDA tensors each step is the ring's row kernel
     (:func:`raytrace_tpu_torch.render.ring_shade.gather_rows`), whose
-    gradient in the rows is the plain version's; on CPU tensors the plain
-    version, :func:`ring_gather_rows_reference`."""
+    gradient in the rows is its plain select's; on CPU tensors the plain
+    version, :func:`ring_gather_rows_reference`.  Differentiable in the
+    rows: every rank of the ring then calls ``backward()`` together."""
     from raytrace_tpu_torch.render import ring_shade
 
     if obj.device.type == "cpu":
         return ring_gather_rows_reference(mat_rows, obj, mesh)
 
     ids = obj.to(torch.int32)
+    k, per = mesh.ranks, mat_rows.shape[0]
+    grad = torch.is_grad_enabled() and mat_rows.requires_grad
+    # every lane's row lies in some shard: the steps overwrite every lane
+    out = mat_rows.new_empty(obj.shape + mat_rows.shape[1:])
+    rows = mat_rows
+    for step in range(k):
+        src = (mesh.rank - step) % k
 
-    def kernel(rows):
-        k, per = mesh.ranks, rows.shape[0]
-        out = rows.new_empty(obj.shape + rows.shape[1:])
-        for step in range(k):
-            ring_shade.gather_rows(rows, (mesh.rank - step) % k * per, ids,
-                                   out)
-            if step + 1 < k:
-                rows, = ring_shift([rows], mesh)
-        return (out,)
+        def kernel(r, o, src=src):
+            # a step writes into its own copy where a backward keeps the
+            # step's inputs
+            o = o.clone() if grad else o
+            ring_shade.gather_rows(r, src * per, ids, o)
+            return (o,)
 
-    return kernel_forward(
-        kernel, lambda rows: (ring_gather_rows_reference(rows, obj, mesh),),
-        mat_rows, name=ring_shade.KERNEL_RING)[0]
+        out, = kernel_forward(
+            kernel, lambda r, o, src=src: (_select_rows(r, obj, src, o),),
+            rows, out, name=ring_shade.KERNEL_RING)
+        if step + 1 < k:
+            rows, = ring_shift([rows], mesh)
+    return out
+
+
+def _select_rows(rows, obj, src: int, out):
+    """One ring step's rows by pure selects (exact): the lanes whose
+    winner lies in the resident shard ``src`` take its row, the others
+    keep ``out``'s."""
+    per = rows.shape[0]
+    local = obj - src * per
+    mine = (local >= 0) & (local < per)
+    return torch.where(mine[..., None], rows[local.clamp(0, per - 1)], out)
 
 
 def ring_gather_rows_reference(mat_rows, obj, mesh: Mesh):
     """The plain :func:`ring_gather_rows`: each step's rows taken by pure
     selects (exact)."""
-    k, per = mesh.ranks, mat_rows.shape[0]
+    k = mesh.ranks
     out = mat_rows.new_zeros(obj.shape + mat_rows.shape[1:])
     rows = mat_rows
     for step in range(k):
-        src = (mesh.rank - step) % k       # the shard resident this step
-        local = obj - src * per
-        mine = (local >= 0) & (local < per)
-        out = torch.where(mine[..., None], rows[local.clamp(0, per - 1)], out)
+        out = _select_rows(rows, obj, (mesh.rank - step) % k, out)
         if step + 1 < k:
             rows, = ring_shift([rows], mesh)
     return out
@@ -220,28 +235,39 @@ def shard_object_table(table: torch.Tensor, k: int) -> torch.Tensor:
     return table.reshape(k, per, table.shape[1])
 
 
+# the per-object leaves: what the ring shards, and what a ring render
+# replaces by one-row dummies
+OBJECT_LEAVES = ("prim_p", "prim_q", "mat_diffuse", "mat_specular",
+                 "mat_ambient", "mat_exponent", "mat_ior", "mat_samples")
+
+
 def strip_object_data(data: SceneData) -> SceneData:
     """The per-object leaves replaced by one-row dummies: under a ring
     context the shading reads only light, camera and background leaves."""
-    z1 = data.prim_p.new_zeros((1, 3))
-    z0 = data.prim_p.new_zeros((1,))
-    return dataclasses.replace(
-        data, prim_p=z1, prim_q=z1, mat_diffuse=z1, mat_specular=z1,
-        mat_ambient=z1, mat_exponent=z0, mat_ior=z0, mat_samples=z0)
+    return dataclasses.replace(data, **{
+        n: getattr(data, n).new_zeros((1, *getattr(data, n).shape[1:]))
+        for n in OBJECT_LEAVES})
 
 
 @contextlib.contextmanager
 def ring_context(data: SceneData, spec: SceneSpec, mesh: Mesh):
     """Install this rank's ring context (its geometry and object-table
     shards of ``data``, on ``mesh``'s device) for the duration; yields the
-    stripped data to render with."""
+    stripped data to render with.  The shards are differentiable in the
+    per-object leaves: a loss of :func:`ring_closest_hit`'s records on each
+    rank's lanes, ``backward()`` on every rank together, gives every rank
+    the gradient of the sum of the ranks' losses."""
     if data.device != mesh.device:
         raise ValueError(f"scene on {data.device}, this rank renders on "
                          f"{mesh.device}")
     k = mesh.ranks
-    tables, ids, n_sph_pad = shard_geometry(data, spec, k)
-    mats = shard_object_table(kernel_rows(intersect.object_table(data, spec)),
-                              k)
+    # every rank holds the per-object leaves alike and shards them: each
+    # rank's gradient in them is the sum of the ranks'
+    shared = dataclasses.replace(data, **dict(zip(OBJECT_LEAVES, replicated(
+        mesh, *(getattr(data, n) for n in OBJECT_LEAVES)))))
+    tables, ids, n_sph_pad = shard_geometry(shared, spec, k)
+    mats = shard_object_table(
+        kernel_rows(intersect.object_table(shared, spec)), k)
     ctx = RingContext(mesh, make_shard(tables[mesh.rank].clone(),
                                        ids[mesh.rank].clone(), n_sph_pad),
                       n_sph_pad, mats[mesh.rank].clone())
@@ -250,6 +276,20 @@ def ring_context(data: SceneData, spec: SceneSpec, mesh: Mesh):
         yield strip_object_data(data)
     finally:
         intersect.set_ring_ctx(prev)
+
+
+def refuse_grad(ctx: RingContext, data: SceneData) -> None:
+    """Raise ``NotImplementedError`` where a gradient is wanted of the
+    ring's round loop: in grad mode, a leaf of ``data`` or of ``ctx``'s
+    shards requires grad.  The loop is forward only (ROADMAP item 13), and
+    a radiance whose gradient is silently missing is never returned."""
+    leaves = [getattr(data, f.name) for f in dataclasses.fields(data)]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*leaves, ctx.shard.table, ctx.mat_rows)):
+        raise NotImplementedError(
+            "the ring's round loop is forward only: no gradient flows "
+            "through ring_radiance (ROADMAP item 13); take gradients "
+            "through ring_closest_hit or make_ring_intersector")
 
 
 def ring_radiance(ctx: RingContext, data: SceneData, spec: SceneSpec, pix,
@@ -266,9 +306,11 @@ def ring_radiance(ctx: RingContext, data: SceneData, spec: SceneSpec, pix,
     once a round, so that every rank makes the same ring steps.  ``step``
     is a :class:`raytrace_tpu_torch.render.ring_shade.RingStep`: by
     default the ring kernels (CUDA tensors; their plain twin on CPU
-    tensors); every rank of the ring calls this together."""
+    tensors); every rank of the ring calls this together.  Forward only:
+    it raises where a gradient is wanted in the scene (ROADMAP item 13)."""
     from raytrace_tpu_torch.render import ring_shade
 
+    refuse_grad(ctx, data)
     step = ring_shade.ring_shade_kernels if step is None else step
     lanes = step.start(data, spec, pix, piy, aa, cam, seed)
     tree = spec.children_per_ray > 1
@@ -304,7 +346,8 @@ def render_image_ring(scene: Scene, *, seed: int = 0,
     holds more than 1/k of the geometry and material tables while it
     renders.  The same image as the dense render, to the bit on the CPU:
     the RNG is keyed by identity and the ring's fold is the dense scan's
-    (t, id) minimum.  Every rank calls it and gets the whole image."""
+    (t, id) minimum.  Every rank calls it and gets the whole image; rank 0
+    alone writes and reads the checkpoint."""
     from raytrace_tpu_torch.parallel.tile import render_chunks_sharded
     from raytrace_tpu_torch.render import ring_shade
     from raytrace_tpu_torch.render.integrator import _image_loop
@@ -322,19 +365,26 @@ def render_image_ring(scene: Scene, *, seed: int = 0,
                            max_lanes=ring_shade.max_lanes(
                                scene.spec, max_lanes) * mesh.ranks,
                            progress=progress, checkpoint=checkpoint,
-                           launch_chunks=partial(render_chunks_sharded, mesh))
+                           launch_chunks=partial(render_chunks_sharded, mesh),
+                           mesh=mesh)
 
 
 def make_ring_intersector(spec: SceneSpec, mesh: Mesh):
     """End-to-end ring intersection over ``mesh``: returns ``fn(data, ro
     (N, 3), rd (N, 3)) -> (t, obj, hit)`` with the rays and the objects
     both sharded over the ranks (N divisible by their count); every rank
-    calls it and gets every ray's result."""
+    calls it and gets every ray's result.  Differentiable in ``t`` as
+    JAX's is: where every rank takes the same loss of the result and calls
+    ``backward()`` together, each rank's gradients in ``data.prim_p``,
+    ``data.prim_q``, ``ro`` and ``rd`` are the dense closest hit's."""
     k = mesh.ranks
 
     def run(data: SceneData, ro, rd):
         if ro.shape[0] % k:
             raise ValueError(f"{ro.shape[0]} rays over {k} ranks")
+        prim_p, prim_q, ro, rd = replicated(mesh, data.prim_p, data.prim_q,
+                                            ro, rd)
+        data = dataclasses.replace(data, prim_p=prim_p, prim_q=prim_q)
         tables, ids, n_sph_pad = shard_geometry(data, spec, k)
         shard = make_shard(tables[mesh.rank], ids[mesh.rank], n_sph_pad)
         per = ro.shape[0] // k

@@ -46,8 +46,9 @@ def render_image_sharded(scene: Scene, *, seed: int = 0,
     """Full-image render with the pixels sharded over the mesh's ranks
     (all of them, on the scene's device, by default).  Same tiling and
     checkpoint behaviour as
-    :func:`raytrace_tpu_torch.render.integrator.render_image`; the lane
-    budget is per rank.  Every rank calls it and gets the whole image."""
+    :func:`raytrace_tpu_torch.render.integrator.render_image`, rank 0 the
+    checkpoint's one writer and reader; the lane budget is per rank.
+    Every rank calls it and gets the whole image."""
     from raytrace_tpu_torch.render.integrator import _image_loop
 
     mesh = mesh if mesh is not None else make_mesh(scene.data.device)
@@ -57,4 +58,5 @@ def render_image_sharded(scene: Scene, *, seed: int = 0,
     return _image_loop(scene, seed=seed, spp=spp,
                        max_lanes=max_lanes * mesh.ranks, progress=progress,
                        checkpoint=checkpoint,
-                       launch_chunks=partial(render_chunks_sharded, mesh))
+                       launch_chunks=partial(render_chunks_sharded, mesh),
+                       mesh=mesh)

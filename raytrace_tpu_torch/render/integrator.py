@@ -20,6 +20,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -414,32 +415,71 @@ def sample_groups(spec: SceneSpec, aa: int, s_launch: int, s_done: int = 0,
         s0 += g * sl
 
 
+def _resume_state(path: str | None, w: int, h: int, aa: int, seed: int,
+                  mesh=None):
+    """``(image (h*w, 3) float64, s_done)`` to start the image loop from:
+    the checkpoint at ``path`` when there is one, else zeros and 0.  With
+    a ``mesh`` of several ranks, rank 0 alone reads the file and
+    broadcasts what it found, so that the ranks need not share a
+    filesystem and all resume at one sample; a file written for another
+    config raises the same ``ValueError`` on every rank."""
+    from raytrace_tpu_torch.parallel import mesh as meshlib
+
+    image = np.zeros((h * w, 3), np.float64)
+    status, s_done, err = _CK_NONE, 0, None
+    if path is not None and (mesh is None or mesh.rank == 0) \
+            and os.path.exists(path):
+        try:
+            with np.load(path) as ck:
+                if (ck["width"] == w and ck["height"] == h
+                        and ck["aa"] == aa and ck["seed"] == seed):
+                    status, image, s_done = _CK_RESUME, ck["image"], int(
+                        ck["s_done"])
+                else:
+                    status = _CK_MISMATCH
+        except (OSError, ValueError, EOFError, KeyError,
+                zipfile.BadZipFile) as e:
+            # raised below, once the other ranks know not to wait
+            status, err = _CK_UNREADABLE, e
+    if path is not None and mesh is not None and mesh.ranks > 1:
+        device = meshlib.collective_device(mesh)
+        head = meshlib.broadcast_(torch.tensor(
+            [status, s_done], dtype=torch.int64, device=device), mesh)
+        status, s_done = (int(x) for x in head.tolist())
+        if status == _CK_RESUME:
+            image = meshlib.broadcast_(torch.from_numpy(image).to(device),
+                                       mesh).cpu().numpy()
+    if status == _CK_MISMATCH:
+        raise ValueError(f"checkpoint {path} was written for a different "
+                         f"render config; refusing to mix")
+    if status == _CK_UNREADABLE:
+        raise err or RuntimeError(f"rank 0 could not read checkpoint {path}")
+    return image, s_done
+
+
+# what rank 0 found at the checkpoint's path
+_CK_NONE, _CK_RESUME, _CK_MISMATCH, _CK_UNREADABLE = 0, 1, 2, 3
+
+
 def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                 max_lanes: int, progress, checkpoint: str | None,
-                launch_chunks=None, chunk_group: int = 32) -> np.ndarray:
+                launch_chunks=None, chunk_group: int = 32,
+                mesh=None) -> np.ndarray:
     """Host loop over groups of sample chunks.  The float64 host
     accumulator is checkpointed after every group, so a killed render
     resumes at the last group boundary.  ``progress`` gets the completed
     fraction in [0, 1].  ``launch_chunks`` renders one group with
     :func:`_render_chunks`'s signature (the sharded renders pass their
-    own; default :func:`_render_chunks`)."""
+    own, and their ``mesh``: every rank then holds the whole image, and
+    rank 0 alone writes the checkpoint and reads it back for all;
+    default :func:`_render_chunks`)."""
     launch_chunks = launch_chunks or _render_chunks
     data, spec = scene.data, scene.spec
     w, h = spec.width, spec.height
     aa = spp if spp is not None else max(spec.antialias, 1)
     s_launch, p_launch = _s_p_launch(spec, aa, max_lanes)
-
-    image = np.zeros((h * w, 3), np.float64)
-    s_done = 0
-    if checkpoint is not None and os.path.exists(checkpoint):
-        with np.load(checkpoint) as ck:
-            if not (ck["width"] == w and ck["height"] == h
-                    and ck["aa"] == aa and ck["seed"] == seed):
-                raise ValueError(
-                    f"checkpoint {checkpoint} was written for a different "
-                    f"render config; refusing to mix")
-            image = ck["image"]
-            s_done = int(ck["s_done"])
+    image, s_done = _resume_state(checkpoint, w, h, aa, seed, mesh)
+    writer = checkpoint is not None and (mesh is None or mesh.rank == 0)
 
     pix = torch.arange(h * w, dtype=torch.int64, device=data.device)
     px, py = pix % w, pix // w
@@ -450,7 +490,7 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
         image += out.numpy().astype(np.float64) * (n_s / aa)
         if progress is not None:
             progress((s0 + n_s) / aa)
-        if checkpoint is not None:
+        if writer:
             _save_checkpoint(checkpoint, image=image, s_done=s0 + n_s,
                              width=w, height=h, aa=aa, seed=seed)
     return image.reshape(h, w, 3)

@@ -130,8 +130,9 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
     scene's device.  Returns a V3 of (N,) tensors of the scene's dtype,
     differentiable in every float leaf of the scene.  CPU tensors take the
     plain version whatever the scene; CUDA tensors a kernel (the ring
-    instances while a ring context is installed), or
-    ``NotImplementedError`` for a scene outside :func:`usable`."""
+    instances while a ring context is installed, forward only: they raise
+    ``NotImplementedError`` where a gradient is wanted, ROADMAP item 13),
+    or ``NotImplementedError`` for a scene outside :func:`usable`."""
     device = pix.device
     for t in (pix, piy, aa, cam):
         if t.device != device or t.shape != pix.shape or t.ndim != 1:
@@ -145,6 +146,10 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
         if reason is not None:
             raise NotImplementedError(reason)
         ctx = intersect.ring_ctx()
+        if ctx is not None:
+            # here, before the kernel's forward turns grad mode off
+            from raytrace_tpu_torch.parallel.ring import refuse_grad
+            refuse_grad(ctx, data)
         fwd, name = ((_launch, kernel_for(spec)) if ctx is None
                      else (radiance_lanes_ring, KERNEL_RING))
         # the kernel forward; backward through the plain version, under the

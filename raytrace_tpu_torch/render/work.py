@@ -64,20 +64,68 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
       position of the tree and averaged over the warps that have a live
       lane there.
 
-    Shadow rays are not counted, so a bound made from this is a lower
-    one."""
+    A small scene is walked breadth first over the live nodes alone, each
+    depth's in one batch (a 16-sample tree at max_depth 4 has 1,118,481
+    nodes a lane, of which some 1,400 live); a large scene's warp unions
+    are taken among the lanes at one position of the tree, so it is walked
+    depth first over every position, live or not.  Shadow rays are not
+    counted, so a bound made from this is a lower one."""
     n = lanes[0].shape[0]
     if n == 0 or n % WARP:
         raise ValueError(f"{n} lanes are not whole warps")
     ro, rd, k1, k2 = primary_rays(data, spec, *lanes, seed)
-    m, levels, _, cap = tree_loop_stack(spec)
     one = torch.ones_like(ro.x)
+    entry = tree_loop_entry(ro, rd, one, V3(one, one, one), one, k1, k2,
+                            ro.x.dtype)
+    walk = _tree_work if megakernel.is_large(spec) else _live_work
+    per_lane, counts = walk(data, spec, entry, n)
+    return {"visits": float(per_lane.sum()) / n,
+            "warp_visits": float(per_lane.reshape(-1, WARP).amax(dim=1)
+                                 .double().mean()),
+            "most": int(per_lane.max()),
+            **{k: v / n for k, v in counts.items() if k != "by_depth"},
+            "by_depth": counts["by_depth"]}
+
+
+def _live_work(data: SceneData, spec: SceneSpec, entry, n: int):
+    """:func:`path_work`'s walk of a small scene: each depth's live nodes
+    in one batch, their lanes carried beside them (children are a
+    function of their node alone, whatever the order of the walk).
+    Returns the live nodes per lane and the summed counts."""
+    m, levels, _, _ = tree_loop_stack(spec)
+    lane = torch.arange(n, device=entry[0].device)
+    per_lane = torch.zeros(n, dtype=torch.int64, device=lane.device)
+    misses = hits = last_hits = 0
+    for depth in range(levels):
+        live = entry[10] > 0.5
+        entry, lane = tuple(c[live] for c in entry), lane[live]
+        per_lane += torch.bincount(lane, minlength=n)
+        hit = closest_hit(data, spec, V3(*entry[0:3]), V3(*entry[3:6])).hit
+        hits += int(hit.sum())
+        if spec.bg_type == BG_SKYBOX:
+            misses += int((~hit).sum())
+        if depth == levels - 1:
+            last_hits += int(hit.sum())
+            break
+        _, virt = tree_loop_node(data, spec, m, entry, depth)
+        if len(virt) < m:  # no child slot at all: the walk ends here
+            break
+        entry = tuple(torch.cat(parts) for parts in zip(*virt))
+        lane = lane.repeat(len(virt))
+    return per_lane, {"misses": misses, "hits": hits,
+                      "last_hits": last_hits, "chunks": 0, "by_depth": {}}
+
+
+def _tree_work(data: SceneData, spec: SceneSpec, entry, n: int):
+    """:func:`path_work`'s walk of a large scene: the DFS over every
+    position of the tree, the lanes at one position in one batch, the
+    chunks each live ray enters and their union over a warp's lanes
+    there.  Returns the live nodes per lane and the summed counts."""
+    m, levels, _, cap = tree_loop_stack(spec)
+    tb = scene_tables(data, spec)
     stack = [None] * cap
-    stack[0] = tree_loop_entry(ro, rd, one, V3(one, one, one), one, k1, k2,
-                               ro.x.dtype)
-    large = megakernel.is_large(spec)
-    tb = scene_tables(data, spec) if large else None
-    per_lane = torch.zeros(n, dtype=torch.int64, device=ro.x.device)
+    stack[0] = entry
+    per_lane = torch.zeros(n, dtype=torch.int64, device=entry[0].device)
     chunks = misses = hits = last_hits = 0
     depth_live = [0] * levels
     depth_chunks = [0] * levels
@@ -96,33 +144,26 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
             last_hits += int(hit.sum())
         if spec.bg_type == BG_SKYBOX:
             misses += int((live & ~hit).sum())
-        if large:
-            mask = intersect_scan.scan_hit_reference(
-                tb.table, tb.ids, tb.n_sph_pad, V3(*e[0:3]), V3(*e[3:6]),
-                tb.bounds, return_mask=True)[3] & live[:, None]
-            entered = int(mask.sum())
-            chunks += entered
-            depth_chunks[depth] += entered
-            depth_union[depth] += int(
-                mask.reshape(n // WARP, WARP, -1).any(dim=1).sum())
-            depth_warps[depth] += int(live.reshape(-1, WARP).any(dim=1).sum())
+        mask = intersect_scan.scan_hit_reference(
+            tb.table, tb.ids, tb.n_sph_pad, V3(*e[0:3]), V3(*e[3:6]),
+            tb.bounds, return_mask=True)[3] & live[:, None]
+        entered = int(mask.sum())
+        chunks += entered
+        depth_chunks[depth] += entered
+        depth_union[depth] += int(
+            mask.reshape(n // WARP, WARP, -1).any(dim=1).sum())
+        depth_warps[depth] += int(live.reshape(-1, WARP).any(dim=1).sum())
         _, virt = tree_loop_node(data, spec, m, e, depth)
         if depth < levels - 1:
             if len(virt) < m:  # no child slot at all: the walk ends here
                 break
-            for j, entry in enumerate(virt):
-                stack[sp + (m - 1 - j)] = entry
+            for j, child in enumerate(virt):
+                stack[sp + (m - 1 - j)] = child
             sp += m
-    by_depth = {}
-    if large:
-        by_depth = {d: (depth_live[d] / n,
-                        depth_chunks[d] / max(depth_live[d], 1),
-                        depth_union[d] / max(depth_warps[d], 1))
-                    for d in range(levels) if depth_live[d]}
-    return {"visits": float(per_lane.sum()) / n,
-            "warp_visits": float(per_lane.reshape(-1, WARP).amax(dim=1)
-                                 .double().mean()),
-            "most": int(per_lane.max()),
-            "misses": misses / n, "hits": hits / n,
-            "last_hits": last_hits / n, "chunks": chunks / n,
-            "by_depth": by_depth}
+    by_depth = {d: (depth_live[d] / n,
+                    depth_chunks[d] / max(depth_live[d], 1),
+                    depth_union[d] / max(depth_warps[d], 1))
+                for d in range(levels) if depth_live[d]}
+    return per_lane, {"misses": misses, "hits": hits,
+                      "last_hits": last_hits, "chunks": chunks,
+                      "by_depth": by_depth}

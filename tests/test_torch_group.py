@@ -15,6 +15,9 @@ import pickle
 import socket
 import time
 
+# the ring gradient tests' losses, one copy with the card's check's
+from chip_smoke import grad_losses
+
 # the longest a group may take, start to finish (each rank imports torch
 # and the port, a few seconds, then renders a tiny image)
 GROUP_TIMEOUT_S = 90
@@ -154,3 +157,69 @@ def ring_radiance_job(scene, lanes, seed):
         acc = ring.ring_radiance(intersect.ring_ctx(), stripped, scene.spec,
                                  *lanes[mesh.rank], seed, step=step)
     return torch.stack(list(acc)), live
+
+
+def grads_of(make_loss):
+    """The gradients of one of ``chip_smoke.grad_losses``' paths:
+    ``make_loss() -> (loss, leaves)``, then ``backward()``."""
+    loss, leaves = make_loss()
+    loss.backward()
+    return [x.grad for x in leaves]
+
+
+def ring_grad_job(data, spec, ro, rd, mesh=None):
+    """``make_ring_intersector``'s gradients of one loss
+    (``chip_smoke.t_loss``) that every rank takes of the gathered result:
+    prim_p, prim_q, ro, rd (``mesh`` by default the group's, on the
+    CPU)."""
+    return grads_of(grad_losses(data, spec, ro, rd, mesh or _mesh())["t"])
+
+
+def ring_rec_grad_job(data, spec, ro, rd, mesh=None):
+    """Rank r's slice of the rays through ``ring_closest_hit`` under a ring
+    context, a loss of its records (``chip_smoke.rec_loss``),
+    ``backward()`` on every rank: each per-object leaf's gradient."""
+    from raytrace_tpu_torch.parallel.ring import OBJECT_LEAVES
+
+    return dict(zip(OBJECT_LEAVES, grads_of(grad_losses(
+        data, spec, ro, rd, mesh or _mesh())["records"])))
+
+
+class _Stop(Exception):
+    """Raised from a render's progress to stop it, as a kill would."""
+
+
+def checkpoint_job(kind, scene, spp, paths, steps):
+    """Rank r's renders of ``scene`` through ``render_image_sharded``
+    (``kind`` "sharded") or ``render_image_ring`` ("ring"), one sample
+    chunk a launch group, with the checkpoint at ``paths[r]``: for each
+    ``(seed, checkpointed, stop)`` of ``steps``, ``("image", image)``,
+    ``("stopped", fractions)`` when ``stop`` and progress passed half way
+    (after the second group, before its checkpoint write), or
+    ``("refused", message)`` on a ``ValueError``."""
+    from raytrace_tpu_torch.parallel.ring import render_image_ring
+    from raytrace_tpu_torch.parallel.tile import render_image_sharded
+    from raytrace_tpu_torch.render import integrator
+
+    integrator._group_cap = lambda *args: 1   # one chunk a group
+    render = {"sharded": render_image_sharded, "ring": render_image_ring}[kind]
+    mesh = _mesh()
+    out = []
+    for seed, checkpointed, stop in steps:
+        fractions = []
+
+        def progress(frac):
+            fractions.append(frac)
+            if stop and frac >= 0.5:
+                raise _Stop
+
+        try:
+            out.append(("image", render(
+                scene, seed=seed, spp=spp, mesh=mesh, max_lanes=8,
+                progress=progress,
+                checkpoint=paths[mesh.rank] if checkpointed else None)))
+        except _Stop:
+            out.append(("stopped", fractions))
+        except ValueError as e:
+            out.append(("refused", str(e)))
+    return out

@@ -16,13 +16,14 @@ import torch
 from raytrace_tpu.ops import intersect_pallas as jip
 from raytrace_tpu.ops.intersect import _packed_tables as jax_packed_tables
 from raytrace_tpu.scene.procedural import make_sphere_field as jax_field
-from raytrace_tpu_torch.ops import _build, intersect_scan
+from raytrace_tpu_torch.ops import _build, intersect, intersect_scan
 from raytrace_tpu_torch.ops.intersect import scene_tables
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.render import integrator, megakernel, work
 from raytrace_tpu_torch.scene import dsl
 from raytrace_tpu_torch.scene.builder import build_scene, load_scene_file
 from raytrace_tpu_torch.scene.procedural import make_sphere_field
+from raytrace_tpu_torch.scene.schema import BG_SKYBOX
 
 from conftest import repo_path
 from test_torch_scan import _incoherent_rays, _v3, interpret_env  # noqa: F401
@@ -380,6 +381,74 @@ def test_showcase_work_counters_match_a_live_only_walk():
     assert got["warp_visits"] > got["visits"]
     assert got["most"] == counts.max()
     assert (got["chunks"], got["misses"], got["by_depth"]) == (0.0, 0.0, {})
+
+
+def _full_tree_counts(data, spec, lanes, seed):
+    """path_work's counts of a small scene by a walk of every position of
+    the full tree, depth first, all the lanes at a position in one batch,
+    the dead ones masked: live nodes per lane, hits, the last depth's hits
+    and the misses (counted whatever the background)."""
+    m, levels, _, cap = integrator.tree_loop_stack(spec)
+    ro, rd, k1, k2 = integrator.primary_rays(data, spec, *lanes, seed)
+    one = torch.ones_like(ro.x)
+    stack = [integrator.tree_loop_entry(ro, rd, one, V3(one, one, one), one,
+                                        k1, k2, ro.x.dtype)] + [None] * cap
+    per_lane = torch.zeros_like(ro.x, dtype=torch.int64)
+    hits = last_hits = misses = 0
+    sp = 1
+    for depth in integrator._dfs_schedule(m, levels):
+        sp -= 1
+        e = stack[sp]
+        live = e[10] > 0.5
+        per_lane += live
+        hit = intersect.closest_hit(data, spec, V3(*e[0:3]),
+                                    V3(*e[3:6])).hit & live
+        hits += int(hit.sum())
+        misses += int((live & ~hit).sum())
+        if depth == levels - 1:
+            last_hits += int(hit.sum())
+        else:
+            _, virt = integrator.tree_loop_node(data, spec, m, e, depth)
+            if len(virt) < m:
+                break
+            for j, child in enumerate(virt):
+                stack[sp + (m - 1 - j)] = child
+            sp += m
+    return per_lane, hits, last_hits, misses
+
+
+@pytest.mark.parametrize("scene", ["showcase", "indirect 4 x 3",
+                                   "indirect 3 x 2 under the sky"])
+def test_live_work_matches_path_work(scene):
+    """path_work's walk of a small scene, breadth first over the live
+    nodes alone, counts what a walk of every position of the full tree
+    counts: live nodes per lane (their mean, a warp's largest, any lane's
+    most), hits, the last depth's hits and, under the sky, the skybox's
+    misses; no chunks."""
+    if scene == "showcase":
+        sc = load_scene_file(SHOWCASE, device="cpu")
+    else:
+        sc = _indirect_scene(*(int(c) for c in scene.split()[1:4:2]))
+    spec = dataclasses.replace(sc.spec, width=16, height=16)
+    data = sc.data
+    if "sky" in scene:
+        spec = dataclasses.replace(spec, bg_type=BG_SKYBOX,
+                                   face_sizes=((4, 4),) * 6)
+        data = dataclasses.replace(data, bg_cube=torch.rand(
+            (6, 4, 4, 3), generator=torch.Generator().manual_seed(0)))
+    pix = torch.arange(256, dtype=torch.int64)
+    lanes = [pix % 16, pix // 16, torch.zeros_like(pix), pix % 4]
+    per_lane, hits, last_hits, misses = _full_tree_counts(data, spec, lanes, 4)
+    got = work.path_work(data, spec, lanes, 4)
+    assert got == {
+        "visits": float(per_lane.sum()) / 256,
+        "warp_visits": float(per_lane.reshape(8, 32).amax(dim=1)
+                             .double().mean()),
+        "most": int(per_lane.max()),
+        "misses": misses / 256 if "sky" in scene else 0.0,
+        "hits": hits / 256, "last_hits": last_hits / 256, "chunks": 0.0,
+        "by_depth": {}}
+    assert got["visits"] > 2 and (got["misses"] > 0) == ("sky" in scene)
 
 
 @pytest.mark.parametrize("mix", [False, True])

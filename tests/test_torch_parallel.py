@@ -49,6 +49,45 @@ def test_sharded_render_bit_identical(tmp_path):
                                   render_image(sc, seed=5, spp=4))
 
 
+@pytest.mark.parametrize("kind", ["sharded", "ring"])
+@pytest.mark.parametrize("files", ["one path", "a path per rank"])
+def test_sharded_checkpoint_resume(kind, files, tmp_path):
+    """A checkpointed render on two ranks, stopped on every rank after its
+    first launch group (one sample each) and resumed in a new group,
+    equals the uncheckpointed render to the bit on both ranks.  Rank 0
+    alone writes the file (one file, no temp file left) and reads it back
+    for both, whether the ranks share its path or not (a path per rank:
+    rank 1's stays empty); a resume with another seed raises the same
+    ``ValueError`` on both ranks, each naming its path."""
+    sc = make_sphere_field(70, width=4, height=4, antialias=1,
+                           mix_materials=False, device="cpu")
+    dirs = ["ck", "ck"] if files == "one path" else ["ck0", "ck1"]
+    for d in (*dirs, "a", "b"):
+        (tmp_path / d).mkdir(exist_ok=True)
+    paths = [str(tmp_path / d / "state.npz") for d in dirs]
+    first = group.run_group(
+        group.checkpoint_job, 2, kind, sc, 4, paths,
+        [(3, False, False), (3, True, True)], out_dir=tmp_path / "a")
+    with np.load(paths[0]) as state:
+        assert int(state["s_done"]) == 1
+    resumed = group.run_group(
+        group.checkpoint_job, 2, kind, sc, 4, paths,
+        [(3, True, False), (4, True, False)], out_dir=tmp_path / "b")
+    for r, ((full, stopped), (again, other_seed)) in enumerate(
+            zip(first, resumed)):
+        assert full[0] == "image" and full[1].std() > 0
+        assert stopped == ("stopped", [0.25, 0.5])
+        assert again[0] == "image"
+        np.testing.assert_array_equal(again[1], full[1])
+        assert other_seed == ("refused", f"checkpoint {paths[r]} was written "
+                              f"for a different render config; refusing to "
+                              f"mix")
+    files_left = sorted(str(f.relative_to(tmp_path))
+                        for f in tmp_path.glob("ck*/*"))
+    assert files_left == ["ck/state.npz" if files == "one path"
+                          else "ck0/state.npz"]
+
+
 def test_sharded_render_nondivisible_pixels(tmp_path):
     """5x5 = 25 pixels over 4 ranks: the padding path."""
     sc = _scene(5, 5)

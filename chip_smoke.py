@@ -59,8 +59,10 @@ against their plain twin (``ring_shade_reference``) on the linear and
 mixed fields, the lit mirror scene, the open field under the sky and a
 65-sample tree at 262,144 lanes (stacks of 65 entries); a round of each
 instance timed at 2,097,152 lanes beside its bound, the round's scan
-kernel and the rows' gather; the ring's step (the scan kernel on a
-shard) on the 4,006-object field whole and halved, and the shard's build;
+kernel and the rows' gather (``ring_start`` and ``ring_rows`` also as bare
+launches, and ``ring_start`` on int64 ids too); the ring's step (the scan
+kernel on a shard) on the 4,006-object field whole and halved, and the
+shard's build;
 the ring's gradients at k = 1 on 65,536 camera rays of the 1,006-object
 field (t through ``make_ring_intersector`` in the geometry and the rays,
 the hit records through ``ring_closest_hit`` in every per-object leaf),
@@ -981,36 +983,81 @@ def ring_rounds(sc, calls: int, lanes=None, seed: int = 0) -> int:
                for i in range(0, lanes[0].shape[0], step))
 
 
+# GPU cycles that the device spins before a bare launch's start event
+# (torch.cuda._sleep, some 0.5 ms), so that the host's enqueue of the
+# launch lies outside the events and they time the kernel alone
+SPIN_CYCLES = 1_000_000
+# the calls of a ring kernel's wrapper and bare launch that ring_round
+# times, the best and the slowest of them reported
+RING_REPS = 7
+
+
 def ring_round(ringlib, ring_shade, intersect, sc, lanes, mesh) -> dict:
     """The first round of a ring render of ``lanes`` (every lane live),
     each ring kernel against its plain version on the same inputs (the
     state restored before each call): per kernel (``ring_start``,
     ``ring_rows``, on a lit scene ``ring_shadow``, ``ring_finish``) the
-    CUDA-event ms of its wrapper's call and of the plain one's, whether
-    the two agree to the bit, the largest difference and the bytes the
-    kernel must move, each input read once and each output written once:
-    ``ring_start`` the four ids in, the node, sum, flag and stack pointer
-    out; ``ring_rows`` the id in and the 24-float row out a lane, and the
+    CUDA-event ms of its wrapper's call, the best of ``RING_REPS`` with
+    the slowest beside it, and of the plain one's, whether the two agree
+    to the bit, the largest difference and the bytes the kernel must move,
+    each input read once and each output written once: ``ring_start`` the
+    four ids in, the node, sum, flag and stack pointer out (its bound also
+    counts the primary rays' operations, ``flops.ring_start_bound``);
+    ``ring_rows`` the id in and the 24-float row out a lane, and the
     shard's rows; ``ring_shadow`` the node, flag and answers (t, hit, the
     row) in, a query of 7 floats a light out; ``ring_finish`` the node and
     sum in and out, the answers and blocked bits, the flag, the stack
-    pointer (a fan-out scene) and the entries pushed.  The rows' gather
-    also beside ``torch.index_select``, the same function on one rank
+    pointer (a fan-out scene) and the entries pushed.  ``ring_start`` and
+    ``ring_rows`` are also timed as bare launches of their entries in
+    ``csrc/ring_shade.cu`` on inputs prepared outside the events (``bare``,
+    best and slowest), with the host's time of the wrapper's call beside
+    them (``host_ms``), ``ring_start`` also on the int64 ids that the image
+    loop sends (``int64``).  The rows' gather also beside
+    ``torch.index_select``, the same function on one rank
     (``library_ms``); and the round's scan kernel launch (``scan_ms``)."""
     from raytrace_tpu_torch.ops.vec import V3
-    from raytrace_tpu_torch.scene.schema import LIGHT_DIRECTIONAL
+    from raytrace_tpu_torch.render.megakernel import pack_header
+    from raytrace_tpu_torch.scene.schema import (CAM_DEPTH_OF_FIELD,
+                                                 LIGHT_DIRECTIONAL)
+    from raytrace_tpu_torch.utils.flops import ring_start_bound
 
     spec = sc.spec
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    lib = ring_shade._lib()
 
-    def timed(fn):
+    def timed(fn, spin=False):
         torch.cuda.synchronize()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end)
+
+    def best(fn, reps, before=lambda: None, spin=False):
+        """(best, slowest) ms of ``reps`` calls; ``before`` runs ahead of
+        each, outside its events."""
+        out = []
+        for _ in range(reps):
+            before()
+            out.append(timed(fn, spin))
+        return min(out), max(out)
+
+    def host_only(fn):
+        """The host's ms of a wrapper call that launches without waiting,
+        made while the device spins, so that it never waits on the
+        device: the best of ``RING_REPS``."""
+        out = []
+        for _ in range(RING_REPS):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return min(out)
 
     def diff(a, b):
         """Largest difference of two float tensors, or of the floats of
@@ -1019,21 +1066,32 @@ def ring_round(ringlib, ring_shade, intersect, sc, lanes, mesh) -> dict:
             a, b = a[:10].view(torch.float32), b[:10].view(torch.float32)
         return float((a.float() - b.float()).abs().max())
 
-    def entry(kernel, plain, got, want, nbytes, before=lambda: None):
-        """``before`` runs ahead of each timed call, outside its events."""
-        def best(fn, reps):
-            out = []
-            for _ in range(reps):
-                before()
-                out.append(timed(fn))
-            return min(out)
-
-        ms, plain_ms = best(kernel, 5), best(plain, 2)
+    def entry(kernel, plain, got, want, nbytes, before=lambda: None,
+              bare=None):
+        """``bare``, where given, is the kernel's entry called on prepared
+        inputs; ``got`` is compared after its calls."""
+        ms, slowest = best(kernel, RING_REPS, before)
+        out = {"ms": ms, "ms_slowest": slowest,
+               "plain_ms": best(plain, 2, before)[0], "bytes": nbytes}
+        if bare is not None:
+            out["bare_ms"], out["bare_slowest"] = best(bare, RING_REPS,
+                                                       before, spin=True)
+            out["host_ms"] = host_only(kernel)
         pairs = list(zip(got, want))
-        return {"ms": ms, "plain_ms": plain_ms,
-                "equal": all(torch.equal(a, b) for a, b in pairs),
-                "max_abs_err": max(diff(a, b) for a, b in pairs),
-                "bytes": nbytes}
+        out["equal"] = all(torch.equal(a, b) for a, b in pairs)
+        out["max_abs_err"] = max(diff(a, b) for a, b in pairs)
+        return out
+
+    def launch(fn, *args):
+        """The entry ``fn`` of csrc/ring_shade.cu on the current stream."""
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call():
+            rc = fn(*args, stream)
+            if rc != 0:
+                raise RuntimeError(f"{fn.__name__}: "
+                                   f"{lib.rt_error_string(rc).decode()}")
+        return call
 
     n = lanes[0].shape[0]
     n_light = spec.n_lights
@@ -1043,13 +1101,38 @@ def ring_round(ringlib, ring_shade, intersect, sc, lanes, mesh) -> dict:
         ctx = intersect.ring_ctx()
         state = ring_shade.ring_start(st, spec, *lanes, 0)
         twin = ring_shade.start_reference(st, spec, *lanes, 0)
+        header = pack_header(st, spec)
+        dof = int(spec.cam_type == CAM_DEPTH_OF_FIELD)
+
+        def start_bare(ids):
+            words, width = ring_shade.start_ids(*ids)
+            bare = ring_shade.ring_lanes(spec, n, header.device)
+            return launch(lib.rt_ring_start, *(t.data_ptr() for t in words),
+                          width, header.data_ptr(), dof, 0,
+                          bare.node.data_ptr(), bare.acc.data_ptr(),
+                          bare.live.data_ptr(), bare.sp.data_ptr(), n), bare
+
         # the stack's entries are written before they are read: only the
         # node, sum, flag and stack pointer are made
+        call, bare = start_bare(lanes)
         out["ring_start"] = entry(
             lambda: ring_shade.ring_start(st, spec, *lanes, 0),
             lambda: ring_shade.start_reference(st, spec, *lanes, 0),
-            state[:4], twin[:4], n * (16 + 52 + 12 + 4 + 4))
-        del twin
+            [*state[:4], *bare[:4]], [*twin[:4], *twin[:4]],
+            n * (16 + 52 + 12 + 4 + 4), bare=call)
+        out["ring_start"]["bound"] = ring_start_bound(spec, n, 4)[:2]
+        # the same lanes as the image loop makes them, int64
+        wide = [t.to(torch.int64) for t in lanes]
+        call, bare = start_bare(wide)
+        again = ring_shade.ring_start(st, spec, *wide, 0)
+        e = entry(lambda: ring_shade.ring_start(st, spec, *wide, 0),
+                  lambda: ring_shade.start_reference(st, spec, *wide, 0),
+                  [*again[:4], *bare[:4]], [*twin[:4], *twin[:4]],
+                  n * (32 + 52 + 12 + 4 + 4), bare=call)
+        e["bound"] = ring_start_bound(spec, n, 8)[:2]
+        out["ring_start"]["int64"] = e
+        out["ring_start"]["equal"] &= e["equal"]
+        del twin, again, bare, wide, call
         ro, rd = state.rays()
 
         def scan():
@@ -1061,17 +1144,31 @@ def ring_round(ringlib, ring_shade, intersect, sc, lanes, mesh) -> dict:
         rows = ringlib.ring_gather_rows(ctx.mat_rows, obj, ctx.mesh)
         want = ringlib.ring_gather_rows_reference(ctx.mat_rows, obj,
                                                   ctx.mesh)
+        # the bare launches: one step of the rows' ring over every lane,
+        # each held to the plain selects too (one rank's shard holds every
+        # row; at k > 1 the step with the rank's own shard)
+        if obj.dtype != torch.int32:
+            raise AssertionError("the ring's winners must be int32 ids")
+        per = ctx.mat_rows.shape[0]
+        first = mesh.rank * per
+        shard = ctx.mat_rows.detach().contiguous()
+        bare_rows = torch.zeros_like(want)
+        step_want = ringlib._select_rows(shard, obj, mesh.rank, bare_rows)
         out["ring_rows"] = entry(
             lambda: ringlib.ring_gather_rows(ctx.mat_rows, obj, ctx.mesh),
             lambda: ringlib.ring_gather_rows_reference(ctx.mat_rows, obj,
                                                        ctx.mesh),
-            [rows], [want], n * (4 + 96) + ctx.mat_rows.numel() * 4)
+            [rows], [want], n * (4 + 96) + ctx.mat_rows.numel() * 4,
+            bare=launch(lib.rt_ring_rows, shard.data_ptr(), first, per,
+                        obj.data_ptr(), bare_rows.data_ptr(), n))
+        out["ring_rows"]["equal"] &= torch.equal(bare_rows, step_want)
+        del bare_rows, step_want
         if mesh.ranks == 1:
             ids = obj.to(torch.int64)
             lib_rows = torch.index_select(ctx.mat_rows, 0, ids)
-            out["ring_rows"]["library_ms"] = min(timed(
-                lambda: torch.index_select(ctx.mat_rows, 0, ids))
-                for _ in range(3))
+            out["ring_rows"]["library_ms"] = best(
+                lambda: torch.index_select(ctx.mat_rows, 0, ids),
+                RING_REPS)[0]
             out["ring_rows"]["equal"] &= torch.equal(lib_rows, want)
             del lib_rows, ids
         del want
@@ -1763,6 +1860,8 @@ def main() -> int:
           f"on {smi}")
     timing = {k_lin: (ms, plain_ms)}
     library_ms = {}
+    # the ring's kernels timed as bare launches too (ring_round)
+    bare_ms = {}
     work = path_work(data, spec_b, lanes, 0)
     old_ms, old_by = render_bound(spec_b, n, work)
     print(f"    needs {work['visits']:.3f} live nodes per lane; the object "
@@ -2771,25 +2870,36 @@ def main() -> int:
         print(f"    a round at {n} lanes, {label}: the round's scan kernel "
               f"{r.pop('scan_ms'):.4f} ms; on {smi}:")
         for kname, e in r.items():
-            b_ms, b_by = bound(0.0, e["bytes"])
-            lib = (f", torch.index_select {e['library_ms']:.4f} ms"
-                   if "library_ms" in e else "")
-            print(f"      {kname}: {e['ms']:.4f} ms, plain "
-                  f"{e['plain_ms']:.4f} ms{lib}; equal to the plain version "
-                  f"to the bit: {e['equal']} (largest difference "
-                  f"{e['max_abs_err']}); "
-                  f"bound {b_ms:.4f} ms ({b_by}: {e['bytes']} B; the "
-                  f"shading's operations left out)")
+            forms = [("", e)] + ([(" (int64 ids)", e["int64"])]
+                                 if "int64" in e else [])
+            for form, f in forms:
+                b_ms, b_by = f.get("bound", bound(0.0, f["bytes"]))
+                what = ("the primary rays' operations counted"
+                        if "bound" in f else "the shading's operations left "
+                        "out")
+                lib = (f", torch.index_select {f['library_ms']:.4f} ms"
+                       if "library_ms" in f else "")
+                bare = (f"; bare launch {f['bare_ms']:.4f} ms (slowest "
+                        f"{f['bare_slowest']:.4f}); the wrapper's host work "
+                        f"{f['host_ms']:.4f} ms" if "bare_ms" in f else "")
+                print(f"      {kname}{form}: wrapper {f['ms']:.4f} ms "
+                      f"(slowest of {RING_REPS} {f['ms_slowest']:.4f}){bare}, "
+                      f"plain {f['plain_ms']:.4f} ms{lib}; equal to the plain "
+                      f"version to the bit: {f['equal']} (largest difference "
+                      f"{f['max_abs_err']}); bound {b_ms:.4f} ms ({b_by}: "
+                      f"{f['bytes']} B; {what})")
             if not e["equal"]:
                 raise AssertionError(f"{kname} differs from its plain "
                                      f"version on {label}")
             row = times.get(kname)
             if row is not None:
                 timing[row] = (e["ms"], e["plain_ms"])
-                bounds[row] = (b_ms, b_by)
+                bounds[row] = e.get("bound", bound(0.0, e["bytes"]))
                 max_err[row] = max(max_err[row], e["max_abs_err"])
                 if "library_ms" in e:
                     library_ms[row] = e["library_ms"]
+                if "bare_ms" in e:
+                    bare_ms[row] = e["bare_ms"]
     del lanes_p, lanes_l
     torch.cuda.empty_cache()
     # K5 per ring step on the 4,006-object field: the whole table against
@@ -3220,6 +3330,7 @@ def main() -> int:
         "ms": timing[k][0], "plain_ms": timing[k][1],
         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
         "library_ms": library_ms.get(k),
+        **({"bare_ms": bare_ms[k]} if k in bare_ms else {}),
         **({"launches_by_path": by_path[k]} if k in by_path else {})}
         for k in rows]}))
     print(smi)

@@ -14,12 +14,13 @@
 // them between launches:
 //
 //   ring_start   each lane's primary ray (primary_ray, as K1 and K3 make it)
-//                becomes its node;
+//                becomes its node, from ids of either width as they come;
 //   ring_shadow  (lit scenes) shade_node up to the lights, under a policy
 //                that writes each light's shadow ray (origin, direction,
 //                squared range) into an (n_light, 7, N) query buffer;
 //   ring_rows    one step of the rows' ring: each lane whose winner lies
-//                in the resident shard of the object table takes its row;
+//                in the resident shard of the object table takes its row,
+//                a warp's 32 rows copied together as one piece of `out`;
 //   ring_finish  shade_node with the ring's answers: the hit (t, hit) of
 //                each lane, the winner's row gathered per lane in the
 //                kernels' row layout (ROW floats, the large scenes' rows),
@@ -115,16 +116,21 @@ __device__ __forceinline__ Scene ring_scene(const float* s, int n_light, int max
                Tables{}, sky};
 }
 
+// the ids are read as they come, 32-bit (Id = uint32_t) or 64-bit (Id =
+// unsigned long long) words, and each keeps its low 32 bits, as the plain
+// version's words do (ops/rng.py::as_words): the wrapper launches nothing
+// but this kernel
+template <class Id>
 __global__ void __launch_bounds__(RING_THREADS)
-ring_start_kernel(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
-                  const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
+ring_start_kernel(const Id* __restrict__ pix, const Id* __restrict__ piy,
+                  const Id* __restrict__ aa, const Id* __restrict__ cam,
                   const float* __restrict__ scene, int dof, uint32_t seed,
                   uint32_t* __restrict__ node, float* __restrict__ acc, int* __restrict__ live,
                   int* __restrict__ sp, long long n) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const Node e = primary_ray<true>(scene, pix[lane], piy[lane], aa[lane], cam[lane], seed,
-                                   dof != 0);
+  const Node e = primary_ray<true>(scene, (uint32_t)pix[lane], (uint32_t)piy[lane],
+                                   (uint32_t)aa[lane], (uint32_t)cam[lane], seed, dof != 0);
   SlabStack nd{node + lane, n};
   put(nd, 0, e, 0);
   acc[lane] = 0.0f;
@@ -217,18 +223,34 @@ ring_finish_kernel(const float* __restrict__ scene, Sky sky, int n_light, int ma
 }
 
 // one step of the rows' ring: the lanes whose winner lies in the resident
-// row shard, object ids [first, first + per), take its row
+// row shard, object ids [first, first + per), take its row.  A warp copies
+// the rows of its 32 lanes together: they fill 32 * ROW / 4 = 192 float4s
+// of `out` in one piece, and thread t copies pieces t, t + 32, ..., t +
+// 160, piece f being lane f / 6's float4 number f % 6.  So each store of
+// the warp writes 512 contiguous bytes, and six neighbouring threads read
+// one row of the shard whole (the shard, some hundred KB, stays in L2 and
+// is read through the read-only path).  A lane whose winner is not
+// resident keeps its row.  Every warp of the grid is whole (blocks_for),
+// so that all 32 threads take part in the shuffles.
 __global__ void __launch_bounds__(RING_THREADS)
 ring_rows_kernel(const float4* __restrict__ shard, int first, int per,
                  const int* __restrict__ obj, float4* __restrict__ out, long long n) {
+  constexpr int PIECES = ROW / 4;
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const int local = obj[lane] - first;
-  if (local < 0 || local >= per) return;
-  const float4* src = shard + (long long)local * (ROW / 4);
-  float4* dst = out + lane * (ROW / 4);
+  const long long warp0 = lane - (threadIdx.x & 31);
+  int local = -1;
+  if (lane < n) {
+    const long long l = (long long)obj[lane] - first;
+    if (l >= 0 && l < per) local = (int)l;
+  }
+  if (!__any_sync(0xffffffffu, local >= 0)) return;
 #pragma unroll
-  for (int j = 0; j < ROW / 4; ++j) dst[j] = __ldg(src + j);
+  for (int j = 0; j < PIECES; ++j) {
+    const int f = (int)(threadIdx.x & 31) + 32 * j;
+    const int l = f / PIECES, c = f - l * PIECES;
+    const int src = __shfl_sync(0xffffffffu, local, l);
+    if (src >= 0) out[(warp0 + l) * PIECES + c] = __ldg(shard + (long long)src * PIECES + c);
+  }
 }
 
 using FinishKernel = decltype(&ring_finish_kernel<false, false>);
@@ -256,14 +278,24 @@ extern "C" {
 // (render/ring_shade.py::RingLanes).  `scene` is the scene buffer's header
 // and lights (render/megakernel.py::pack_header) in device memory.
 
-// The lanes' primary rays (pix, piy, aa, cam: n 32-bit ids each) into a
-// fresh state; `dof` is 1 for the depth-of-field camera.
-int rt_ring_start(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
-                  const uint32_t* cam, const float* scene, int dof, uint32_t seed,
-                  uint32_t* node, float* acc, int* live, int* sp, long long n, void* stream) {
+// The lanes' primary rays (pix, piy, aa, cam: n ids each, `id_bytes` 4
+// for 32-bit ids, 8 for 64-bit ones, whose low 32 bits are the lane's
+// words) into a fresh state; `dof` is 1 for the depth-of-field camera.
+int rt_ring_start(const void* pix, const void* piy, const void* aa, const void* cam,
+                  int id_bytes, const float* scene, int dof, uint32_t seed, uint32_t* node,
+                  float* acc, int* live, int* sp, long long n, void* stream) {
+  if (id_bytes != 4 && id_bytes != 8) return (int)cudaErrorInvalidValue;
   if (n < 1) return (int)cudaSuccess;
-  ring_start_kernel<<<blocks_for(n), RING_THREADS, 0, (cudaStream_t)stream>>>(
-      pix, piy, aa, cam, scene, dof, seed, node, acc, live, sp, n);
+  if (id_bytes == 4)
+    ring_start_kernel<uint32_t><<<blocks_for(n), RING_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)pix, (const uint32_t*)piy, (const uint32_t*)aa, (const uint32_t*)cam,
+        scene, dof, seed, node, acc, live, sp, n);
+  else
+    ring_start_kernel<unsigned long long>
+        <<<blocks_for(n), RING_THREADS, 0, (cudaStream_t)stream>>>(
+            (const unsigned long long*)pix, (const unsigned long long*)piy,
+            (const unsigned long long*)aa, (const unsigned long long*)cam, scene, dof, seed,
+            node, acc, live, sp, n);
   return (int)cudaGetLastError();
 }
 

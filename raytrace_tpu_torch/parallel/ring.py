@@ -157,6 +157,8 @@ def ring_gather_rows(mat_rows, obj, mesh: Mesh):
     if obj.device.type == "cpu":
         return ring_gather_rows_reference(mat_rows, obj, mesh)
 
+    # no copy where obj is int32 already, as ring_closest_hit_local makes
+    # it: at k = 1 without grad the call launches ring_rows alone
     ids = obj.to(torch.int32)
     k, per = mesh.ranks, mat_rows.shape[0]
     grad = torch.is_grad_enabled() and mat_rows.requires_grad

@@ -153,7 +153,7 @@ def _lib() -> ctypes.CDLL:
     if _lib_ready is None:
         lib = _build.load(KERNEL_RING)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rt_ring_start.argtypes = ([p] * 5 + [i, ctypes.c_uint32]
+        lib.rt_ring_start.argtypes = ([p] * 4 + [i, p, i, ctypes.c_uint32]
                                       + [p] * 4 + [ctypes.c_longlong, p])
         lib.rt_ring_shadow.argtypes = ([p] + [i] * 5 + [p] * 6
                                        + [ctypes.c_longlong, p])
@@ -199,20 +199,32 @@ def _flags(spec: SceneSpec) -> list[int]:
             int(spec.has_refract), spec.n_indirect]
 
 
+def start_ids(pix, piy, aa, cam) -> tuple[list[torch.Tensor], int]:
+    """The identity tensors as :func:`ring_start`'s kernel reads them, and
+    their width in bytes: four contiguous int32 tensors as they come, or
+    else each as int64 (a copy of each tensor that is not a contiguous
+    int64 one already).  The kernel keeps each id's low 32 bits, as the
+    plain version's words do (:func:`raytrace_tpu_torch.ops.rng.as_words`)."""
+    ids = (pix, piy, aa, cam)
+    if all(t.dtype == torch.int32 for t in ids):
+        return [t.contiguous() for t in ids], 4
+    return [t.to(torch.int64).contiguous() for t in ids], 8
+
+
 def ring_start(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
                seed: int) -> RingLanes:
     """The lanes' state with each lane's primary ray as its node, from
     (N,) integer identity tensors (pixel x, pixel y, antialias sample,
-    lens sample)."""
+    lens sample).  On CUDA tensors of int32 or int64 ids the kernel is its
+    one launch."""
     device = pix.device
     if device.type == "cpu":
         return start_reference(data, spec, pix, piy, aa, cam, seed)
     _cuda(device)
     n = pix.shape[0]
     lanes = ring_lanes(spec, n, device)
-    ids = [(t.to(torch.int64) & rng.MASK).to(torch.int32).contiguous()
-           for t in (pix, piy, aa, cam)]
-    _call(_lib().rt_ring_start, device, *(t.data_ptr() for t in ids),
+    ids, width = start_ids(pix, piy, aa, cam)
+    _call(_lib().rt_ring_start, device, *(t.data_ptr() for t in ids), width,
           _header_buffer(data, spec).data_ptr(),
           int(spec.cam_type == CAM_DEPTH_OF_FIELD), int(seed) & rng.MASK,
           lanes.node.data_ptr(), lanes.acc.data_ptr(), lanes.live.data_ptr(),

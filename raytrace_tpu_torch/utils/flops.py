@@ -89,18 +89,26 @@ K1_INDIRECT, K1_REFLECT, K1_STREAM = (37, 3, 0), (26, 0, 0), (0, 0, 19)
 K1_LIGHT = (70, 6, 0)
 
 
+def k1_primary_ops(spec) -> np.ndarray:
+    """(FP32, special-function, integer) operations of a lane's primary
+    ray: its keys, the jitter's two draws, the ray, and for the
+    depth-of-field camera the lens sample and its two draws."""
+    from raytrace_tpu_torch.scene.schema import CAM_DEPTH_OF_FIELD
+
+    v = np.array
+    return (v(K1_KEYS) + 2 * v(K1_DRAW) + v(K1_PRIMARY)
+            + (v(K1_DOF) + 2 * v(K1_DRAW)
+               if spec.cam_type == CAM_DEPTH_OF_FIELD else 0))
+
+
 def k1_lane_ops(spec, work) -> np.ndarray:
     """(FP32, special-function, integer) operations per lane of the linear
     kernel on a small scene, for lanes whose paths need ``work``
     (``render.work.path_work``)."""
-    from raytrace_tpu_torch.scene.schema import CAM_DEPTH_OF_FIELD
-
     live = spec.live_objects()
     n_sph = sum(spec.shape_type[i] == 0 for i in live)
     v = np.array
-    ops = (v(K1_KEYS) + 2 * v(K1_DRAW) + v(K1_PRIMARY)
-           + (v(K1_DOF) + 2 * v(K1_DRAW)
-              if spec.cam_type == CAM_DEPTH_OF_FIELD else 0))
+    ops = k1_primary_ops(spec)
     shaded = work["hits"] - work["last_hits"]
     child = v(K1_INDIRECT) + 2 * v(K1_DRAW) if spec.n_indirect else v(K1_REFLECT)
     ops = ops + work["visits"] * (v(K1_RAY) + n_sph * v(K1_SPHERE)
@@ -112,13 +120,12 @@ def k1_lane_ops(spec, work) -> np.ndarray:
     return ops + (work["visits"] - 1) * (child + v(K1_STREAM))
 
 
-def k1_bound(spec, n_lanes: int, work: dict, peaks: Peaks = H100_SXM):
-    """(ms, "operations" or "bytes", per-unit ms) of one launch of the
-    linear kernel: the lanes' operations over each unit's peak, and 28 B a
-    lane and the scene once over the memory rate; the largest."""
-    fp, sfu, ints = k1_lane_ops(spec, work) * n_lanes
-    nbytes = (28 + SKY_TEXEL_BYTES * work["misses"]) * n_lanes + 96 * len(
-        spec.live_objects())
+def unit_bound(ops, nbytes: float, peaks: Peaks = H100_SXM):
+    """(ms, "operations" or "bytes", per-unit ms) of (FP32,
+    special-function, integer) operations ``ops`` and ``nbytes`` moved:
+    each over its unit's peak, the bytes over the memory rate; the
+    largest."""
+    fp, sfu, ints = ops
     units = {"fp32": fp / peaks.fp32_flops * 1e3,
              "sfu": sfu / peaks.sfu_ops * 1e3,
              "int32": ints / peaks.int_ops * 1e3,
@@ -126,6 +133,32 @@ def k1_bound(spec, n_lanes: int, work: dict, peaks: Peaks = H100_SXM):
     worst = max(units, key=units.get)
     return (units[worst], "bytes" if worst == "bytes" else "operations",
             units)
+
+
+def k1_bound(spec, n_lanes: int, work: dict, peaks: Peaks = H100_SXM):
+    """(ms, "operations" or "bytes", per-unit ms) of one launch of the
+    linear kernel: the lanes' operations over each unit's peak, and 28 B a
+    lane and the scene once over the memory rate; the largest."""
+    nbytes = (28 + SKY_TEXEL_BYTES * work["misses"]) * n_lanes + 96 * len(
+        spec.live_objects())
+    return unit_bound(k1_lane_ops(spec, work) * n_lanes, nbytes, peaks)
+
+
+# bytes of a ring lane's fresh state (render/ring_shade.py::RingLanes):
+# the node's 13 words, the sum's 3 floats, the live flag, the stack pointer
+RING_STATE_BYTES = 4 * (13 + 3 + 1 + 1)
+
+
+def ring_start_bound(spec, n_lanes: int, id_bytes: int = 4,
+                     peaks: Peaks = H100_SXM):
+    """(ms, "operations" or "bytes", per-unit ms) of one ring_start launch
+    (csrc/ring_shade.cu): each lane's primary ray (:func:`k1_primary_ops`)
+    over each unit's peak, and its four ids at ``id_bytes`` each in and its
+    state out (:data:`RING_STATE_BYTES`; 88 B a lane with int32 ids) over
+    the memory rate, the scene's header once; the largest."""
+    nbytes = ((4 * id_bytes + RING_STATE_BYTES) * n_lanes
+              + 4 * (24 + 16 * spec.n_lights))
+    return unit_bound(k1_primary_ops(spec) * n_lanes, nbytes, peaks)
 
 
 def bound(flops: float, nbytes: float, peaks: Peaks = H100_SXM):

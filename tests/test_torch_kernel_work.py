@@ -570,6 +570,33 @@ def test_warp_sample_takes_whole_warps():
         work.path_work(None, None, [torch.arange(33)], 0)
 
 
+@pytest.mark.parametrize("id_bytes", [4, 8])
+def test_ring_start_bound_counts_operations(id_bytes):
+    """``ring_start``'s bound on cornell at 2,097,152 lanes: each lane's
+    primary ray, 32 FP32, 1 special-function and 154 integer operations
+    (its keys' hashes the most), over each unit's peak, against its ids
+    (4 of ``id_bytes``) in and 72 B of state out, the header once; bytes
+    bound it.  The depth-of-field camera adds the lens sample's."""
+    from raytrace_tpu_torch.utils import flops
+    from raytrace_tpu_torch.utils.gpu_info import H100_SXM
+
+    n = 1 << 21
+    cornell = load_scene_file(str(repo_path("examples",
+                                            "cornell_indirect.txt")),
+                              device="cpu")
+    assert flops.k1_primary_ops(cornell.spec).tolist() == [32, 1, 154]
+    show = load_scene_file(SHOWCASE, device="cpu")
+    assert flops.k1_primary_ops(show.spec).tolist() == [63, 4, 192]
+    ms, by, units = flops.ring_start_bound(cornell.spec, n, id_bytes)
+    nbytes = (4 * id_bytes + 72) * n + 4 * 24
+    assert by == "bytes" and ms == units["bytes"]
+    assert units["bytes"] == pytest.approx(nbytes / 3.35e12 * 1e3)
+    assert units["int32"] == pytest.approx(154 * n / H100_SXM.int_ops * 1e3)
+    assert units["int32"] < units["bytes"] / 2
+    assert ms == pytest.approx(0.0551 if id_bytes == 4 else 0.0651,
+                               abs=1e-4)
+
+
 # ---- on the card
 
 

@@ -18,8 +18,15 @@ sphere fields, 16x16 pixels, 2 spp) and is held:
   fan-out scene whose ranks' lanes end at different rounds: both ranks
   take the same rounds.
 
-The test marked ``cuda`` holds the ring kernels, the rows' gather among
-them, to the twin on the card (skipped where torch sees no GPU)."""
+``ring_start`` takes integer identities of either width as they come: on
+the CPU its lane state from int64 ids, with or without bits above 2^32,
+equals that from the int32 ids of the same low words, and
+``ring_shade.start_ids`` hands the kernel int32 ids uncopied and any
+other ids as int64.
+
+The tests marked ``cuda`` hold the ring kernels, the rows' gather among
+them, to the twin on the card, ``ring_rows`` and ``ring_start`` also alone
+(to the bit, one launch each), skipped where torch sees no GPU."""
 
 import dataclasses
 import re
@@ -358,6 +365,65 @@ def test_header_buffer_reads_no_object_leaf():
         assert torch.equal(intersect.ring_ctx().mat_rows[:2], rows)
 
 
+def _id_forms(lanes, form):
+    """``lanes`` (int64 identity tensors) as the ``form`` asks: int32, or
+    int64 with the same low 32 bits and, for "int64 above 2^32", other
+    bits above them."""
+    if form == "int32":
+        return [t.to(torch.int32) for t in lanes]
+    if form == "int64 above 2^32":
+        return [t + ((torch.arange(t.shape[0]) % 5 + 1) << 32).to(t.device)
+                for t in lanes]
+    return [t.to(torch.int64) for t in lanes]
+
+
+def _states_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("form", ["int64", "int64 above 2^32"])
+@pytest.mark.parametrize("case", ["linear field", "lit mirror"])
+def test_start_reads_ids_of_either_width(case, form):
+    """``ring_start``'s lane state (node, sum, flag, stack pointer, stack)
+    from int64 ids equals that from the int32 ids of the same low 32 bits,
+    with the pinhole camera and the depth-of-field camera; the kernel
+    keeps each id's low word as the plain version does."""
+    sc = scene(case)
+    lanes = pixel_lanes(sc.spec)
+    want = ring_shade.ring_start(sc.data, sc.spec,
+                                 *_id_forms(lanes, "int32"), SEED)
+    got = ring_shade.ring_start(sc.data, sc.spec, *_id_forms(lanes, form),
+                                SEED)
+    assert want.live.all() and want.node[3:6].any()
+    assert _states_equal(got, want)
+
+
+@pytest.mark.parametrize("forms,width,copied", [
+    (("int32",) * 4, 4, False),
+    (("int64",) * 4, 8, False),
+    (("int32", "int64", "int32", "int64"), 8, True),
+    (("int16",) * 4, 8, True),
+    (("int32 strided",) * 4, 4, True)])
+def test_start_ids(forms, width, copied):
+    """What ``ring_start`` hands its kernel: four int32 or four int64
+    contiguous tensors as they come, uncopied; ids of mixed widths, or of
+    another width, as int64; a strided tensor made contiguous."""
+    base = torch.arange(10, dtype=torch.int64) * 7 + 3
+
+    def make(form):
+        if form == "int32 strided":
+            return base.repeat_interleave(2).to(torch.int32)[::2]
+        return base.to(getattr(torch, form))
+
+    ids = [make(f) for f in forms]
+    words, got_width = ring_shade.start_ids(*ids)
+    assert got_width == width
+    assert all(w.is_contiguous() and w.element_size() == width
+               and torch.equal(w.to(torch.int64), base) for w in words)
+    assert any(w.data_ptr() != t.data_ptr()
+               for w, t in zip(words, ids)) == copied
+
+
 def test_radiance_lanes_ring_needs_a_context():
     sc = scene("linear field")
     lanes = pixel_lanes(sc.spec)
@@ -410,22 +476,95 @@ def test_ring_instances_match_twin_on_card(case, cuda_device, monkeypatch):
                               want.double().cpu().numpy())
 
 
+def _device_kernels(fn):
+    """The names of the device kernels that ``fn`` launches, from
+    torch.profiler.  The recording starts with 64 trivial additions, which
+    a recording late in a process may lose in place of ``fn``'s; they are
+    left out by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            scratch.add_(1.0)
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and e.name not in _build.KERNELS]
+    pads = [x for x in names if "add" in x.lower()]
+    assert len(pads) <= 64
+    return [x for x in names if "add" not in x.lower()]
+
+
 @pytest.mark.cuda
-def test_rows_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("first_at", ["0", "per"])
+@pytest.mark.parametrize("per", [1, 37, 1006])
+@pytest.mark.parametrize("n", [1, 31, 33, 4099, 65541])
+def test_rows_kernel_matches_plain_on_card(cuda_device, n, per, first_at):
     """One step of the rows' ring (``ring_rows``) on a shard that holds
-    object ids [per, 2 per): the lanes whose winner it holds take that
-    row, the others keep theirs, to the bit; one launch, counted."""
-    g = torch.Generator().manual_seed(SEED)
-    per, n = 37, 4099
+    object ids [first, first + per), first 0 or ``per``: the lanes whose
+    winner it holds take that row, the others keep theirs, to the bit,
+    whatever the lanes' count against the warp (1, 31, 33 and more) and
+    the shard's size; one launch, counted."""
+    g = torch.Generator().manual_seed(SEED + n + per)
+    first = 0 if first_at == "0" else per
     shard = torch.rand((per, 24), generator=g).to(cuda_device)
     obj = torch.randint(0, 3 * per, (n,), generator=g,
                         dtype=torch.int32).to(cuda_device)
     out = torch.rand((n, 24), generator=g).to(cuda_device)
-    local = obj.long() - per
+    local = obj.long() - first
     mine = (local >= 0) & (local < per)
     want = torch.where(mine[:, None], shard[local.clamp(0, per - 1)], out)
     before = _build.LAUNCHES["ring_rows"]
-    ring_shade.gather_rows(shard, per, obj, out)
+    ring_shade.gather_rows(shard, first, obj, out)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["ring_rows"] == before + 1
-    assert torch.equal(out, want) and 0 < int(mine.sum()) < n
+    assert torch.equal(out, want)
+    if n > 1:
+        assert 0 < int(mine.sum()) < n
+
+
+@pytest.mark.cuda
+def test_gather_rows_at_one_rank_launches_one_kernel(cuda_device):
+    """At k = 1 without grad, ``ring_gather_rows`` of the int32 winners
+    launches ``ring_rows`` and no other device kernel, and equals its
+    plain version to the bit."""
+    sc = scene("linear field", cuda_device)
+    mesh = Mesh(cuda_device)
+    g = torch.Generator().manual_seed(SEED)
+    with ring.ring_context(sc.data, sc.spec, mesh):
+        ctx = intersect.ring_ctx()
+        obj = torch.randint(0, 80, (4099,), generator=g,
+                            dtype=torch.int32).to(cuda_device)
+        got = ring.ring_gather_rows(ctx.mat_rows, obj, mesh)
+        names = _device_kernels(
+            lambda: ring.ring_gather_rows(ctx.mat_rows, obj, mesh))
+        want = ring.ring_gather_rows_reference(ctx.mat_rows, obj, mesh)
+    assert len(names) == 1 and "ring_rows_kernel" in names[0], names
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["int32", "int64"])
+@pytest.mark.parametrize("case", ["linear field", "lit mirror"])
+def test_start_kernel_matches_twin_on_card(cuda_device, case, form):
+    """``ring_start`` on the card against ``start_reference`` on the same
+    ids, int32 and int64, with the pinhole and the depth-of-field camera:
+    the lane state equal to the bit; under torch.profiler the wrapper
+    launches one device kernel, the kernel itself."""
+    sc = scene(case, cuda_device)
+    lanes = _id_forms(pixel_lanes(sc.spec, cuda_device), form)
+    want = ring_shade.start_reference(sc.data, sc.spec, *lanes, SEED)
+    before = _build.LAUNCHES["ring_start"]
+    got = ring_shade.ring_start(sc.data, sc.spec, *lanes, SEED)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ring_start"] == before + 1
+    assert _states_equal(got[:4], want[:4])
+    names = _device_kernels(
+        lambda: ring_shade.ring_start(sc.data, sc.spec, *lanes, SEED))
+    assert len(names) == 1 and "ring_start_kernel" in names[0], names

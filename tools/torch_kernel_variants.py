@@ -2,8 +2,8 @@
 beside what the port ships, on one NVIDIA GPU, each held against its plain
 PyTorch version.
 
-    python3 tools/torch_kernel_variants.py [--only k1|k4|tree|fold|fused]
-        [--parent DIR] [--sass-dir DIR]
+    python3 tools/torch_kernel_variants.py
+        [--only k1|k4|tree|fold|fused|ring] [--parent DIR] [--sass-dir DIR]
 
 The linear kernel (K1, ``--only k1``): the steps of its redesign one after
 the other, from the sources of the parent tree (``--parent``, a checkout
@@ -45,6 +45,25 @@ x 1024 cube, built from the parent's sources and from the port's in turns
 (parent, port, port, parent): each one's best time of three runs of five
 calls, and a hash of its output, which must be the same in all four (a
 change to the shared device code that leaves these kernels' bits alone).
+
+The ring's two copy kernels (``--only ring [--parent DIR]``):
+``ring_start`` and ``ring_rows`` of ``csrc/ring_shade.cu`` in each form,
+built beside one another and timed in turns (the forms forward, then
+backward) as bare launches of their entries at 2,097,152 pixel-ordered
+lanes of the 1,006-object linear field's first round: the parent's file
+(from ``--parent``; its ``ring_start`` takes int32 ids, and is timed also
+with its wrapper's conversion of the image loop's int64 ids), the rows
+staged through shared memory by the block, the file at 64 and at 256
+threads a block, and what ships (a warp copies its 32 rows as one piece;
+the ids read as they come).  ``ring_start`` on int32 and int64 ids,
+``ring_rows`` at k = 1 (the whole row table) and at k = 2 (shard 0, half
+the rows, against every lane's winner).  Each form is held to the plain
+twin to the bit (``start_reference``, ``parallel/ring.py::_select_rows``),
+and each one's registers and its global loads and stores by width (``LDG``
+/ ``STG`` in its SASS) are printed.  Beside them, from the parent's
+library and the port's, ``ring_shadow`` and ``ring_finish``, which read
+the rows: whether each instance's SASS is the same, and each one's device
+time in turns, held to its twin to the bit.
 
 The port itself has one form of each choice.  A variant is built here from
 a copy of ``raytrace_tpu_torch/csrc`` with lines of the source replaced
@@ -184,6 +203,7 @@ def patched_sources(old: str | None = None, new: str = "", base: str = OWN_CSRC,
     and loads that version."""
     from raytrace_tpu_torch.models import backgrounds
     from raytrace_tpu_torch.ops import _build, intersect_scan
+    from raytrace_tpu_torch.render import ring_shade
 
     edits = list(edits) + ([(old, new)] if old is not None else [])
     if not edits and base == OWN_CSRC:
@@ -206,6 +226,7 @@ def patched_sources(old: str | None = None, new: str = "", base: str = OWN_CSRC,
     _build._libs.clear()
     intersect_scan._lib_ready = None
     backgrounds._lib_ready = None
+    ring_shade._lib_ready = None
 
 
 def probe_share(tb, ro, rd, probes: int = 8):
@@ -860,12 +881,384 @@ def fused_against_parent(parent: str, smi: str) -> None:
                                  f"parent's")
 
 
+# the shipped ring_rows' body (csrc/ring_shade.cu) and the block-wide
+# form that stages its rows through shared memory: each thread loads its
+# own lane's row, then the block stores its 128 rows as one piece
+RING_ROWS_WARP = """  const long long warp0 = lane - (threadIdx.x & 31);
+  int local = -1;
+  if (lane < n) {
+    const long long l = (long long)obj[lane] - first;
+    if (l >= 0 && l < per) local = (int)l;
+  }
+  if (!__any_sync(0xffffffffu, local >= 0)) return;
+#pragma unroll
+  for (int j = 0; j < PIECES; ++j) {
+    const int f = (int)(threadIdx.x & 31) + 32 * j;
+    const int l = f / PIECES, c = f - l * PIECES;
+    const int src = __shfl_sync(0xffffffffu, local, l);
+    if (src >= 0) out[(warp0 + l) * PIECES + c] = __ldg(shard + (long long)src * PIECES + c);
+  }
+"""
+RING_ROWS_BLOCK = """  __shared__ float4 stage[RING_THREADS * PIECES];
+  __shared__ int keep[RING_THREADS];
+  const long long block0 = (long long)blockIdx.x * blockDim.x;
+  int local = -1;
+  if (lane < n) {
+    const long long l = (long long)obj[lane] - first;
+    if (l >= 0 && l < per) local = (int)l;
+  }
+  keep[threadIdx.x] = local;
+  if (local >= 0) {
+#pragma unroll
+    for (int j = 0; j < PIECES; ++j)
+      stage[threadIdx.x * PIECES + j] = __ldg(shard + (long long)local * PIECES + j);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < PIECES; ++j) {
+    const int f = (int)threadIdx.x + RING_THREADS * j;
+    const int l = f / PIECES;
+    if (keep[l] >= 0) out[(block0 + l) * PIECES + (f - l * PIECES)] = stage[f];
+  }
+"""
+RING_THREADS_LINE = "constexpr int RING_THREADS = 128;"
+
+
+def ring_forms(parent: str | None):
+    """(name, source directory, edits) of each form of csrc/ring_shade.cu
+    that ``--only ring`` times."""
+    forms = []
+    if parent is not None:
+        forms.append(("parent", os.path.join(parent, "raytrace_tpu_torch",
+                                             "csrc"), []))
+    forms += [("rows staged through shared memory", OWN_CSRC,
+               [(RING_ROWS_WARP, RING_ROWS_BLOCK)]),
+              ("64 threads a block", OWN_CSRC,
+               [(RING_THREADS_LINE, RING_THREADS_LINE.replace("128", "64"))]),
+              ("256 threads a block", OWN_CSRC,
+               [(RING_THREADS_LINE, RING_THREADS_LINE.replace("128",
+                                                              "256"))]),
+              ("ships", OWN_CSRC, [])]
+    return forms
+
+
+def global_memory_ops(sass: str, name: str) -> dict:
+    """The global loads and stores of the kernel whose mangled name holds
+    ``name``, by opcode (the width in its suffix: none for 32 bits, .64,
+    .128)."""
+    import chip_smoke as cs
+
+    ops = {}
+    for _, op, _ in cs.sass_function(sass, name):
+        if op.split(".")[0] in ("LDG", "STG"):
+            ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def resource_registers(path: str) -> dict:
+    """Registers of each kernel of a built library by its mangled name,
+    from ``cuobjdump -res-usage`` (which reads them from the library, built
+    by this process or an earlier one)."""
+    import subprocess
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    r = subprocess.run([tool if os.path.exists(tool) else "cuobjdump",
+                        "-res-usage", path], capture_output=True, text=True,
+                       timeout=300)
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"Function (\S+?):?\s+REG:(\d+)", r.stdout)}
+
+
+def ring_neighbours(libs, smi: str) -> None:
+    """``ring_shadow`` and ``ring_finish``, which read the rows that
+    ``ring_rows`` writes, from the parent's library and from the port's:
+    whether each instance's SASS is the same, and each one's device time
+    in turns (parent, port, port, parent) at 2,097,152 lanes through the
+    port's wrappers (the host's work hidden behind the device's spin; the
+    state restored before each ``ring_finish``), held to the plain twin to
+    the bit: ``ring_finish`` on the 1,006-object linear and mixed fields'
+    first round (K1's and K3's instances), ``ring_shadow`` on random lanes
+    of the lit mirror scene."""
+    import ctypes
+
+    import chip_smoke as cs
+
+    from raytrace_tpu_torch.ops import intersect
+    from raytrace_tpu_torch.parallel import ring
+    from raytrace_tpu_torch.parallel.mesh import Mesh
+    from raytrace_tpu_torch.render import ring_shade
+    from raytrace_tpu_torch.scene import dsl
+    from raytrace_tpu_torch.scene.builder import build_scene
+    from raytrace_tpu_torch.scene.procedural import make_sphere_field
+
+    forms = {name: (lib, sass) for name, lib, _, _, sass in libs
+             if name in ("parent", "ships")}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib, _ in forms.values():
+        lib.rt_ring_shadow.argtypes = ([p] + [i] * 5 + [p] * 6
+                                       + [ctypes.c_longlong, p])
+        lib.rt_ring_finish.argtypes = ([p] * 3 + [i] * 6 + [p] * 9
+                                       + [ctypes.c_longlong, p])
+        lib.rt_ring_shadow.restype = lib.rt_ring_finish.restype = i
+        lib.rt_error_string.argtypes = [i]
+        lib.rt_error_string.restype = ctypes.c_char_p
+    # a kernel's mangled name holds a hash of its file's path in the
+    # anonymous namespace, which differs between the two builds
+    def plain(text):
+        return re.sub(r"_GLOBAL__N__\w*?_ring_shade_cu_[0-9a-f]+", "", text)
+
+    bodies = {}
+    for _, sass in forms.values():
+        for m in re.finditer(r"Function : (\S+)", sass):
+            if "ring_shadow" in m.group(1) or "ring_finish" in m.group(1):
+                bodies.setdefault(plain(m.group(1)), []).append(
+                    [(op, plain(text)) for _, op, text in
+                     cs.sass_function(sass, m.group(1))])
+    for fn, found in sorted(bodies.items()):
+        print(f"{fn}: {len(found[-1])} instructions, the same SASS in the "
+              f"parent's library and the port's: "
+              f"{len(found) == 2 and found[0] == found[1]}")
+
+    device = torch.device("cuda", 0)
+    n = 1 << 21
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def device_ms(fn, before):
+        out = []
+        for _ in range(7):
+            before()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cs.SPIN_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return min(out)
+
+    lanes_p = [t.to(torch.int32)
+               for t in cs.pixel_lanes(1024, n // 2, 2, 1, device)]
+    lit = build_scene(dsl.parse(cs.LIT_MIRROR), device=device)
+    cases = (("ring_finish, linear field",
+              make_sphere_field(1000, mix_materials=False, device=device),
+              lanes_p),
+             ("ring_finish, mixed field",
+              make_sphere_field(1000, mix_materials=True, device=device),
+              lanes_p),
+             ("ring_shadow, lit mirror", lit,
+              [t.to(torch.int32)
+               for t in cs.random_lanes(lit.spec, n, cs.SEED, device)]))
+    times = {label: {f: [] for f in forms} for label, _, _ in cases}
+    for label, sc, lanes in cases:
+        spec = sc.spec
+        with ring.ring_context(sc.data, spec, Mesh(device)) as st:
+            ctx = intersect.ring_ctx()
+            state = ring_shade.start_reference(st, spec, *lanes, 0)
+            ro, rd = state.rays()
+            t, obj, hit = ring.ring_closest_hit_local(
+                ctx.shard, ctx.n_sph_pad, ro, rd, ctx.mesh)
+            rows = ring.ring_gather_rows_reference(ctx.mat_rows, obj,
+                                                   ctx.mesh)
+            saved = [x.clone() for x in state]
+
+            def restore():
+                for a, b in zip(state, saved):
+                    a.copy_(b)
+
+            if label.startswith("ring_shadow"):
+                want = [ring_shade.shadow_reference(st, spec, state, t, hit,
+                                                    rows)]
+                got = {}
+
+                def run(got=got):
+                    got["q"] = ring_shade.ring_shadow(st, spec, state, t,
+                                                      hit, rows)
+
+                def result(got=got):
+                    return [got["q"]]
+            else:
+                restore()
+                ring_shade.finish_reference(st, spec, state, t, hit, rows,
+                                            None)
+                want = [x.clone() for x in state]
+
+                def run():
+                    ring_shade.ring_finish(st, spec, state, t, hit, rows,
+                                           None)
+
+                def result():
+                    return list(state)
+            for f in list(forms) + list(forms)[::-1]:
+                ring_shade._lib_ready = forms[f][0]
+                restore()
+                run()
+                same = all(torch.equal(a, b) for a, b in zip(result(), want))
+                if not same:
+                    raise AssertionError(f"{f}: {label} differs from its "
+                                         f"twin")
+                times[label][f].append(device_ms(run, restore))
+        ring_shade._lib_ready = None
+        print(f"{label}: equal to its twin to the bit in every form; device "
+              + "; ".join(f"{f} {min(v):.4f} ms (runs "
+                          + ", ".join(f"{x:.4f}" for x in v) + ")"
+                          for f, v in times[label].items())
+              + f"; on {smi}", flush=True)
+
+
+def ring_variants(parent: str | None, smi: str) -> None:
+    """The forms of ring_start and ring_rows in turns (forward, then
+    backward), bare launches on prepared inputs, each held to its plain
+    twin to the bit, with registers and global loads and stores."""
+    import ctypes
+
+    import chip_smoke as cs
+
+    from raytrace_tpu_torch.ops import _build, intersect, rng
+    from raytrace_tpu_torch.parallel import ring
+    from raytrace_tpu_torch.parallel.mesh import Mesh
+    from raytrace_tpu_torch.render import megakernel, ring_shade
+    from raytrace_tpu_torch.scene.procedural import make_sphere_field
+
+    device = torch.device("cuda", 0)
+    n = 1 << 21
+    sc = make_sphere_field(1000, mix_materials=False, device=device)
+    spec = sc.spec
+    wide = cs.pixel_lanes(1024, n // 2, 2, 1, device)
+    narrow = [t.to(torch.int32) for t in wide]
+    p, i = ctypes.c_void_p, ctypes.c_int
+
+    # every form's library, built and loaded beside the others
+    libs = []
+    for name, base, edits in ring_forms(parent):
+        patched_sources(base=base, edits=edits)
+        lib = _build.load(_build.KERNEL_RING)
+        with open(os.path.join(_build.CSRC_DIR, "ring_shade.cu")) as f:
+            typed = "int id_bytes" in f.read()
+        lib.rt_ring_start.argtypes = (
+            [p] * 4 + ([i] if typed else []) + [p, i, ctypes.c_uint32]
+            + [p] * 4 + [ctypes.c_longlong, p])
+        lib.rt_ring_rows.argtypes = [p, i, i, p, p, ctypes.c_longlong, p]
+        lib.rt_ring_start.restype = lib.rt_ring_rows.restype = i
+        path = _build.library_path(_build.KERNEL_RING)
+        libs.append((name, lib, typed, resource_registers(path),
+                     cs.cuobjdump_sass(path)))
+    patched_sources()
+
+    with ring.ring_context(sc.data, spec, Mesh(device)) as st:
+        ctx = intersect.ring_ctx()
+        header = megakernel.pack_header(st, spec)
+        twin = ring_shade.start_reference(st, spec, *wide, 0)
+        ro, rd = twin.rays()
+        _, obj, _ = ring.ring_closest_hit_local(ctx.shard, ctx.n_sph_pad, ro,
+                                                rd, ctx.mesh)
+        assert obj.dtype == torch.int32
+        rows_all = ctx.mat_rows.detach().contiguous()
+        halves = ring.shard_object_table(megakernel.kernel_rows(
+            intersect.object_table(sc.data, spec)), 2)
+        shards = {"k = 1": rows_all, "k = 2, shard 0": halves[0].contiguous()}
+        fill = torch.full((n, 24), -1.0, device=device)
+        rows_want = {k: ring._select_rows(sh, obj, 0, fill)
+                     for k, sh in shards.items()}
+        print(f"ring_rows at k = 2, shard 0 ({halves.shape[1]} rows): "
+              f"{float((obj < halves.shape[1]).float().mean()):.4f} of the "
+              f"lanes take a row")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUDA error {rc}")
+
+    cases = {}
+    for name, lib, typed, _, _ in libs:
+        state = ring_shade.ring_lanes(spec, n, device)
+        tail = [header.data_ptr(), 0, 0, state.node.data_ptr(),
+                state.acc.data_ptr(), state.live.data_ptr(),
+                state.sp.data_ptr(), n, stream]
+
+        def start(ids, lib=lib, typed=typed, tail=tail):
+            words = ring_shade.start_ids(*ids)[0] if typed else ids
+            width = [words[0].element_size()] if typed else []
+
+            def call(words=words):
+                check(lib.rt_ring_start(*(t.data_ptr() for t in words),
+                                        *width, *tail), "rt_ring_start")
+            return call
+
+        forms = {"ring_start, int32 ids": (start(narrow), state)}
+        if typed:
+            forms["ring_start, int64 ids"] = (start(wide), state)
+        else:
+            # the parent's wrapper: its conversion of each id, then the
+            # kernel
+            def converted(lib=lib, tail=tail):
+                ids = [(t.to(torch.int64) & rng.MASK).to(torch.int32)
+                       .contiguous() for t in wide]
+                check(lib.rt_ring_start(*(t.data_ptr() for t in ids), *tail),
+                      "rt_ring_start")
+            forms["ring_start, int64 ids"] = (converted, state)
+        for k, sh in shards.items():
+            out = fill.clone()
+            forms[f"ring_rows, {k}"] = (
+                lambda lib=lib, sh=sh, out=out: check(lib.rt_ring_rows(
+                    sh.data_ptr(), 0, sh.shape[0], obj.data_ptr(),
+                    out.data_ptr(), n, stream), "rt_ring_rows"), out)
+        cases[name] = forms
+
+    # each form against its twin, to the bit
+    for name, forms in cases.items():
+        for label, (fn, got) in forms.items():
+            if label.startswith("ring_start"):
+                got.live.zero_()
+                fn()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in
+                           zip(got[:4], twin[:4]))
+            else:
+                got.copy_(fill)
+                fn()
+                torch.cuda.synchronize()
+                same = torch.equal(got, rows_want[label.split(", ", 1)[1]])
+            print(f"  {name}: {label} equal to its twin to the bit: {same}")
+            if not same:
+                raise AssertionError(f"{name}: {label} differs from its twin")
+
+    times = {name: {label: [] for label in forms}
+             for name, forms in cases.items()}
+    order = list(cases) + list(cases)[::-1]
+    for name in order:
+        for label, (fn, _) in cases[name].items():
+            times[name][label].append(min(cs.ms_per_launch(fn, 3, 20)
+                                          for _ in range(3)))
+    # the kernels by a part of their mangled names: ring_start's 32- and
+    # 64-bit instances, and the parent's one
+    insts = ("ring_rows_kernel", "ring_start_kernelIjE",
+             "ring_start_kernelIyE", "ring_start_kernelEPKj")
+    for name, lib, typed, regs, sass in libs:
+        found = {inst: (next((r for fn, r in regs.items() if inst in fn),
+                             None), global_memory_ops(sass, inst))
+                 for inst in insts}
+        print(f"{name}: " + "; ".join(
+            f"{inst} {regs} registers, global loads and stores {mem}"
+            for inst, (regs, mem) in found.items() if mem)
+            + f"; on {smi}")
+        print("  " + "; ".join(f"{label} {min(v):.4f} ms (runs "
+                               f"{', '.join(f'{x:.4f}' for x in v)})"
+                               for label, v in times[name].items()),
+              flush=True)
+    if parent is not None:
+        ring_neighbours(libs, smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("k1", "k4", "tree", "fold", "fused"))
+    ap.add_argument("--only", choices=("k1", "k4", "tree", "fold", "fused",
+                                       "ring"))
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent tree, for K1's steps, "
-                         "K4's parent form and the fused kernels' hashes")
+                         "K4's and the ring kernels' parent forms and the "
+                         "fused kernels' hashes")
     ap.add_argument("--sass-dir", default=None,
                     help="where to keep the SASS of each of K1's forms")
     args = ap.parse_args()
@@ -895,6 +1288,10 @@ def main() -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s")
     instance_report(_build.build_logs)
 
+    if args.only == "ring":
+        ring_variants(args.parent, smi)
+        print(f"on {smi}")
+        return 0
     if args.only == "fused":
         if args.parent is None:
             raise SystemExit("--only fused needs --parent")

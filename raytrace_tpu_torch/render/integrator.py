@@ -278,28 +278,36 @@ def primary_rays(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
 
 
 def sample_pixels(data: SceneData, spec: SceneSpec, px, py, sample_ids,
-                  seed: int) -> torch.Tensor:
+                  seed: int, radiance=None) -> torch.Tensor:
     """Mean radiance of samples ``sample_ids`` (S,) for pixels (px, py)
     (P,) each, as a (P, 3) tensor (main.rs:45-55 x raytrace.rs:270-276).
-    y counts from the bottom row.  Every lane goes through
-    :func:`raytrace_tpu_torch.render.megakernel.radiance_lanes`: on CUDA
-    tensors a kernel, for every float32 scene whatever its DFS stack (a
-    float64 scene raises there, naming its ROADMAP item), on CPU tensors
-    the kernels' plain version, for every scene."""
-    p, s = px.shape[0], sample_ids.shape[0]
+    y counts from the bottom row.  Every lane goes through ``radiance``, by
+    default :func:`raytrace_tpu_torch.render.megakernel.radiance_lanes`:
+    on CUDA tensors a kernel, for every float32 scene whatever its DFS
+    stack (a float64 scene raises there, naming its ROADMAP item), on CPU
+    tensors the kernels' plain version, for every scene.  The benchmark
+    passes ``megakernel.radiance_lanes_split`` to time a large scene's
+    split path, and ``megakernel.radiance_lanes_reference`` to hold the
+    kernels to their plain version."""
     lanes = lane_ids(px, py, sample_ids, spec.cam_samples)
-    rad = megakernel.radiance_lanes(data, spec, *lanes, seed)
-    return vec.pack(V3(*(r.reshape(p, -1).mean(dim=1) for r in rad)))
+    rad = (radiance or megakernel.radiance_lanes)(data, spec, *lanes, seed)
+    # each channel's samples of a pixel are contiguous: one mean for the
+    # three channels
+    return torch.stack(tuple(rad)).reshape(3, px.shape[0], -1).mean(
+        dim=2).T.contiguous()
 
 
 def lane_ids(px, py, sample_ids, cam_samples: int):
     """The (pixel x, pixel y, aa sample, lens sample) identities of one
     launch of :func:`sample_pixels`: the lane axis is (pixel, aa sample,
-    lens sample), flattened."""
-    p, s, c = px.shape[0], sample_ids.shape[0], cam_samples
-    return (px.repeat_interleave(s * c), py.repeat_interleave(s * c),
-            sample_ids.repeat_interleave(c).repeat(p),
-            torch.arange(c, dtype=torch.int64, device=px.device).repeat(p * s))
+    lens sample), flattened.  The four are rows of one broadcast copy, in
+    the inputs' common dtype: two launches on the card, where each launch
+    costs the host more than the copy costs the device."""
+    cam = torch.arange(cam_samples, dtype=px.dtype, device=px.device)
+    ids = torch.stack(torch.broadcast_tensors(
+        px[:, None, None], py[:, None, None], sample_ids[None, :, None],
+        cam[None, None, :]))
+    return ids.reshape(4, -1).unbind(0)
 
 
 def _render_chunks(data: SceneData, spec: SceneSpec, px, py, s0: int,

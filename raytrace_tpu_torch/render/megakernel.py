@@ -297,8 +297,14 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7)
 
 
+# the libraries whose entry points have their argument types set, by name
+_typed: dict[str, ctypes.CDLL] = {}
+
+
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
+    if _typed.get(name) is lib:
+        return lib
     fn = getattr(lib, f"rt_{name}")
     # the tree kernel: m, stack entries, the slab, its threads and its
     # counter of lanes taken
@@ -316,6 +322,7 @@ def _lib(name: str) -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int)]
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
+    _typed[name] = lib
     return lib
 
 
@@ -418,4 +425,4 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
                                         out.data_ptr(), n, stream)
     _check(lib, rc, f"{name} launch")
     LAUNCHES[name] += 1
-    return V3(out[0], out[1], out[2])
+    return V3(*out.unbind(0))

@@ -130,3 +130,16 @@ def fold_shared_max_bytes(c: Card, regs_per_thread: int,
     blocks = max(resident_blocks(c, regs_per_thread, threads), 1)
     share = c.shared_per_sm // blocks - RESERVED_SHARED_PER_BLOCK
     return min(share // 1024 * 1024, c.shared_per_block_optin)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    first card's line): a card may be set below its full power, and then
+    runs slower under load, so every time taken on it carries this."""
+    import subprocess
+
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], check=True,
+                       capture_output=True, text=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]

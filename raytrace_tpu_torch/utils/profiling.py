@@ -54,3 +54,36 @@ def trace_activities(device: torch.device) -> list:
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     return acts
+
+
+def is_range(event) -> bool:
+    """Whether a profiler event is a record_function range (the phase
+    ranges above and the kernel wrappers' ranges), whose device rows span
+    the kernels they hold and are no device work of their own."""
+    from raytrace_tpu_torch.ops import _build
+
+    return bool(getattr(event, "is_user_annotation", False)) or (
+        event.key in RANGES + _build.KERNELS)
+
+
+def device_busy_ms(fn) -> float:
+    """Device time (ms) of every kernel and copy that ``fn`` launches on
+    the current card, from torch.profiler.  The recording starts with 64
+    trivial kernels, which a recording made after large ones may lose in
+    place of ``fn``'s; they are the first 64 device records and are left
+    out of the sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            scratch.add_(1.0)
+        fn()
+        torch.cuda.synchronize()
+    records = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and not is_range(e)),
+                     key=lambda e: e.time_range.start)
+    return sum(e.device_time_total for e in records[64:]) / 1e3

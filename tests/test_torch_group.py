@@ -223,3 +223,31 @@ def checkpoint_job(kind, scene, spp, paths, steps):
         except ValueError as e:
             out.append(("refused", str(e)))
     return out
+
+
+def _printing(fn, *args, **kwargs):
+    """(``fn(*args, **kwargs)``, what it printed)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args, **kwargs)
+    return res, out.getvalue()
+
+
+def bench_shard_job(argv, ks, reps):
+    """``raytrace_tpu_torch.bench.main(argv)`` on every rank (its
+    ``--shard`` mode, the group already joined): (exit code, what the rank
+    printed)."""
+    from raytrace_tpu_torch import bench
+
+    return _printing(bench.main, argv, ks=ks, reps=reps)
+
+
+def dryrun_job(n):
+    """``raytrace_tpu_torch.entry.dryrun_multichip(n)`` on the CPU: its
+    result and the line it printed."""
+    from raytrace_tpu_torch.entry import dryrun_multichip
+
+    return _printing(dryrun_multichip, n, device="cpu")

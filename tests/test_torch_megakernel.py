@@ -331,7 +331,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
         "for m in ('scene.procedural', 'ops.intersect_scan', 'optim',\n"
         "          'models.backgrounds', 'ops.kernel_grad', 'parallel.mesh',\n"
         "          'parallel.tile', 'parallel.multihost', 'parallel.ring',\n"
-        "          'utils.profiling', 'utils.gpu_info', 'utils.flops'):\n"
+        "          'utils.profiling', 'utils.gpu_info', 'utils.flops',\n"
+        "          'bench', 'entry'):\n"
         "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"

@@ -5,7 +5,7 @@ counts and bounds.
 
 Counterpart of ``tools/mfu_report.py``.  Runs on one NVIDIA GPU and fails
 without one.  For each regime: the marginal ms per launch of 2,097,152
-lanes (or rays), by the chain slope of ``tools/torch_perf_audit.py::
+lanes (or rays), by the chain slope of ``raytrace_tpu_torch/bench.py::
 measure_slope`` (chains of 2, 4 and 8 launches, CUDA events, medians of
 five runs, least squares); the FP32 operations and the bytes per lane
 that ``raytrace_tpu_torch/utils/flops.py`` counts for the work the
@@ -81,8 +81,9 @@ def regime_launch(name: str, device):
                                    n_planes, tables.table.shape[0])
 
         def launch(seed):
-            intersect_scan.scan_hit(tables.table, tables.ids,
-                                    tables.n_sph_pad, ro, rd, tables.bounds)
+            return intersect_scan.scan_hit(tables.table, tables.ids,
+                                           tables.n_sph_pad, ro, rd,
+                                           tables.bounds)[0]
 
         return (megakernel.KERNEL_SCAN, launch, N, fl, nb,
                 flops.bound(fl, nb), {"chunks_entered": entered})
@@ -95,7 +96,7 @@ def regime_launch(name: str, device):
         bnd = flops.bound(fl, nb)
 
     def launch(seed):
-        megakernel.radiance_lanes(sc.data, spec, *lanes, seed)
+        return megakernel.radiance_lanes(sc.data, spec, *lanes, seed).x
 
     need = {"live_nodes": work["visits"], "warp_nodes": work["warp_visits"]}
     if tables is not None:
@@ -115,7 +116,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from tools.torch_perf_audit import measure_slope
+    from raytrace_tpu_torch.bench import measure_slope
 
     device = torch.device("cuda", 0)
     smi = cs.nvidia_smi()
@@ -124,14 +125,15 @@ def main(argv=None) -> int:
         kernel, launch, n, fl, nb, (b_ms, b_by), need = regime_launch(
             name, device)
 
-        def chain(k):
+        def chain(k, bias):
             for i in range(k):
-                launch(i)
+                out = launch(bias + i)
+            return out
 
-        slope, fixed, _ = measure_slope(chain, ks=(2, 4, 8))
+        slope, fixed, _, busy = measure_slope(chain, ks=(2, 4, 8))
         print(json.dumps({
             "regime": name, "kernel": kernel, "lanes_per_launch": n,
-            "launch_ms": slope, "fixed_ms": fixed,
+            "launch_ms": slope, "fixed_ms": fixed, "device_busy": busy,
             "fp32_ops_per_lane": fl / n, "bytes_per_lane": nb / n,
             "needs": need, "bound_ms": b_ms, "bound_by": b_by,
             "share_of_bound": b_ms / slope,

@@ -7,11 +7,13 @@ same chain.
 Counterpart of ``tools/perf_audit.py``.  Runs on one NVIDIA GPU and fails
 without one.  The chain is k calls of ``render.megakernel.radiance_lanes``
 on cornell_indirect's 2,097,152 lanes (1024x1024 pixels, 16 samples each:
-K1, the linear megakernel), each with its own seed; a chain is timed with
-CUDA events around it.  For k in 2, 4, ..., 64 the median of five
-interleaved runs, then the least-squares line through (k, median): its
-slope is the marginal ms per launch, its intercept the fixed cost of a
-chain (``bench.py::_measure_slope``'s method, :func:`measure_slope`).
+K1, the linear megakernel), each with a seed of its own and a fresh one
+every run; a chain is timed with CUDA events around it.  For k in 2, 4,
+..., 64 the median of five interleaved runs, then the least-squares line
+through (k, median): its slope is the marginal ms per launch, its
+intercept the fixed cost of a chain
+(``raytrace_tpu_torch/bench.py::measure_slope``, the port's one slope
+method).
 Then ``torch.profiler`` records the longest chain, and the device time of
 K1's launches over k is set beside the slope.  Prints the card's name and
 power limit, a table of the sweep, and one JSON line.
@@ -35,30 +37,6 @@ KS = (2, 4, 8, 16, 32, 64)
 REPS = 5
 
 
-def measure_slope(chain, ks=KS, reps=REPS):
-    """(ms per launch, fixed ms, {k: [ms of each run]}): ``chain(k)``
-    launches k times; each run is timed with CUDA events and ends in a
-    synchronise.  The runs of every k interleave, and the line is fitted
-    through the medians."""
-    for k in ks:
-        chain(k)  # warm: builds, caches, the allocator's pool
-    torch.cuda.synchronize()
-    times = {k: [] for k in ks}
-    for _ in range(reps):
-        for k in ks:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            chain(k)
-            end.record()
-            torch.cuda.synchronize()
-            times[k].append(start.elapsed_time(end))
-    a = np.array([[k, 1.0] for k in ks])
-    y = np.array([float(np.median(times[k])) for k in ks])
-    (per_launch, fixed), *_ = np.linalg.lstsq(a, y, rcond=None)
-    return float(per_launch), float(fixed), times
-
-
 def profiled_ms(chain, k: int, name_part: str):
     """(device ms per launch of the kernels whose name holds
     ``name_part``, launches recorded) over one chain of k under
@@ -67,7 +45,7 @@ def profiled_ms(chain, k: int, name_part: str):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke as cs
+    from raytrace_tpu_torch.utils.profiling import is_range
 
     scratch = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
@@ -75,11 +53,11 @@ def profiled_ms(chain, k: int, name_part: str):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(64):
             scratch.add_(1.0)
-        chain(k)
+        chain(k, 0)
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and name_part in e.key
-            and not cs.is_range(e)]
+            and not is_range(e)]
     us = sum(e.self_device_time_total for e in rows)
     return us / 1e3 / k, sum(e.count for e in rows), prof
 
@@ -94,6 +72,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from raytrace_tpu_torch.bench import measure_slope
     from raytrace_tpu_torch.render import megakernel
     from raytrace_tpu_torch.scene.builder import load_scene_file
 
@@ -106,11 +85,12 @@ def main(argv=None) -> int:
              for t in cs.pixel_lanes(1024, (1 << 21) // n_s, n_s, 1, device)]
     n = lanes[0].shape[0]
 
-    def chain(k):
+    def chain(k, bias):
         for i in range(k):
-            megakernel.radiance_lanes(sc.data, spec, *lanes, i)
+            out = megakernel.radiance_lanes(sc.data, spec, *lanes, bias + i)
+        return out.x
 
-    slope, fixed, runs = measure_slope(chain)
+    slope, fixed, runs, busy = measure_slope(chain, KS, REPS)
     print(f"{smi}; {n} lanes a launch, {spec.max_depth + 2} rounds a lane")
     for k in KS:
         med = float(np.median(runs[k]))
@@ -123,7 +103,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": smi, "kernel": megakernel.KERNEL_LINEAR,
         "lanes_per_launch": n, "ks": list(KS), "reps": REPS,
-        "slope_ms": slope, "fixed_ms": fixed,
+        "slope_ms": slope, "fixed_ms": fixed, "device_busy": busy,
         "rays_per_s": n * (spec.max_depth + 2) / slope * 1e3,
         "profiler_device_ms": dev, "profiler_launches": seen,
         "launches_expected": KS[-1],

@@ -9,7 +9,7 @@ error, never a silent CPU render.  ``--device cpu`` renders every scene
 through the kernels' plain version, ``--f64`` (float64, CPU only, as in
 the JAX package's CLI) included.  ``--profile DIR`` records the render
 with ``torch.profiler`` and writes a Chrome trace into DIR, whose ranges
-name the render phases and the kernels
+name the render phases, the kernels and the image loop's steps
 (:mod:`raytrace_tpu_torch.utils.profiling`).  ``--shard`` shards the
 pixels over the ranks of the process group, ``--shard-objects`` the
 objects too (a ring, whose steps are the CUDA scan kernel).  Run as

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytrace_tpu_torch.utils.profiling import SRGB_ENCODE, span
+
 
 def _srgb_decode_f64(byte_over_255: np.ndarray) -> np.ndarray:
     """IEC 61966-2-1 sRGB electro-optical transfer function in f64."""
@@ -33,11 +35,13 @@ def to_srgb(val: torch.Tensor) -> torch.Tensor:
     """Encode linear values to sRGB bytes exactly like color.rs:593-600:
     the smallest ``i`` with ``val < SRGB_AVERAGE[i]``, else 255.  That is
     ``searchsorted(..., right=True)`` against the thresholds in
-    ``val``'s dtype; NaN sorts past the end and encodes as 255."""
-    thresholds = torch.as_tensor(SRGB_AVERAGE).to(device=val.device,
-                                                 dtype=val.dtype)
-    return torch.searchsorted(thresholds, val.contiguous(),
-                              right=True).to(torch.uint8)
+    ``val``'s dtype; NaN sorts past the end and encodes as 255.  Runs
+    under the profiler span ``srgb_encode``, as the native encoder does."""
+    with span(SRGB_ENCODE):
+        thresholds = torch.as_tensor(SRGB_AVERAGE).to(device=val.device,
+                                                     dtype=val.dtype)
+        return torch.searchsorted(thresholds, val.contiguous(),
+                                  right=True).to(torch.uint8)
 
 
 def from_srgb(byte: torch.Tensor, *, dtype=torch.float32) -> torch.Tensor:

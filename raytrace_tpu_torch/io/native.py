@@ -16,6 +16,8 @@ import threading
 
 import numpy as np
 
+from raytrace_tpu_torch.utils.profiling import SRGB_ENCODE, span
+
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO, "native")
@@ -80,13 +82,15 @@ def write_bmp_native(path: str, linear_rgb: np.ndarray) -> bool:
 
 def encode_srgb_native(linear: np.ndarray) -> np.ndarray | None:
     """sRGB-encode a float array with the native encoder, as uint8 of the
-    same shape (None if the library is unavailable)."""
+    same shape (None if the library is unavailable), under the profiler
+    span ``srgb_encode``, as :func:`raytrace_tpu_torch.color.to_srgb`."""
     lib = _load()
     if lib is None:
         return None
-    flat = np.ascontiguousarray(linear, np.float32).ravel()
-    out = np.empty(flat.shape, np.uint8)
-    lib.rt_encode_srgb(
-        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), flat.size)
-    return out.reshape(np.shape(linear))
+    with span(SRGB_ENCODE):
+        flat = np.ascontiguousarray(linear, np.float32).ravel()
+        out = np.empty(flat.shape, np.uint8)
+        lib.rt_encode_srgb(
+            flat.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), flat.size)
+        return out.reshape(np.shape(linear))

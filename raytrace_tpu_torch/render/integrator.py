@@ -33,7 +33,9 @@ from raytrace_tpu_torch.ops.intersect import closest_hit
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.render import megakernel
 from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
-from raytrace_tpu_torch.utils.profiling import RAYGEN, annotate
+from raytrace_tpu_torch.utils.profiling import (ACCUMULATE, CHECKPOINT, FETCH,
+                                                IMAGE_LOOP, ISSUE, PROGRESS,
+                                                RAYGEN, annotate, span)
 
 
 def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
@@ -383,10 +385,15 @@ def _retry_launch(fn, *args, retries: int = 2):
     """Run a render launch, retrying transient runtime failures.  A
     launch is a pure function of (scene, pixel/sample identities), so a
     re-issue is safe.  The result is fetched to the host inside the
-    guarded region, so asynchronous device failures surface here."""
+    guarded region, so asynchronous device failures surface here.  The
+    launches' issue and the fetch are two profiler spans (``issue``,
+    ``fetch`` with its ``bytes``)."""
     for attempt in range(retries + 1):
         try:
-            return fn(*args).cpu()
+            with span(ISSUE):
+                out = fn(*args)
+            with span(FETCH, bytes=out.numel() * out.element_size()):
+                return out.cpu()
         except RuntimeError as e:
             if attempt == retries or not _is_transient(e):
                 raise
@@ -480,27 +487,36 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
     :func:`_render_chunks`'s signature (the sharded renders pass their
     own, and their ``mesh``: every rank then holds the whole image, and
     rank 0 alone writes the checkpoint and reads it back for all;
-    default :func:`_render_chunks`)."""
+    default :func:`_render_chunks`).  While a profiler records, the loop
+    is the span ``image_loop``, and each group's ``issue`` and ``fetch``
+    (:func:`_retry_launch`), ``accumulate``, ``progress`` and
+    ``checkpoint`` spans inside it."""
     launch_chunks = launch_chunks or _render_chunks
     data, spec = scene.data, scene.spec
     w, h = spec.width, spec.height
     aa = spp if spp is not None else max(spec.antialias, 1)
     s_launch, p_launch = _s_p_launch(spec, aa, max_lanes)
-    image, s_done = _resume_state(checkpoint, w, h, aa, seed, mesh)
-    writer = checkpoint is not None and (mesh is None or mesh.rank == 0)
+    with span(IMAGE_LOOP):
+        image, s_done = _resume_state(checkpoint, w, h, aa, seed, mesh)
+        writer = checkpoint is not None and (mesh is None or mesh.rank == 0)
 
-    pix = torch.arange(h * w, dtype=torch.int64, device=data.device)
-    px, py = pix % w, pix // w
-    for s0, sl, g in sample_groups(spec, aa, s_launch, s_done, chunk_group):
-        n_s = g * sl
-        out = _retry_launch(launch_chunks, data, spec, px, py, s0, sl, g,
-                            seed, p_launch)
-        image += out.numpy().astype(np.float64) * (n_s / aa)
-        if progress is not None:
-            progress((s0 + n_s) / aa)
-        if writer:
-            _save_checkpoint(checkpoint, image=image, s_done=s0 + n_s,
-                             width=w, height=h, aa=aa, seed=seed)
+        pix = torch.arange(h * w, dtype=torch.int64, device=data.device)
+        px, py = pix % w, pix // w
+        for s0, sl, g in sample_groups(spec, aa, s_launch, s_done,
+                                       chunk_group):
+            n_s = g * sl
+            out = _retry_launch(launch_chunks, data, spec, px, py, s0, sl, g,
+                                seed, p_launch)
+            with span(ACCUMULATE):
+                image += out.numpy().astype(np.float64) * (n_s / aa)
+            if progress is not None:
+                with span(PROGRESS):
+                    progress((s0 + n_s) / aa)
+            if writer:
+                with span(CHECKPOINT):
+                    _save_checkpoint(checkpoint, image=image,
+                                     s_done=s0 + n_s, width=w, height=h,
+                                     aa=aa, seed=seed)
     return image.reshape(h, w, 3)
 
 

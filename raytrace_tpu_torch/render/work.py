@@ -2,9 +2,8 @@
 the plain version: live nodes per lane and per warp, skybox lookups, and
 for a large scene the sphere chunks that the rays enter, per lane and as
 the union over a warp.  ``utils/flops.py`` makes the kernels' bounds from
-these counts, and ``chip_smoke.py`` and ``tools/torch_mfu_report.py``
-print them beside the kernels' times; nothing on the render path calls
-this module.
+these counts, and ``chip_smoke.py`` prints them beside the kernels'
+times; nothing on the render path calls this module.
 """
 
 from __future__ import annotations

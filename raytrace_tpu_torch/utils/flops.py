@@ -8,9 +8,9 @@ table row and per part of a lane's path, and a launch's work
 (``render/work.py::path_work``: live nodes, hits, misses, chunks entered)
 multiplies them.  The peaks are the card's published ones
 (:func:`raytrace_tpu_torch.utils.gpu_info.peaks`); every function takes
-them and defaults to the H100 SXM's.  ``chip_smoke.py`` and
-``tools/torch_mfu_report.py`` print these bounds beside the kernels'
-times; nothing on the render path calls this module.
+them and defaults to the H100 SXM's.  ``chip_smoke.py`` prints these
+bounds beside the kernels' times; nothing on the render path calls this
+module.
 """
 
 from __future__ import annotations

@@ -102,7 +102,7 @@ def test_port_tools_import_no_jax():
     package (they run where JAX may not be)."""
     paths = sorted((REPO_ROOT / "tools").glob("torch_*.py")) + [
         REPO_ROOT / "chip_smoke.py"]
-    assert len(paths) >= 6
+    assert len(paths) >= 4
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]
@@ -115,20 +115,17 @@ def test_port_tools_import_no_jax():
 
 
 def test_tools_refuse_without_their_inputs(tmp_path):
-    """Where there is no card the measuring tools fail, and the golden
-    check fails where the reference snapshot is not: they neither fall
-    back to the CPU nor make anything up."""
+    """The golden check fails where the reference snapshot is not (and
+    where there is no card): it neither falls back to the CPU nor makes
+    anything up."""
     import os
     import subprocess
     import sys
 
     env = {**os.environ, "RAYTRACE_TPU_REFERENCE_DIR": str(tmp_path),
            "CUDA_VISIBLE_DEVICES": ""}
-    for args, says in ((["tools/torch_golden_check.py"], "reference snapshot"),
-                       (["tools/torch_mfu_report.py", "cornell"],
-                        "no CUDA device"),
-                       (["tools/torch_perf_audit.py"], "no CUDA device")):
-        r = subprocess.run([sys.executable, *args], cwd=REPO_ROOT, env=env,
-                           capture_output=True, text=True, timeout=120)
-        assert r.returncode == 1 and says in r.stderr, (args, r.stderr)
-        assert r.stdout == ""
+    r = subprocess.run([sys.executable, "tools/torch_golden_check.py"],
+                       cwd=REPO_ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 1 and "reference snapshot" in r.stderr, r.stderr
+    assert r.stdout == ""

@@ -1,8 +1,9 @@
-"""The profiler ranges of the render phases (``utils/profiling.py``) and
-the CLI's ``--profile``, on the CPU: the ranges leave results unchanged,
-a recording names raygen, intersect, shade, background, grad_psum and the
-kernel wrapper's range, and ``--profile DIR`` writes a Chrome trace that
-names them."""
+"""The profiler ranges of the render phases, the image loop and the
+encoders (``utils/profiling.py``) and the CLI's ``--profile``, on the CPU:
+the ranges leave results unchanged, a recording names raygen, intersect,
+shade, background, grad_psum and the kernel wrapper's range, the program
+keeps a record of its spans while a profiler records and none otherwise,
+and ``--profile DIR`` writes a Chrome trace that names them."""
 
 import dataclasses
 import json
@@ -11,10 +12,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from raytrace_tpu_torch import optim
+from raytrace_tpu_torch import color, optim
+from raytrace_tpu_torch.io import native
 from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
 from raytrace_tpu_torch.parallel.mesh import Mesh
-from raytrace_tpu_torch.render import megakernel
+from raytrace_tpu_torch.render import integrator, megakernel
 from raytrace_tpu_torch.scene.builder import load_scene_file
 from raytrace_tpu_torch.utils import profiling
 
@@ -24,6 +26,10 @@ from test_torch_cli import _run
 CORNELL = str(repo_path("examples", "cornell_indirect.txt"))
 SHOWCASE = str(repo_path("examples", "materials_showcase.txt"))
 PHASES = {"raygen", "intersect", "shade", "background"}
+# the image loop's spans, each under its parent's name
+LOOP = {"issue": "image_loop", "fetch": "image_loop",
+        "accumulate": "image_loop", "progress": "image_loop",
+        "checkpoint": "image_loop"}
 
 
 def _ranges(prof) -> set:
@@ -91,3 +97,106 @@ def test_cli_profile_writes_a_trace(tmp_path):
     names = {e["name"] for e in trace["traceEvents"]
              if e.get("cat") == "user_annotation"}
     assert PHASES <= names
+    assert {"image_loop", "issue", "fetch", "accumulate", "progress"} <= names
+
+
+def test_span_without_a_profiler_records_nothing(monkeypatch):
+    """With no profiler recording, a span is one shared context that does
+    nothing: no record and no ``record_function``."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) opened")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    before = len(profiling.recorded())
+    nothing = profiling.span("fetch", bytes=12)
+    assert nothing is profiling.span("image_loop")
+    with nothing:
+        with profiling.span("issue"):
+            pass
+    assert profiling.annotate("x")(lambda: 7)() == 7
+    assert len(profiling.recorded()) == before
+
+
+def _cornell16():
+    sc = load_scene_file(CORNELL, device="cpu")
+    return dataclasses.replace(sc, spec=dataclasses.replace(
+        sc.spec, width=16, height=16))
+
+
+def _render(sc, checkpoint=None):
+    """Two groups of two 2-sample chunks and a ragged 1-sample tail, with
+    a progress call and a checkpoint a group."""
+    return integrator._image_loop(sc, seed=5, spp=9, max_lanes=512,
+                                  progress=lambda f: None,
+                                  checkpoint=checkpoint, chunk_group=2)
+
+
+def test_image_loop_records_its_spans(tmp_path, monkeypatch):
+    """Under torch.profiler, two renders record the image loop's spans,
+    each under its parent, all of a render under one ``image_loop`` of its
+    own; a fetch counts the group's bytes, each ``sample_pixels`` call's
+    phases lie inside its group's ``issue``; the image is the same to the
+    bit."""
+    sc = _cornell16()
+    plain = _render(sc, str(tmp_path / "a.npz"))
+    calls = []
+    inner = integrator.sample_pixels
+
+    def counted(data, spec, px, py, sample_ids, seed, radiance=None):
+        calls.append([r.name for r in profiling.recorded()
+                      if r.end_ns is None])
+        return inner(data, spec, px, py, sample_ids, seed, radiance)
+
+    monkeypatch.setattr(integrator, "sample_pixels", counted)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        images = [_render(sc, str(tmp_path / f"{i}.npz")) for i in (0, 1)]
+    for img in images:
+        assert np.array_equal(img, plain)
+    recs = profiling.recorded()
+    by_id = {r.id: r for r in recs}
+
+    def outermost(r):
+        while r.parent is not None:
+            r = by_id[r.parent]
+        return r
+
+    roots = [r for r in recs if r.parent is None]
+    assert [r.name for r in roots] == ["image_loop", "image_loop"]
+    for r in recs:
+        assert r.start_ns <= r.end_ns
+        if r.parent is not None:
+            up = by_id[r.parent]
+            assert up.start_ns <= r.start_ns and r.end_ns <= up.end_ns
+            if r.name in LOOP:
+                assert up.name == LOOP[r.name], r
+            if r.name in PHASES:
+                assert up.name == "issue", r
+    for root in roots:
+        mine = [r for r in recs if outermost(r) is root]
+        names = [r.name for r in mine]
+        for name in ("issue", "fetch", "accumulate", "progress",
+                     "checkpoint"):
+            assert names.count(name) == 3, name
+        assert [r.counts for r in mine if r.name == "fetch"] == [
+            {"bytes": 16 * 16 * 3 * 4}] * 3
+    # two renders of two groups of two chunks and a one-chunk tail: each
+    # chunk's sample_pixels call made inside its group's issue
+    assert calls == [["image_loop", "issue"]] * 10
+
+
+def test_encoders_record_srgb_encode():
+    """Both encoders, the native one and ``color.to_srgb``, record one
+    ``srgb_encode`` span, and encode alike."""
+    assert native.available()
+    vals = np.random.RandomState(4).uniform(0.0, 1.2, (5, 7, 3)).astype(
+        np.float32)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fast = native.encode_srgb_native(vals)
+        torch_out = color.to_srgb(torch.from_numpy(vals)).numpy()
+    assert np.array_equal(fast, torch_out)
+    recs = profiling.recorded()
+    assert [(r.name, r.counts, r.parent) for r in recs] == [
+        ("srgb_encode", {}, None)] * 2
+    assert "srgb_encode" in _ranges(prof)

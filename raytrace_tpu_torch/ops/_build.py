@@ -80,10 +80,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to, named by a hash of every
+    """Where ``csrc/<name>.cu`` builds to, named by a hash of every CUDA
     source in ``csrc/`` and of the kernel's flags."""
     h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for fname in sorted(os.listdir(CSRC_DIR)):
+        if not fname.endswith((".cu", ".cuh")):
+            continue  # the host encoder (io/native.py) builds apart
         with open(os.path.join(CSRC_DIR, fname), "rb") as f:
             h.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

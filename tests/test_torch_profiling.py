@@ -7,6 +7,7 @@ and ``--profile DIR`` writes a Chrome trace that names them."""
 
 import dataclasses
 import json
+import time
 
 import numpy as np
 import torch
@@ -186,17 +187,22 @@ def test_image_loop_records_its_spans(tmp_path, monkeypatch):
 
 
 def test_encoders_record_srgb_encode():
-    """Both encoders, the native one and ``color.to_srgb``, record one
-    ``srgb_encode`` span, and encode alike."""
+    """Both encoders, the native one (the port's own library, built from
+    ``csrc/srgb_encode.cpp``) and ``color.to_srgb``, record one
+    ``srgb_encode`` span, each inside its own call, and encode alike."""
     assert native.available()
+    assert native._lib._name == native.library_path()
     vals = np.random.RandomState(4).uniform(0.0, 1.2, (5, 7, 3)).astype(
         np.float32)
     profiling.clear()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.time_ns()
         fast = native.encode_srgb_native(vals)
+        t1 = time.time_ns()
         torch_out = color.to_srgb(torch.from_numpy(vals)).numpy()
     assert np.array_equal(fast, torch_out)
     recs = profiling.recorded()
     assert [(r.name, r.counts, r.parent) for r in recs] == [
         ("srgb_encode", {}, None)] * 2
+    assert t0 <= recs[0].start_ns <= recs[0].end_ns <= t1 <= recs[1].start_ns
     assert "srgb_encode" in _ranges(prof)

@@ -28,20 +28,21 @@ def forks(cell) -> dict:
     the lanes outside K1's rule (|d| <= 1e-4 max(1, |ref|) a channel) and
     the share of the squared-error gap that the ten lanes with the largest
     change carry."""
-    from benchmark.reference import render as ref_render
     from raytrace_tpu_torch.render.integrator import sample_pixels
 
     with torch.no_grad():
         img = sample_pixels(cell.SceneData(**cell.start), cell.scene.spec,
                             cell.px, cell.py, cell.sample_ids, cell.fit_seed)
-        lv = {n: torch.as_tensor(v, dtype=torch.float32, device=cell.device)
-              for n, v in cell.ref.arrays.items()}
+        lv = cell.reference.leaves(cell.ref, cell.device, torch.float32)
         for n, d in cell.noise.items():
             lv[n] = lv[n] + torch.as_tensor(d, dtype=torch.float32,
                                             device=cell.device)
-        ref = ref_render.chain(cell.ref, lv, cell.px, cell.py,
-                               torch.zeros_like(cell.px), cell.fit_seed,
-                               cell.width, cell.height)
+        # one sample a pixel over every pixel: the fit's own lanes; float32
+        # again, to the bit, since the mean over one sample is exact
+        ref = cell.reference.pixel_means(
+            cell.ref, lv, cell.py * cell.width + cell.px, 1, cell.fit_seed,
+            cell.width, cell.height, cell.bench.config["check_block"]).to(
+                torch.float32)
         d = (img - ref).abs()
         out_rule = (d > 1e-4 * torch.clamp(ref.abs(), min=1.0)).any(dim=1)
         sq = ((img - cell.target) ** 2).sum(1) - ((ref - cell.target) ** 2
@@ -74,12 +75,12 @@ def forks(cell) -> dict:
 
 
 def readings(workload: str, seed: int, device) -> dict:
-    from benchmark import drive, manifest
+    from benchmark import manifest
     from benchmark.reference import fit as ref_fit
     from benchmark.trace import Spans
 
     bench = manifest.load(workload, seed)
-    cell = drive.KINDS[bench.traffic["kind"]](bench, device, Spans())
+    cell = bench.kind(bench, device, Spans())
     t = time.perf_counter()
     cell.setup()
     for _ in range(bench.traffic.get("check_images", 0)):

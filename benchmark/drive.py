@@ -3,17 +3,21 @@ each, and the check of what they produced against the reference.
 
 ``render`` traffic: a request is the CLI's ``render_image`` (default
 ``max_lanes``), then the CLI's clip and encode, kept in memory: the
-native sRGB encoder (``io.native.encode_srgb_native``, the C++ of
-``native/bmp_writer.cpp`` that the CLI's ``write_bmp_native`` runs)
-where its library loads or builds, else ``color.to_srgb``, as the CLI
-falls back; then the BMP's header and rows.  ``fit`` traffic: a step is
+port's native sRGB encoder (``io.native.encode_srgb_native``, the C++ of
+``raytrace_tpu_torch/csrc/srgb_encode.cpp`` that the CLI's
+``write_bmp_native`` runs) where its library loads or builds, else
+``color.to_srgb``, as the CLI falls back; then the BMP's header and
+rows.  ``fit`` traffic: a step is
 ``optim.fit``'s loop body, ``loss_and_grad`` over every float leaf and
 Adam's step, ending when the loss is on the host.  Both loops are closed,
 with one client: each request starts when the last one has finished, with
 a fresh seed drawn from the run's seed.
 
 Only this module calls into the port (``raytrace_tpu_torch``); the check
-computes everything again with ``benchmark.reference``.
+computes everything again with the configuration's reference
+(``bench.reference``, resolved by :mod:`benchmark.manifest`), a fit's
+steps with ``benchmark.reference.fit``.  Other kinds of traffic live in
+``benchmark/kinds/``.
 """
 
 from __future__ import annotations
@@ -26,9 +30,6 @@ import torch
 
 from benchmark.reference import encode as ref_encode
 from benchmark.reference import fit as ref_fit
-from benchmark.reference import render as ref_render
-from benchmark.reference import scene as ref_scene
-from benchmark.yardstick import counts, work
 
 
 @dataclasses.dataclass
@@ -56,7 +57,7 @@ class Cell:
         self.bench, self.device, self.spans = bench, device, spans
         cfg, traffic = bench.config, bench.traffic
         self.text = bench.scene_text
-        self.ref = ref_scene.parse(self.text)
+        self.reference, self.ref = bench.reference, bench.ref
         self.width = traffic.get("width") or cfg["width"]
         self.height = traffic.get("height") or cfg["height"]
         self.spp = traffic.get("samples") or cfg["samples"]
@@ -134,9 +135,8 @@ class RenderCell(Cell):
             w.latencies.append(t2 - t0)
             w.encode_s.append(t2 - t1)
             w.encode_path = path
-            rays = counts.ray_counts(work.ref_spec(self.ref),
-                                     self.width * self.height, self.spp)
-            w.rays += rays["primary"] * rays["rounds"]
+            w.rays += self.reference.request_rays(self.ref, self.width,
+                                                  self.height, self.spp)
             self._keep(len(w.latencies) - 1, (seed, img, blob))
 
     def _keep(self, i: int, item):
@@ -162,12 +162,13 @@ class RenderCell(Cell):
         gap = ref_sum = 0.0
         off = 0
         draw = _rng(self.bench.seed, 3)
-        lv = ref_render.leaves(self.ref, self.device, torch.float32)
+        ref_mod = self.reference
+        lv = ref_mod.leaves(self.ref, self.device, torch.float32)
         low = (None if control is None
-               else ref_render.leaves(self.ref, self.device, control))
+               else ref_mod.leaves(self.ref, self.device, control))
 
         def means(leaves, pix, seed):
-            return ref_render.pixel_means(
+            return ref_mod.pixel_means(
                 self.ref, leaves, torch.as_tensor(pix, device=self.device),
                 self.spp, seed, self.width, self.height,
                 self.bench.config["check_block"]).cpu().numpy()
@@ -203,8 +204,8 @@ class FitCell(Cell):
         pix = torch.arange(n, dtype=torch.int64, device=self.device)
         self.px, self.py = pix % self.width, pix // self.width
         # the target: the reference's render of the unperturbed scene
-        lv = ref_render.leaves(self.ref, self.device, torch.float32)
-        self.target = ref_render.pixel_means(
+        lv = self.reference.leaves(self.ref, self.device, torch.float32)
+        self.target = self.reference.pixel_means(
             self.ref, lv, pix, t["target_samples"], self.next_seed(),
             self.width, self.height, self.bench.config["check_block"]).to(
                 torch.float32)

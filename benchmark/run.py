@@ -17,9 +17,11 @@ a breakdown.  A render cell's result names the encoder that ran
 (``encode``: ``native`` or ``torch``).  The last line of standard
 output is the result.
 
-The run refuses to measure without a card, and refuses to report once
-``jax``, ``jaxlib``, ``flax`` or the JAX package ``raytrace_tpu`` is
-loaded.  The port keeps its kernel builds in ``raytrace_tpu_torch/build/``
+Before it imports numpy, torch or the port, the process has glibc's
+malloc keep what it frees (:func:`keep_freed_memory`), so that every
+request's host arrays come from the same heap.  The run refuses to
+measure without a card, and refuses to report once ``jax``, ``jaxlib``,
+``flax`` or the JAX package ``raytrace_tpu`` is loaded.  The port keeps its kernel builds in ``raytrace_tpu_torch/build/``
 inside the checkout.
 """
 
@@ -36,6 +38,29 @@ import sys  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "raytrace_tpu")
 
+# glibc's mallopt parameters
+_M_TRIM_THRESHOLD, _M_MMAP_THRESHOLD = -1, -3
+_KEEP_BYTES = 1 << 30
+
+
+def keep_freed_memory() -> bool:
+    """Have glibc's malloc keep the memory the process frees, up to 1 GiB
+    an allocation and at the heap's top, so that a request's large host
+    arrays (a float64 image is 15-25 MB) are served again from the heap
+    and not mapped, faulted in and returned each request.  On the card's
+    host that mapping's cost swings from run to run (PERF.md §2).  False
+    where the C library is not glibc or refuses a setting."""
+    import ctypes
+    import ctypes.util
+
+    try:
+        libc = ctypes.CDLL(ctypes.util.find_library("c"))
+        mallopt = libc.mallopt
+    except (OSError, AttributeError, TypeError):
+        return False
+    return bool(mallopt(_M_MMAP_THRESHOLD, _KEEP_BYTES)
+                and mallopt(_M_TRIM_THRESHOLD, _KEEP_BYTES))
+
 
 class Run:
     """What a metric's reader reads: the cell, its window, its set-up
@@ -50,37 +75,33 @@ class Run:
 
     @property
     def spec(self):
-        from benchmark.yardstick.work import ref_spec
-        return ref_spec(self.cell.ref)
+        return self.bench.reference.spec(self.bench.ref)
 
     @property
     def large(self) -> bool:
         from benchmark.yardstick.work import LARGE_ABOVE
-        return self.cell.ref.n_objects > LARGE_ABOVE
+        return self.bench.reference.n_objects(self.bench.ref) > LARGE_ABOVE
 
     def traced_lanes(self) -> int:
         return self.window.traced * self.cell.lanes()
 
     def work(self) -> dict:
         """What a sample of this cell's lanes needs, counted on the
-        reference's paths (``benchmark.yardstick.work``)."""
+        reference's paths (its ``work``)."""
         if self._work is None:
             import numpy as np
             import torch
 
-            from benchmark.reference import render as ref_render
-            from benchmark.yardstick import work
-
-            c = self.cell
+            c, ref = self.cell, self.bench.reference
             rng = np.random.default_rng([self.bench.seed % (1 << 64), 5])
             n = self.bench.config["work_lanes"]
             pix = rng.integers(0, c.width * c.height, n)
             lanes = tuple(torch.as_tensor(a, device=c.device) for a in (
                 pix % c.width, pix // c.width, rng.integers(0, c.spp, n)))
-            lv = ref_render.leaves(c.ref, c.device, torch.float32)
-            self._work = work.path_work(c.ref, lv, lanes,
-                                        int(rng.integers(0, 2 ** 31 - 1)),
-                                        c.width, c.height, self.large)
+            lv = ref.leaves(self.bench.ref, c.device, torch.float32)
+            self._work = ref.work(self.bench.ref, lv, lanes,
+                                  int(rng.integers(0, 2 ** 31 - 1)),
+                                  c.width, c.height, self.large)
         return self._work
 
 
@@ -101,11 +122,11 @@ def run_cell(bench, device, seconds: float, trace: bool,
     with ``checks`` last."""
     import torch
 
-    from benchmark import drive, manifest
+    from benchmark import manifest
     from benchmark.trace import Recording, Spans
 
     spans = Spans()
-    cell = drive.KINDS[bench.traffic["kind"]](bench, device, spans)
+    cell = bench.kind(bench, device, spans)
     cell.setup()
     cell.sync()
     setup_s = time.perf_counter() - started
@@ -176,6 +197,9 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
+    if not keep_freed_memory():
+        print("warning: malloc's thresholds not set: host arrays are "
+              "mapped anew each request", file=sys.stderr)
 
     from benchmark import manifest
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from benchmark import manifest, run
-from benchmark.tests.conftest import FIT, load
+from benchmark.tests.conftest import OUT, OUT_CELLS, load
 
 ROOT = manifest.ROOT
 MAN = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -21,7 +21,7 @@ CELLS = [w["name"] for w in MAN["workloads"]]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 
 
-@pytest.mark.parametrize("workload", CELLS + ["golden.fit"])
+@pytest.mark.parametrize("workload", CELLS + OUT_CELLS)
 def test_cell_resolves(workload):
     b = load(workload, 1)
     assert b.traffic["kind"] in ("render", "fit")
@@ -53,9 +53,9 @@ def test_manifest_shapes():
         assert m["source"] in ("host_clock", "device_trace")
     for m in MAN["per_layer"]:
         assert m["moves"] in moves and set(m["workloads"]) <= set(CELLS)
-    # golden.fit's entries, out of the manifest, keep its shapes
-    assert not {w["name"] for w in FIT["workloads"]} & set(CELLS)
-    for m in FIT["end_to_end"] + FIT["per_layer"]:
+    # the entries of the cells out of the manifest keep its shapes
+    assert not set(OUT_CELLS) & set(CELLS)
+    for m in [m for out in OUT for m in out["end_to_end"] + out["per_layer"]]:
         assert NAME.match(m["name"]) and m["name"] not in moves
         if m["name"].endswith("_roofline"):
             assert m["unit"] == "%"

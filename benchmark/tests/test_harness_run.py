@@ -12,13 +12,14 @@ import pytest
 import torch
 
 from benchmark import manifest, run
+from benchmark.tests.conftest import OUT_CELLS
 
 ROOT = manifest.ROOT
 CELLS = [w["name"] for w in json.load(
     open(os.path.join(ROOT, "BENCHMARK.json")))["workloads"]]
 
 
-@pytest.mark.parametrize("workload", CELLS + ["golden.fit"])
+@pytest.mark.parametrize("workload", CELLS + OUT_CELLS)
 def test_last_line_keys(small_cell, workload):
     bench = small_cell(workload)
     out = run.run_cell(bench, torch.device("cpu"), 0.2, False)
@@ -61,6 +62,38 @@ def test_no_card_fails_without_a_result():
     assert r.returncode != 0
     assert "{" not in r.stdout
     assert "no CUDA device" in r.stderr
+
+
+_KEPT = """
+import ctypes, ctypes.util
+from benchmark import run
+
+class Info(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_size_t) for n in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+        "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+libc = ctypes.CDLL(ctypes.util.find_library("c"))
+libc.malloc.restype = ctypes.c_void_p
+libc.free.argtypes = [ctypes.c_void_p]
+libc.mallinfo2.restype = Info
+
+def kept(nbytes):
+    libc.free(libc.malloc(nbytes))
+    return libc.mallinfo2().fordblks >= nbytes
+
+before = kept(64 << 20)
+print(before, run.keep_freed_memory(), kept(64 << 20))
+"""
+
+
+def test_malloc_keeps_freed_memory():
+    """In a run's process a freed 64 MB block stays in the heap, for the
+    next request's arrays; by default glibc hands it back at once."""
+    r = subprocess.run([sys.executable, "-c", _KEPT], cwd=ROOT,
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["False", "True", "True"]
 
 
 def test_benchmark_alone_fails(tmp_path):

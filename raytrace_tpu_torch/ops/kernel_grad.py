@@ -43,10 +43,12 @@ class _KernelForward(torch.autograd.Function):
                 *(next(grads) if need else None for need in needs))
 
 
-def kernel_forward(kernel, plain, *tensors, name: str = "kernel"):
+def kernel_forward(kernel, plain, *tensors, name: str = "kernel",
+                   **counts):
     """``kernel(*tensors)``, differentiable through ``plain(*tensors)``,
     under the profiler range ``name`` (the kernel's) while a profiler
-    records.
+    records; ``counts`` (numbers: a launch's ``lanes``) are kept with the
+    range's record.
 
     Both take the same tensors and return a tuple of tensors of the same
     shapes; ``kernel`` launches a CUDA kernel, ``plain`` is its plain
@@ -55,7 +57,7 @@ def kernel_forward(kernel, plain, *tensors, name: str = "kernel"):
     the backward pass re-runs ``plain`` on the saved tensors under
     autograd and pulls the cotangents of the floating-point outputs
     through it; integer and bool outputs take none."""
-    with span(name):
+    with span(name, **counts):
         if not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in tensors)):
             return tuple(kernel(*tensors))

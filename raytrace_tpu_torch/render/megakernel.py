@@ -101,6 +101,19 @@ def tree_instance(cap: int) -> int:
     return next((c for c in TREE_STACK_CAPS if c >= cap), TREE_SLAB)
 
 
+def launch_counts(spec: SceneSpec, n: int) -> dict:
+    """What the wrapper's span of a render launch of ``n`` lanes counts
+    while a profiler records: ``lanes``, and for the tree kernel its
+    instance, ``stack`` (one of ``TREE_STACK_CAPS``, or ``TREE_SLAB``),
+    and ``large`` (1 where it folds a large scene's table, else 0)."""
+    if kernel_for(spec) != KERNEL_TREE:
+        return {"lanes": n}
+    from raytrace_tpu_torch.render.integrator import tree_loop_stack
+
+    return {"lanes": n, "stack": tree_instance(tree_loop_stack(spec)[3]),
+            "large": int(is_large(spec))}
+
+
 def scene_shared_bytes(spec: SceneSpec) -> int:
     """Bytes of the scene buffer that a block stages in shared memory: the
     header, the lights, and a small scene's object rows
@@ -150,8 +163,10 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             # here, before the kernel's forward turns grad mode off
             from raytrace_tpu_torch.parallel.ring import refuse_grad
             refuse_grad(ctx, data)
-        fwd, name = ((_launch, kernel_for(spec)) if ctx is None
-                     else (radiance_lanes_ring, KERNEL_RING))
+        fwd, name, counts = (
+            (_launch, kernel_for(spec), launch_counts(spec, pix.shape[0]))
+            if ctx is None
+            else (radiance_lanes_ring, KERNEL_RING, {"lanes": pix.shape[0]}))
         # the kernel forward; backward through the plain version, under the
         # ring context of the forward pass
         leaves = [getattr(data, f.name) for f in dataclasses.fields(data)]
@@ -159,7 +174,7 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             lambda *ls: fwd(SceneData(*ls), spec, pix, piy, aa, cam, seed),
             lambda *ls: _reference_under(ctx, SceneData(*ls), spec, pix, piy,
                                          aa, cam, seed),
-            *leaves, name=name))
+            *leaves, name=name, **counts))
     raise ValueError(f"no megakernel for device {device}")
 
 

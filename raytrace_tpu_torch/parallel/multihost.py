@@ -49,7 +49,8 @@ def render_rows_multihost(scene: Scene, *, seed: int = 0,
     them, so every (W, H, ranks) renders; pad rows re-render the image's
     top row and are trimmed before the return (a rank with pad rows only
     returns a band of no rows)."""
-    from raytrace_tpu_torch.render.integrator import (_render_chunks,
+    from raytrace_tpu_torch.render.integrator import (_accumulate, _fetch,
+                                                      _render_chunks,
                                                       _retry_launch,
                                                       _s_p_launch,
                                                       sample_groups)
@@ -66,14 +67,15 @@ def render_rows_multihost(scene: Scene, *, seed: int = 0,
     s_launch, p_budget = _s_p_launch(spec, aa, max_lanes)
     p_local = max(min(rows * w, p_budget), 1)
 
-    band = np.zeros((rows * w, 3), np.float64)
+    acc = torch.zeros((rows * w, 3), dtype=torch.float64, device=data.device)
     for s0, sl, g in sample_groups(spec, aa, s_launch):
         out = _retry_launch(_render_chunks, data, spec, px, py, s0, sl, g,
                             seed, p_local)
-        band += out.numpy().astype(np.float64) * (g * sl / aa)
+        _accumulate(acc, out, g * sl / aa)
         if progress is not None:
             progress((s0 + g * sl) / aa)
     row_lo, row_hi = min(lo_row, h), min(lo_row + rows, h)
+    band = _fetch(acc)
     return row_lo, row_hi, band[:(row_hi - row_lo) * w].reshape(-1, w, 3)
 
 

@@ -10,9 +10,10 @@ lane, walked depth first: :func:`radiance_tree_loop_v`.  They are the
 plain PyTorch versions of the two CUDA kernels behind
 :mod:`raytrace_tpu_torch.render.megakernel`, and the CPU path.
 
-The image loop accumulates on the device in plain Python loops,
-checkpoints the float64 host accumulator after every sample chunk, and
-refuses to resume a checkpoint written for another render config.
+The image loop sums the launch groups into a float64 image on the
+scene's device and fetches it once a render; it checkpoints that sum
+after every launch group where asked, and refuses to resume a checkpoint
+written for another render config.
 """
 
 from __future__ import annotations
@@ -384,22 +385,44 @@ def _is_transient(err: BaseException) -> bool:
 def _retry_launch(fn, *args, retries: int = 2):
     """Run a render launch, retrying transient runtime failures.  A
     launch is a pure function of (scene, pixel/sample identities), so a
-    re-issue is safe.  The result is fetched to the host inside the
-    guarded region, so asynchronous device failures surface here.  The
-    launches' issue and the fetch are two profiler spans (``issue``,
-    ``fetch`` with its ``bytes``)."""
+    re-issue is safe.  The result stays on its device, but its work is
+    waited for inside the guarded region (the profiler span ``issue``),
+    so asynchronous device failures surface here."""
     for attempt in range(retries + 1):
         try:
             with span(ISSUE):
                 out = fn(*args)
-            with span(FETCH, bytes=out.numel() * out.element_size()):
-                return out.cpu()
+                if out.device.type == "cuda":
+                    torch.cuda.current_stream(out.device).synchronize()
+            return out
         except RuntimeError as e:
             if attempt == retries or not _is_transient(e):
                 raise
             print(f"[raytrace_tpu_torch] launch failed (attempt "
                   f"{attempt + 1}/{retries + 1}); retrying", file=sys.stderr)
             time.sleep(0.5 * (attempt + 1))
+
+
+def _accumulate(acc: torch.Tensor, out: torch.Tensor, weight: float):
+    """``acc += out * weight`` in float64 on ``acc``'s device (the span
+    ``accumulate``): widened, multiplied and added as three rounded
+    operations, the order and the bits of numpy's ``astype``, ``*`` and
+    ``+=``.  ``out * weight`` before the widening would round in float32,
+    and ``add_(out, alpha=weight)`` may contract into one FMA."""
+    with span(ACCUMULATE):
+        acc += out.to(torch.float64) * weight
+
+
+def _fetch(acc: torch.Tensor) -> np.ndarray:
+    """``acc`` on the host (the span ``fetch`` with its ``bytes``): a
+    copy into page-locked memory from torch's caching host allocator,
+    which repeated renders reuse, where ``acc`` lives on a card; the
+    tensor's own memory on the CPU."""
+    with span(FETCH, bytes=acc.numel() * acc.element_size()):
+        if acc.device.type == "cpu":
+            return acc.numpy()
+        host = torch.empty(acc.shape, dtype=acc.dtype, pin_memory=True)
+        return host.copy_(acc).numpy()
 
 
 def _save_checkpoint(path: str, **arrays) -> None:
@@ -431,25 +454,25 @@ def sample_groups(spec: SceneSpec, aa: int, s_launch: int, s_done: int = 0,
 
 
 def _resume_state(path: str | None, w: int, h: int, aa: int, seed: int,
-                  mesh=None):
-    """``(image (h*w, 3) float64, s_done)`` to start the image loop from:
-    the checkpoint at ``path`` when there is one, else zeros and 0.  With
-    a ``mesh`` of several ranks, rank 0 alone reads the file and
-    broadcasts what it found, so that the ranks need not share a
+                  device: torch.device, mesh=None):
+    """``(image (h*w, 3) float64 on device, s_done)`` to start the image
+    loop from: the checkpoint at ``path`` when there is one, else zeros
+    and 0.  With a ``mesh`` of several ranks, rank 0 alone reads the file
+    and broadcasts what it found, so that the ranks need not share a
     filesystem and all resume at one sample; a file written for another
     config raises the same ``ValueError`` on every rank."""
     from raytrace_tpu_torch.parallel import mesh as meshlib
 
-    image = np.zeros((h * w, 3), np.float64)
-    status, s_done, err = _CK_NONE, 0, None
+    image, status, s_done, err = None, _CK_NONE, 0, None
     if path is not None and (mesh is None or mesh.rank == 0) \
             and os.path.exists(path):
         try:
             with np.load(path) as ck:
                 if (ck["width"] == w and ck["height"] == h
                         and ck["aa"] == aa and ck["seed"] == seed):
-                    status, image, s_done = _CK_RESUME, ck["image"], int(
-                        ck["s_done"])
+                    status, image, s_done = (
+                        _CK_RESUME, torch.from_numpy(ck["image"]),
+                        int(ck["s_done"]))
                 else:
                     status = _CK_MISMATCH
         except (OSError, ValueError, EOFError, KeyError,
@@ -457,19 +480,23 @@ def _resume_state(path: str | None, w: int, h: int, aa: int, seed: int,
             # raised below, once the other ranks know not to wait
             status, err = _CK_UNREADABLE, e
     if path is not None and mesh is not None and mesh.ranks > 1:
-        device = meshlib.collective_device(mesh)
+        cdev = meshlib.collective_device(mesh)
         head = meshlib.broadcast_(torch.tensor(
-            [status, s_done], dtype=torch.int64, device=device), mesh)
+            [status, s_done], dtype=torch.int64, device=cdev), mesh)
         status, s_done = (int(x) for x in head.tolist())
         if status == _CK_RESUME:
-            image = meshlib.broadcast_(torch.from_numpy(image).to(device),
-                                       mesh).cpu().numpy()
+            if image is None:       # a rank that did not read the file
+                image = torch.empty((h * w, 3), dtype=torch.float64)
+            image = meshlib.broadcast_(image.to(cdev), mesh)
     if status == _CK_MISMATCH:
         raise ValueError(f"checkpoint {path} was written for a different "
                          f"render config; refusing to mix")
     if status == _CK_UNREADABLE:
         raise err or RuntimeError(f"rank 0 could not read checkpoint {path}")
-    return image, s_done
+    if status != _CK_RESUME:
+        return torch.zeros((h * w, 3), dtype=torch.float64,
+                           device=device), 0
+    return image.to(device), s_done
 
 
 # what rank 0 found at the checkpoint's path
@@ -480,24 +507,29 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                 max_lanes: int, progress, checkpoint: str | None,
                 launch_chunks=None, chunk_group: int = 32,
                 mesh=None) -> np.ndarray:
-    """Host loop over groups of sample chunks.  The float64 host
-    accumulator is checkpointed after every group, so a killed render
-    resumes at the last group boundary.  ``progress`` gets the completed
-    fraction in [0, 1].  ``launch_chunks`` renders one group with
-    :func:`_render_chunks`'s signature (the sharded renders pass their
-    own, and their ``mesh``: every rank then holds the whole image, and
-    rank 0 alone writes the checkpoint and reads it back for all;
-    default :func:`_render_chunks`).  While a profiler records, the loop
-    is the span ``image_loop``, and each group's ``issue`` and ``fetch``
-    (:func:`_retry_launch`), ``accumulate``, ``progress`` and
-    ``checkpoint`` spans inside it."""
+    """Host loop over groups of sample chunks.  Each group's mean is
+    added into a float64 image on the scene's device, which is fetched to
+    the host once, at the end; where a ``checkpoint`` path is given it is
+    also fetched and saved after every group, so a killed render resumes
+    at the last group boundary.  ``progress`` gets the completed fraction
+    in [0, 1], once a group, after the group's work has finished.
+    ``launch_chunks`` renders one group with :func:`_render_chunks`'s
+    signature (the sharded renders pass their own, and their ``mesh``:
+    every rank then holds the whole image, and rank 0 alone writes the
+    checkpoint and reads it back for all; default
+    :func:`_render_chunks`).  While a profiler records, the loop is the
+    span ``image_loop``, with each group's ``issue``
+    (:func:`_retry_launch`), ``accumulate``, ``progress``, and ``fetch``
+    and ``checkpoint`` where a path is given, inside it, and the last
+    ``fetch``."""
     launch_chunks = launch_chunks or _render_chunks
     data, spec = scene.data, scene.spec
     w, h = spec.width, spec.height
     aa = spp if spp is not None else max(spec.antialias, 1)
     s_launch, p_launch = _s_p_launch(spec, aa, max_lanes)
     with span(IMAGE_LOOP):
-        image, s_done = _resume_state(checkpoint, w, h, aa, seed, mesh)
+        acc, s_done = _resume_state(checkpoint, w, h, aa, seed, data.device,
+                                    mesh)
         writer = checkpoint is not None and (mesh is None or mesh.rank == 0)
 
         pix = torch.arange(h * w, dtype=torch.int64, device=data.device)
@@ -507,16 +539,17 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
             n_s = g * sl
             out = _retry_launch(launch_chunks, data, spec, px, py, s0, sl, g,
                                 seed, p_launch)
-            with span(ACCUMULATE):
-                image += out.numpy().astype(np.float64) * (n_s / aa)
+            _accumulate(acc, out, n_s / aa)
             if progress is not None:
                 with span(PROGRESS):
                     progress((s0 + n_s) / aa)
             if writer:
+                image = _fetch(acc)
                 with span(CHECKPOINT):
                     _save_checkpoint(checkpoint, image=image,
                                      s_done=s0 + n_s, width=w, height=h,
                                      aa=aa, seed=seed)
+        image = _fetch(acc)
     return image.reshape(h, w, 3)
 
 

@@ -1,5 +1,6 @@
 """Integrator parity of the PyTorch port: sample_pixels and render_image
-against the JAX package, checkpoint resume, and launch retry."""
+against the JAX package, the image loop's float64 sum against the host
+fold it replaced, checkpoint resume, and launch retry."""
 
 import dataclasses
 
@@ -17,6 +18,7 @@ from conftest import repo_path
 from test_torch_megakernel import assert_radiance_close
 
 CORNELL = str(repo_path("examples", "cornell_indirect.txt"))
+SHOWCASE = str(repo_path("examples", "materials_showcase.txt"))
 
 
 def _scenes(w, h):
@@ -133,6 +135,74 @@ def test_checkpoint_resume(tmp_path):
     np.testing.assert_allclose(resumed, full, rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="different render config"):
         integrator.render_image(ts, seed=9, spp=4, checkpoint=ck)
+
+
+def _host_fold(sc, seed, spp, max_lanes, chunk_group):
+    """The image loop's sum as the host made it before the sum moved to
+    the device: each group's mean fetched and added into a float64 numpy
+    image.  Returns the image and the number of groups."""
+    spec = sc.spec
+    s_launch, p_launch = integrator._s_p_launch(spec, spp, max_lanes)
+    pix = torch.arange(spec.width * spec.height)
+    image = np.zeros((pix.shape[0], 3), np.float64)
+    groups = list(integrator.sample_groups(spec, spp, s_launch, 0,
+                                           chunk_group))
+    for s0, sl, g in groups:
+        out = integrator._render_chunks(sc.data, spec, pix % spec.width,
+                                        pix // spec.width, s0, sl, g, seed,
+                                        p_launch)
+        image += out.numpy().astype(np.float64) * (g * sl / spp)
+    return image.reshape(spec.height, spec.width, 3), len(groups)
+
+
+def _small(path, w, h):
+    sc = torch_load(path, device="cpu")
+    return dataclasses.replace(sc, spec=dataclasses.replace(sc.spec, width=w,
+                                                            height=h))
+
+
+@pytest.mark.parametrize("path,max_lanes", [
+    (CORNELL, 128),     # 2-sample chunks, a ragged 1-sample tail
+    (CORNELL, 32),      # 1-sample chunks over two pixel tiles
+    (SHOWCASE, 512),    # fan-out, 4 lens samples a primary sample
+])
+def test_image_loop_sum_equals_the_host_fold(path, max_lanes):
+    """The device-resident float64 sum (``_accumulate``, then one
+    ``_fetch``) gives the host fold's image to the bit, over three groups
+    or more, in float64."""
+    sc = _small(path, 8, 8)
+    want, n_groups = _host_fold(sc, 3, 5, max_lanes, 1)
+    assert n_groups >= 3
+    got = integrator._image_loop(sc, seed=3, spp=5, max_lanes=max_lanes,
+                                 progress=None, checkpoint=None,
+                                 chunk_group=1)
+    assert got.dtype == np.float64 and got.shape == (8, 8, 3)
+    assert np.array_equal(got, want)
+
+
+def test_resumed_render_equals_the_uninterrupted_one(tmp_path):
+    """A render killed after its first checkpointed group and resumed
+    from the file gives the uninterrupted render's image to the bit."""
+    sc = _small(CORNELL, 8, 8)
+    ck = str(tmp_path / "state.npz")
+    kw = dict(seed=4, spp=5, max_lanes=128, chunk_group=1)
+    full = integrator._image_loop(sc, progress=None, checkpoint=None, **kw)
+
+    class Stop(Exception):
+        pass
+
+    def stop_in_second(frac):
+        if frac > 0.5:
+            raise Stop
+
+    with pytest.raises(Stop):
+        integrator._image_loop(sc, progress=stop_in_second, checkpoint=ck,
+                               **kw)
+    with np.load(ck) as state:
+        assert int(state["s_done"]) == 2
+        assert state["image"].dtype == np.float64
+    resumed = integrator._image_loop(sc, progress=None, checkpoint=ck, **kw)
+    assert np.array_equal(resumed, full)
 
 
 def test_s_p_launch_fills_the_budget():

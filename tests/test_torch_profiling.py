@@ -10,6 +10,7 @@ import json
 import time
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -126,20 +127,28 @@ def _cornell16():
 
 def _render(sc, checkpoint=None):
     """Two groups of two 2-sample chunks and a ragged 1-sample tail, with
-    a progress call and a checkpoint a group."""
+    a progress call a group, and a checkpoint a group where a path is
+    given."""
     return integrator._image_loop(sc, seed=5, spp=9, max_lanes=512,
                                   progress=lambda f: None,
                                   checkpoint=checkpoint, chunk_group=2)
 
 
-def test_image_loop_records_its_spans(tmp_path, monkeypatch):
+@pytest.mark.parametrize("checkpointed", [True, False])
+def test_image_loop_records_its_spans(tmp_path, monkeypatch, checkpointed):
     """Under torch.profiler, two renders record the image loop's spans,
     each under its parent, all of a render under one ``image_loop`` of its
-    own; a fetch counts the group's bytes, each ``sample_pixels`` call's
-    phases lie inside its group's ``issue``; the image is the same to the
-    bit."""
+    own: a group's ``issue``, ``accumulate`` and ``progress``, then, where
+    a checkpoint is written, a ``fetch`` of the float64 sum and the
+    ``checkpoint``; and one last ``fetch`` a render.  Every fetch counts
+    the float64 image's bytes; each ``sample_pixels`` call's phases lie
+    inside its group's ``issue``; the image is the same to the bit."""
     sc = _cornell16()
-    plain = _render(sc, str(tmp_path / "a.npz"))
+
+    def path(name):
+        return str(tmp_path / name) if checkpointed else None
+
+    plain = _render(sc, path("a.npz"))
     calls = []
     inner = integrator.sample_pixels
 
@@ -151,7 +160,7 @@ def test_image_loop_records_its_spans(tmp_path, monkeypatch):
     monkeypatch.setattr(integrator, "sample_pixels", counted)
     profiling.clear()
     with profile(activities=[ProfilerActivity.CPU]):
-        images = [_render(sc, str(tmp_path / f"{i}.npz")) for i in (0, 1)]
+        images = [_render(sc, path(f"{i}.npz")) for i in (0, 1)]
     for img in images:
         assert np.array_equal(img, plain)
     recs = profiling.recorded()
@@ -173,14 +182,14 @@ def test_image_loop_records_its_spans(tmp_path, monkeypatch):
                 assert up.name == LOOP[r.name], r
             if r.name in PHASES:
                 assert up.name == "issue", r
+    group = (["issue", "accumulate", "progress"]
+             + (["fetch", "checkpoint"] if checkpointed else []))
     for root in roots:
         mine = [r for r in recs if outermost(r) is root]
-        names = [r.name for r in mine]
-        for name in ("issue", "fetch", "accumulate", "progress",
-                     "checkpoint"):
-            assert names.count(name) == 3, name
+        assert [r.name for r in mine if r.name in LOOP] == group * 3 + [
+            "fetch"]
         assert [r.counts for r in mine if r.name == "fetch"] == [
-            {"bytes": 16 * 16 * 3 * 4}] * 3
+            {"bytes": 16 * 16 * 3 * 8}] * (4 if checkpointed else 1)
     # two renders of two groups of two chunks and a one-chunk tail: each
     # chunk's sample_pixels call made inside its group's issue
     assert calls == [["image_loop", "issue"]] * 10

@@ -8,13 +8,13 @@ relative to the scene file), and a machine without a usable GPU is an
 error, never a silent CPU render.  ``--device cpu`` renders every scene
 through the kernels' plain version, ``--f64`` (float64, CPU only, as in
 the JAX package's CLI) included.  ``--profile DIR`` records the render
-with ``torch.profiler`` and writes a Chrome trace into DIR, whose ranges
-name the render phases, the kernels and the image loop's steps
-(:mod:`raytrace_tpu_torch.utils.profiling`).  ``--shard`` shards the
-pixels over the ranks of the process group, ``--shard-objects`` the
-objects too (a ring, whose steps are the CUDA scan kernel).  Run as
-several processes under the environment protocol of
-:func:`raytrace_tpu_torch.parallel.mesh.maybe_init_distributed`, each
+and its encode with ``torch.profiler`` and writes a Chrome trace into
+DIR, whose ranges name the render phases, the kernels, the image loop's
+steps and ``srgb_encode`` (:mod:`raytrace_tpu_torch.utils.profiling`).
+``--shard`` shards the pixels over the ranks of the process group,
+``--shard-objects`` the objects too (a ring, whose steps are the CUDA
+scan kernel).  Run as several processes under the environment protocol
+of :func:`raytrace_tpu_torch.parallel.mesh.maybe_init_distributed`, each
 rank renders its band of rows into the one BMP.
 
     python -m raytrace_tpu_torch.cli examples/materials_showcase.txt \\
@@ -90,9 +90,7 @@ def main(argv=None) -> int:
     meshlib.maybe_init_distributed(args.device)
     multiproc = meshlib.process_count() > 1
 
-    from raytrace_tpu_torch import color as colorlib
-    from raytrace_tpu_torch.io.bmp import write_bmp
-    from raytrace_tpu_torch.io.native import write_bmp_native
+    from raytrace_tpu_torch.io import bmp
     from raytrace_tpu_torch.render import megakernel
     from raytrace_tpu_torch.render.integrator import render_image
     from raytrace_tpu_torch.scene.builder import load_scene_file
@@ -173,8 +171,6 @@ def main(argv=None) -> int:
     img = render(scene, seed=args.seed, spp=spp, max_lanes=args.max_lanes,
                  progress=progress, checkpoint=args.checkpoint)
     dt = time.perf_counter() - t0
-    if prof is not None:
-        _stop_profile(prof, device, args.profile, log, "trace.json")
     if not args.quiet:
         print("", file=sys.stderr)
     # one ray = one closest-hit round; a primary sample runs max_depth+2
@@ -187,10 +183,10 @@ def main(argv=None) -> int:
               mean_radiance=float(np.nanmean(img)))
 
     with log.phase("encode_write", path=args.output):
-        clipped = np.clip(img, 0.0, None).astype(np.float32)
-        if not write_bmp_native(args.output, clipped):
-            srgb = colorlib.to_srgb(torch.from_numpy(clipped)).numpy()
-            write_bmp(args.output, srgb)
+        bmp.write_bmp(args.output, bmp.encode_srgb(img))
+    # the recording holds the encode too, as the multi-process one does
+    if prof is not None:
+        _stop_profile(prof, device, args.profile, log, "trace.json")
     return 0
 
 

@@ -1,4 +1,4 @@
-// The port's host image output: sRGB encode, BMP rows and file write.
+// The port's host sRGB encoder.
 //
 // Built by the host compiler at first use (io/native.py) and loaded with
 // ctypes.  The byte of a linear value v is the smallest i with
@@ -14,7 +14,6 @@
 
 #include <cmath>
 #include <cstdint>
-#include <cstdio>
 #include <cstring>
 #include <limits>
 
@@ -90,15 +89,6 @@ inline uint8_t encode_srgb(float v) {
     return static_cast<uint8_t>(i > 255 ? 255 : i);  // +inf: 256
 }
 
-void write_u16(uint8_t *p, uint32_t v) {
-    p[0] = v & 0xFF; p[1] = (v >> 8) & 0xFF;
-}
-
-void write_u32(uint8_t *p, uint32_t v) {
-    p[0] = v & 0xFF; p[1] = (v >> 8) & 0xFF;
-    p[2] = (v >> 16) & 0xFF; p[3] = (v >> 24) & 0xFF;
-}
-
 }  // namespace
 
 extern "C" {
@@ -107,60 +97,9 @@ extern "C" {
 // none; the loader refuses the library unless it reads -1.
 int64_t rt_srgb_table_fault(void) { return kTables.fault; }
 
-// Encode n linear floats to sRGB bytes (no file IO).
+// Encode n linear floats to sRGB bytes.
 void rt_encode_srgb(const float *linear, uint8_t *out, int64_t n) {
     for (int64_t i = 0; i < n; ++i) out[i] = encode_srgb(linear[i]);
-}
-
-// Write a complete BMP file (header per bmp.rs:10-61 + bottom-up padded
-// BGR rows); linear: h*w*3 floats, row 0 = bottom.  Returns 0 on success,
-// negative errno-style codes on error.
-int rt_write_bmp(const char *path, const float *linear, int w, int h) {
-    const uint32_t stride = (3u * static_cast<uint32_t>(w) + 3u) & ~3u;
-    const uint32_t pasize = stride * static_cast<uint32_t>(h);
-    const uint32_t fsize = 14 + 108 + pasize;
-
-    uint8_t header[122];
-    std::memset(header, 0, sizeof(header));
-    header[0] = 'B'; header[1] = 'M';
-    write_u32(header + 2, fsize);
-    write_u32(header + 10, 0x7A);         // pixel array offset
-    write_u32(header + 14, 0x6C);         // DIB header size (108)
-    write_u32(header + 18, static_cast<uint32_t>(w));
-    write_u32(header + 22, static_cast<uint32_t>(h));  // + => bottom-up
-    write_u16(header + 26, 1);            // planes
-    write_u16(header + 28, 24);           // bpp
-    write_u32(header + 34, pasize);
-    write_u32(header + 38, 0x0B13);       // 72 DPI
-    write_u32(header + 42, 0x0B13);
-    header[0x46] = 'B'; header[0x47] = 'G';
-    header[0x48] = 'R'; header[0x49] = 's';  // sRGB colorspace tag
-
-    FILE *f = std::fopen(path, "wb");
-    if (!f) return -1;
-    if (std::fwrite(header, 1, sizeof(header), f) != sizeof(header)) {
-        std::fclose(f);
-        return -2;
-    }
-
-    uint8_t *row = new uint8_t[stride];
-    std::memset(row, 0, stride);
-    for (int y = 0; y < h; ++y) {
-        const float *src = linear + static_cast<int64_t>(y) * w * 3;
-        for (int x = 0; x < w; ++x) {
-            row[3 * x + 0] = encode_srgb(src[3 * x + 2]);  // B
-            row[3 * x + 1] = encode_srgb(src[3 * x + 1]);  // G
-            row[3 * x + 2] = encode_srgb(src[3 * x + 0]);  // R
-        }
-        if (std::fwrite(row, 1, stride, f) != stride) {
-            delete[] row;
-            std::fclose(f);
-            return -3;
-        }
-    }
-    delete[] row;
-    if (std::fclose(f) != 0) return -4;
-    return 0;
 }
 
 }  // extern "C"

@@ -10,6 +10,10 @@ The reference streams rows y = 0..h-1 as they are rendered
 (main.rs:56-58); since BMP positive-height means bottom-up storage, row
 y=0 is the *bottom* of the displayed image.  :func:`write_bmp` takes the
 image in that same row order.
+
+:func:`encode_srgb` is the one way a rendered image becomes sRGB bytes:
+the native encoder where its library loads, ``color.to_srgb`` otherwise,
+the same bytes either way.
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
+
+from raytrace_tpu_torch import color
+from raytrace_tpu_torch.io import native
 
 
 def row_stride(width: int) -> int:
@@ -48,6 +56,19 @@ def header(width: int, height: int) -> bytes:
         b"BGRs",                        # sRGB colorspace tag
         b"\x00" * 48,                   # CIEXYZ endpoints + gammas
     ])
+
+
+def encode_srgb(linear: np.ndarray) -> np.ndarray:
+    """sRGB bytes (uint8, the same shape) of a float linear image:
+    clipped at zero, cast to float32 and encoded by
+    :func:`raytrace_tpu_torch.io.native.encode_srgb_native`, or by
+    :func:`raytrace_tpu_torch.color.to_srgb` where the native library does
+    not load."""
+    clipped = np.clip(linear, 0.0, None).astype(np.float32)
+    srgb = native.encode_srgb_native(clipped)
+    if srgb is None:
+        srgb = color.to_srgb(torch.from_numpy(clipped)).numpy()
+    return srgb
 
 
 def encode_rows(srgb_rgb: np.ndarray) -> np.ndarray:

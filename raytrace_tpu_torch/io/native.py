@@ -1,13 +1,14 @@
-"""ctypes bindings to the port's native (C++) image output.
+"""ctypes bindings to the port's native (C++) sRGB encoder.
 
-``csrc/srgb_encode.cpp`` is the port's own sRGB encoder and BMP writer:
-a table lookup over a float32's top 16 bits and one compare a value,
-the same bytes as :func:`raytrace_tpu_torch.color.to_srgb`.  The host
+``csrc/srgb_encode.cpp`` is the port's own sRGB encoder: a table
+lookup over a float32's top 16 bits and one compare a value, the same
+bytes as :func:`raytrace_tpu_torch.color.to_srgb`.  The host
 compiler builds it at first use, never at import; the library is named
 by a hash of the source, the flags and the host's CPU (``-march=native``),
 lands in ``raytrace_tpu_torch/build/`` and is reused while they are
-unchanged.  Where no C++ compiler is available the functions here return
-None or False, and the caller encodes through ``color.to_srgb`` instead.
+unchanged.  Where no C++ compiler is available the encoder here returns
+None, and :func:`raytrace_tpu_torch.io.bmp.encode_srgb` encodes through
+``color.to_srgb`` instead.
 """
 
 from __future__ import annotations
@@ -100,10 +101,6 @@ def _load():
                 "thresholds; encoding through color.to_srgb instead",
                 RuntimeWarning, stacklevel=3)
             return None
-        lib.rt_write_bmp.argtypes = [
-            ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int, ctypes.c_int]
-        lib.rt_write_bmp.restype = ctypes.c_int
         lib.rt_encode_srgb.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int64]
@@ -115,23 +112,6 @@ def _load():
 def available() -> bool:
     """Whether the native library loads (or builds)."""
     return _load() is not None
-
-
-def write_bmp_native(path: str, linear_rgb: np.ndarray) -> bool:
-    """Write an (H, W, 3) float linear image (row 0 = bottom) as BMP via
-    the native writer.  Returns False if the native library is
-    unavailable (the caller falls back); raises on IO errors."""
-    lib = _load()
-    if lib is None:
-        return False
-    img = np.ascontiguousarray(linear_rgb, np.float32)
-    h, w, _ = img.shape
-    rc = lib.rt_write_bmp(
-        path.encode(), img.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        w, h)
-    if rc != 0:
-        raise OSError(f"native BMP write failed with code {rc}: {path}")
-    return True
 
 
 def encode_srgb_native(linear: np.ndarray) -> np.ndarray | None:

@@ -19,9 +19,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
+from raytrace_tpu_torch.io import bmp
 from raytrace_tpu_torch.parallel.mesh import (Mesh, broadcast_, make_mesh,
                                               process_count)
 from raytrace_tpu_torch.scene.schema import Scene, SceneData
@@ -48,43 +48,27 @@ def render_rows_multihost(scene: Scene, *, seed: int = 0,
     multiple of the ranks and each rank renders ``ceil(H / ranks)`` of
     them, so every (W, H, ranks) renders; pad rows re-render the image's
     top row and are trimmed before the return (a rank with pad rows only
-    returns a band of no rows)."""
-    from raytrace_tpu_torch.render.integrator import (_accumulate, _fetch,
-                                                      _render_chunks,
-                                                      _retry_launch,
-                                                      _s_p_launch,
-                                                      sample_groups)
+    returns a band of no rows).  The band goes through the image loop
+    (:func:`raytrace_tpu_torch.render.integrator._image_loop`), tiled and
+    sampled as the whole image is."""
+    from raytrace_tpu_torch.render.integrator import _image_loop
 
     mesh = mesh if mesh is not None else make_mesh(scene.data.device)
-    data, spec = replicate_to_mesh(scene.data, mesh), scene.spec
-    w, h = spec.width, spec.height
-    aa = spp if spp is not None else max(spec.antialias, 1)
+    data = replicate_to_mesh(scene.data, mesh)
+    w, h = scene.spec.width, scene.spec.height
     rows = -(-h // mesh.ranks)
     lo_row = mesh.rank * rows
-    lane = torch.arange(lo_row * w, (lo_row + rows) * w, dtype=torch.int64,
-                        device=data.device)
-    px, py = lane % w, torch.clamp(lane // w, max=h - 1)
-    s_launch, p_budget = _s_p_launch(spec, aa, max_lanes)
-    p_local = max(min(rows * w, p_budget), 1)
-
-    acc = torch.zeros((rows * w, 3), dtype=torch.float64, device=data.device)
-    for s0, sl, g in sample_groups(spec, aa, s_launch):
-        out = _retry_launch(_render_chunks, data, spec, px, py, s0, sl, g,
-                            seed, p_local)
-        _accumulate(acc, out, g * sl / aa)
-        if progress is not None:
-            progress((s0 + g * sl) / aa)
+    band = _image_loop(dataclasses.replace(scene, data=data), seed=seed,
+                       spp=spp, max_lanes=max_lanes, progress=progress,
+                       checkpoint=None, rows=(lo_row, lo_row + rows))
     row_lo, row_hi = min(lo_row, h), min(lo_row + rows, h)
-    band = _fetch(acc)
-    return row_lo, row_hi, band[:(row_hi - row_lo) * w].reshape(-1, w, 3)
+    return row_lo, row_hi, band[:row_hi - row_lo]
 
 
 def write_bmp_band(path: str, width: int, height: int, row_lo: int,
                    band_srgb: np.ndarray) -> None:
     """Write this rank's rows into the shared BMP at their byte offset.
     The file must exist with its header (:func:`ensure_bmp_file`)."""
-    from raytrace_tpu_torch.io import bmp
-
     with open(path, "r+b") as f:
         f.seek(122 + row_lo * bmp.row_stride(width))
         f.write(bmp.encode_rows(band_srgb).tobytes())
@@ -93,8 +77,6 @@ def write_bmp_band(path: str, width: int, height: int, row_lo: int,
 def ensure_bmp_file(path: str, width: int, height: int) -> None:
     """Create (or truncate) the BMP with its header and a zeroed pixel
     array sized for the whole image."""
-    from raytrace_tpu_torch.io import bmp
-
     with open(path, "wb") as f:
         f.write(bmp.header(width, height))
         f.truncate(122 + bmp.row_stride(width) * height)
@@ -107,8 +89,6 @@ def render_to_bmp_multihost(scene: Scene, path: str, *, seed: int = 0,
     """The whole multi-process pipeline: every rank renders its band,
     encodes it to sRGB and writes it into ``path``, which every rank must
     see (one host: trivially)."""
-    from raytrace_tpu_torch import color as colorlib
-
     mesh = mesh if mesh is not None else make_mesh(scene.data.device)
     spec = scene.spec
     row_lo, _, band = render_rows_multihost(
@@ -118,9 +98,8 @@ def render_to_bmp_multihost(scene: Scene, path: str, *, seed: int = 0,
         ensure_bmp_file(path, spec.width, spec.height)
     # every rank waits for the file to exist before seeking into it
     _barrier("bmp_header")
-    srgb = colorlib.to_srgb(torch.from_numpy(
-        np.clip(band, 0.0, None).astype(np.float32))).numpy()
-    write_bmp_band(path, spec.width, spec.height, row_lo, srgb)
+    write_bmp_band(path, spec.width, spec.height, row_lo,
+                   bmp.encode_srgb(band))
     _barrier("bmp_rows")
 
 

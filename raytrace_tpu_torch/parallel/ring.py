@@ -350,7 +350,6 @@ def render_image_ring(scene: Scene, *, seed: int = 0,
     the RNG is keyed by identity and the ring's fold is the dense scan's
     (t, id) minimum.  Every rank calls it and gets the whole image; rank 0
     alone writes and reads the checkpoint."""
-    from raytrace_tpu_torch.parallel.tile import render_chunks_sharded
     from raytrace_tpu_torch.render import ring_shade
     from raytrace_tpu_torch.render.integrator import _image_loop
 
@@ -367,7 +366,6 @@ def render_image_ring(scene: Scene, *, seed: int = 0,
                            max_lanes=ring_shade.max_lanes(
                                scene.spec, max_lanes) * mesh.ranks,
                            progress=progress, checkpoint=checkpoint,
-                           launch_chunks=partial(render_chunks_sharded, mesh),
                            mesh=mesh)
 
 

@@ -1,42 +1,20 @@
 """Pixel-sharded rendering: the image's pixels split over the ranks.
 
 PyTorch counterpart of :mod:`raytrace_tpu.parallel.tile`.  Each rank
-renders its own contiguous pixel shard through
-:func:`raytrace_tpu_torch.render.integrator._render_chunks` (so through
-``sample_pixels`` and the kernels), the scene replicated; the shards are
-gathered and the padding trimmed.  Every RNG draw is a pure function of
-the (pixel, sample, level, slot) identity, never of a lane's position,
-so the sharded image is the single-device image to the bit.
+renders its own contiguous pixel shard through the image loop
+(:func:`raytrace_tpu_torch.render.integrator._image_loop` with a mesh, so
+through ``sample_pixels`` and the kernels), the scene replicated; the
+shards are gathered and the padding trimmed.  Every RNG draw is a pure
+function of the (pixel, sample, level, slot) identity, never of a lane's
+position, so the sharded image is the single-device image to the bit.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import numpy as np
-import torch
 
-from raytrace_tpu_torch.parallel.mesh import Mesh, all_gather, make_mesh
+from raytrace_tpu_torch.parallel.mesh import Mesh, make_mesh
 from raytrace_tpu_torch.scene.schema import Scene
-
-
-def render_chunks_sharded(mesh: Mesh, data, spec, px, py, s0: int,
-                          s_launch: int, n_chunks: int, seed: int,
-                          p_launch: int) -> torch.Tensor:
-    """One group of ``_render_chunks`` with the pixels sharded over the
-    mesh: each rank renders a contiguous shard of the pixels, their count
-    padded to a multiple of the ranks (pad pixels render pixel 0), and
-    gets every rank's shard back in rank order, trimmed.  ``p_launch`` is
-    the tile of all ranks together."""
-    from raytrace_tpu_torch.render.integrator import _render_chunks
-
-    n, k = px.shape[0], mesh.ranks
-    pad = (-n) % k
-    px, py = (torch.cat([t, t.new_zeros(pad)]) for t in (px, py))
-    lo, hi = mesh.rank * (n + pad) // k, (mesh.rank + 1) * (n + pad) // k
-    out = _render_chunks(data, spec, px[lo:hi], py[lo:hi], s0, s_launch,
-                         n_chunks, seed, max(p_launch // k, 1))
-    return torch.cat(all_gather(out, mesh))[:n]
 
 
 def render_image_sharded(scene: Scene, *, seed: int = 0,
@@ -57,6 +35,4 @@ def render_image_sharded(scene: Scene, *, seed: int = 0,
                          f"on {mesh.device}")
     return _image_loop(scene, seed=seed, spp=spp,
                        max_lanes=max_lanes * mesh.ranks, progress=progress,
-                       checkpoint=checkpoint,
-                       launch_chunks=partial(render_chunks_sharded, mesh),
-                       mesh=mesh)
+                       checkpoint=checkpoint, mesh=mesh)

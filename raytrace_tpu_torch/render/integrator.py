@@ -10,10 +10,12 @@ lane, walked depth first: :func:`radiance_tree_loop_v`.  They are the
 plain PyTorch versions of the two CUDA kernels behind
 :mod:`raytrace_tpu_torch.render.megakernel`, and the CPU path.
 
-The image loop sums the launch groups into a float64 image on the
-scene's device and fetches it once a render; it checkpoints that sum
-after every launch group where asked, and refuses to resume a checkpoint
-written for another render config.
+The image loop (:func:`_image_loop`) is the one loop of every render
+path: the whole image on one device, its pixels sharded over a mesh's
+ranks, or one rank's band of rows.  It sums the launch groups into a
+float64 image on the scene's device and fetches it once a render; it
+checkpoints that sum after every launch group where asked, and refuses to
+resume a checkpoint written for another render config.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from raytrace_tpu_torch.models.materials import shade
 from raytrace_tpu_torch.ops import rng, vec
 from raytrace_tpu_torch.ops.intersect import closest_hit
 from raytrace_tpu_torch.ops.vec import V3
+from raytrace_tpu_torch.parallel import mesh as meshlib
 from raytrace_tpu_torch.render import megakernel
 from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
 from raytrace_tpu_torch.utils.profiling import (ACCUMULATE, CHECKPOINT, FETCH,
@@ -332,6 +335,26 @@ def _render_chunks(data: SceneData, spec: SceneSpec, px, py, s0: int,
     return out
 
 
+def _render_group(mesh, data: SceneData, spec: SceneSpec, px, py, s0: int,
+                  s_launch: int, n_chunks: int, seed: int,
+                  p_launch: int) -> torch.Tensor:
+    """One launch group of :func:`_render_chunks`; with a ``mesh``, the
+    pixels sharded over its ranks: each rank renders a contiguous shard,
+    their count padded to a multiple of the ranks (pad pixels render
+    pixel 0), and gets every rank's shard back in rank order, trimmed.
+    ``p_launch`` is the tile of all ranks together."""
+    if mesh is None:
+        return _render_chunks(data, spec, px, py, s0, s_launch, n_chunks,
+                              seed, p_launch)
+    n, k = px.shape[0], mesh.ranks
+    pad = (-n) % k
+    px, py = (torch.cat([t, t.new_zeros(pad)]) for t in (px, py))
+    lo, hi = mesh.rank * (n + pad) // k, (mesh.rank + 1) * (n + pad) // k
+    out = _render_chunks(data, spec, px[lo:hi], py[lo:hi], s0, s_launch,
+                         n_chunks, seed, max(p_launch // k, 1))
+    return torch.cat(meshlib.all_gather(out, mesh))[:n]
+
+
 def _s_p_launch(spec: SceneSpec, aa: int, max_lanes: int):
     """(samples, pixels) per launch: fill the lane budget without
     exceeding it, taking more samples per launch for small images (a
@@ -354,14 +377,18 @@ def _wavefront_widest(spec: SceneSpec) -> int:
     return b * m ** spec.max_depth
 
 
-def _group_cap(spec: SceneSpec, s_launch: int, chunk_group: int) -> int:
-    """Sample chunks per launch group, bounded by a work budget so that
-    one group never runs for minutes: fan-out scenes do up to
-    :func:`_wavefront_widest` times the work per lane of a linear chain,
-    so they take smaller groups."""
+# sample chunks in one launch group at most
+CHUNK_GROUP = 32
+
+
+def _group_cap(spec: SceneSpec, s_launch: int) -> int:
+    """Sample chunks per launch group: :data:`CHUNK_GROUP`, bounded by a
+    work budget so that one group never runs for minutes: fan-out scenes
+    do up to :func:`_wavefront_widest` times the work per lane of a linear
+    chain, so they take smaller groups."""
     work_per_chunk = (spec.width * spec.height * s_launch * spec.cam_samples
                       * _wavefront_widest(spec))
-    return max(min(chunk_group, (1 << 28) // max(work_per_chunk, 1)), 1)
+    return max(min(CHUNK_GROUP, (1 << 28) // max(work_per_chunk, 1)), 1)
 
 
 # deterministic failures a retry cannot fix (an OOM retry thrashes the
@@ -436,12 +463,11 @@ def _save_checkpoint(path: str, **arrays) -> None:
     os.replace(tmp, path)
 
 
-def sample_groups(spec: SceneSpec, aa: int, s_launch: int, s_done: int = 0,
-                  chunk_group: int = 32):
+def sample_groups(spec: SceneSpec, aa: int, s_launch: int, s_done: int = 0):
     """The image loop's launch groups from sample ``s_done`` on:
     ``(s0, s_launch, n_chunks)``, each ``n_chunks`` chunks of ``s_launch``
     samples, the last one ragged."""
-    g_cap = _group_cap(spec, s_launch, chunk_group)
+    g_cap = _group_cap(spec, s_launch)
     s0 = s_done
     while s0 < aa:
         rem = aa - s0
@@ -461,8 +487,6 @@ def _resume_state(path: str | None, w: int, h: int, aa: int, seed: int,
     and broadcasts what it found, so that the ranks need not share a
     filesystem and all resume at one sample; a file written for another
     config raises the same ``ValueError`` on every rank."""
-    from raytrace_tpu_torch.parallel import mesh as meshlib
-
     image, status, s_done, err = None, _CK_NONE, 0, None
     if path is not None and (mesh is None or mesh.rank == 0) \
             and os.path.exists(path):
@@ -505,40 +529,47 @@ _CK_NONE, _CK_RESUME, _CK_MISMATCH, _CK_UNREADABLE = 0, 1, 2, 3
 
 def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                 max_lanes: int, progress, checkpoint: str | None,
-                launch_chunks=None, chunk_group: int = 32,
-                mesh=None) -> np.ndarray:
+                mesh=None, rows: tuple[int, int] | None = None) -> np.ndarray:
     """Host loop over groups of sample chunks.  Each group's mean is
     added into a float64 image on the scene's device, which is fetched to
     the host once, at the end; where a ``checkpoint`` path is given it is
     also fetched and saved after every group, so a killed render resumes
     at the last group boundary.  ``progress`` gets the completed fraction
     in [0, 1], once a group, after the group's work has finished.
-    ``launch_chunks`` renders one group with :func:`_render_chunks`'s
-    signature (the sharded renders pass their own, and their ``mesh``:
-    every rank then holds the whole image, and rank 0 alone writes the
-    checkpoint and reads it back for all; default
-    :func:`_render_chunks`).  While a profiler records, the loop is the
-    span ``image_loop``, with each group's ``issue``
-    (:func:`_retry_launch`), ``accumulate``, ``progress``, and ``fetch``
-    and ``checkpoint`` where a path is given, inside it, and the last
-    ``fetch``."""
-    launch_chunks = launch_chunks or _render_chunks
+
+    With a ``mesh``, the pixels are sharded over its ranks
+    (:func:`_render_group`): every rank then holds the whole image, and
+    rank 0 alone writes the checkpoint and reads it back for all.
+    ``rows = (lo, hi)`` renders the image's rows ``lo..hi-1`` alone, a
+    rank's band, tiled and sampled as the whole image is, so that they are
+    its rows to the bit; rows past the top re-render the top row.  It
+    returns ``(hi - lo, W, 3)`` and takes no checkpoint.
+
+    While a profiler records, the loop is the span ``image_loop``, with
+    each group's ``issue`` (:func:`_retry_launch`), ``accumulate``,
+    ``progress``, and ``fetch`` and ``checkpoint`` where a path is given,
+    inside it, and the last ``fetch``."""
     data, spec = scene.data, scene.spec
     w, h = spec.width, spec.height
+    lo, hi = rows if rows is not None else (0, h)
+    if rows is not None and checkpoint is not None:
+        raise ValueError("a band of rows takes no checkpoint")
     aa = spp if spp is not None else max(spec.antialias, 1)
     s_launch, p_launch = _s_p_launch(spec, aa, max_lanes)
     with span(IMAGE_LOOP):
-        acc, s_done = _resume_state(checkpoint, w, h, aa, seed, data.device,
-                                    mesh)
+        acc, s_done = _resume_state(checkpoint, w, hi - lo, aa, seed,
+                                    data.device, mesh)
         writer = checkpoint is not None and (mesh is None or mesh.rank == 0)
 
-        pix = torch.arange(h * w, dtype=torch.int64, device=data.device)
+        pix = torch.arange(lo * w, hi * w, dtype=torch.int64,
+                           device=data.device)
         px, py = pix % w, pix // w
-        for s0, sl, g in sample_groups(spec, aa, s_launch, s_done,
-                                       chunk_group):
+        if hi > h:
+            py.clamp_(max=h - 1)
+        for s0, sl, g in sample_groups(spec, aa, s_launch, s_done):
             n_s = g * sl
-            out = _retry_launch(launch_chunks, data, spec, px, py, s0, sl, g,
-                                seed, p_launch)
+            out = _retry_launch(_render_group, mesh, data, spec, px, py, s0,
+                                sl, g, seed, p_launch)
             _accumulate(acc, out, n_s / aa)
             if progress is not None:
                 with span(PROGRESS):
@@ -550,7 +581,7 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                                      s_done=s0 + n_s, width=w, height=h,
                                      aa=aa, seed=seed)
         image = _fetch(acc)
-    return image.reshape(h, w, 3)
+    return image.reshape(hi - lo, w, 3)
 
 
 def render_image(scene: Scene, *, seed: int = 0, spp: int | None = None,

@@ -52,7 +52,8 @@ def test_device_fold_equals_numpy_fold(cuda_device):
 
 
 @pytest.mark.cuda
-def test_render_on_card_is_the_host_fold_and_pinned(cuda_device):
+def test_render_on_card_is_the_host_fold_and_pinned(cuda_device,
+                                                      monkeypatch):
     """A render of four groups on the card (K1) returns the host fold of
     the same groups' means to the bit, float64, in page-locked memory."""
     sc = load_scene_file(CORNELL, device=cuda_device)
@@ -62,15 +63,15 @@ def test_render_on_card_is_the_host_fold_and_pinned(cuda_device):
     s_launch, p_launch = integrator._s_p_launch(spec, spp, max_lanes)
     pix = torch.arange(64 * 48, device=cuda_device)
     want = np.zeros((64 * 48, 3), np.float64)
-    groups = list(integrator.sample_groups(spec, spp, s_launch, 0, 1))
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 1)
+    groups = list(integrator.sample_groups(spec, spp, s_launch))
     assert len(groups) == 4
     for s0, sl, g in groups:
         out = integrator._render_chunks(sc.data, spec, pix % 64, pix // 64,
                                         s0, sl, g, 5, p_launch)
         want += out.cpu().numpy().astype(np.float64) * (g * sl / spp)
     got = integrator._image_loop(sc, seed=5, spp=spp, max_lanes=max_lanes,
-                                 progress=None, checkpoint=None,
-                                 chunk_group=1)
+                                 progress=None, checkpoint=None)
     assert got.dtype == np.float64 and got.shape == (48, 64, 3)
     assert np.array_equal(got.reshape(-1, 3), want)
     assert torch.from_numpy(got).is_pinned()

@@ -109,7 +109,7 @@ def test_render_image_matches_jax():
     assert_radiance_close(got.reshape(-1, 3).T, want.reshape(-1, 3).T)
 
 
-def test_checkpoint_resume(tmp_path):
+def test_checkpoint_resume(tmp_path, monkeypatch):
     _, ts = _scenes(8, 8)
     ck = str(tmp_path / "state.npz")
     full = integrator.render_image(ts, seed=1, spp=4)
@@ -123,21 +123,20 @@ def test_checkpoint_resume(tmp_path):
             raise Stop
 
     # one sample per group: killed in the second, resumed after the first
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 1)
     with pytest.raises(Stop):
         integrator._image_loop(ts, seed=1, spp=4, max_lanes=64,
-                               progress=stop_in_second, checkpoint=ck,
-                               chunk_group=1)
+                               progress=stop_in_second, checkpoint=ck)
     with np.load(ck) as state:
         assert int(state["s_done"]) == 1
     resumed = integrator._image_loop(ts, seed=1, spp=4, max_lanes=64,
-                                     progress=None, checkpoint=ck,
-                                     chunk_group=1)
+                                     progress=None, checkpoint=ck)
     np.testing.assert_allclose(resumed, full, rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="different render config"):
         integrator.render_image(ts, seed=9, spp=4, checkpoint=ck)
 
 
-def _host_fold(sc, seed, spp, max_lanes, chunk_group):
+def _host_fold(sc, seed, spp, max_lanes):
     """The image loop's sum as the host made it before the sum moved to
     the device: each group's mean fetched and added into a float64 numpy
     image.  Returns the image and the number of groups."""
@@ -145,8 +144,7 @@ def _host_fold(sc, seed, spp, max_lanes, chunk_group):
     s_launch, p_launch = integrator._s_p_launch(spec, spp, max_lanes)
     pix = torch.arange(spec.width * spec.height)
     image = np.zeros((pix.shape[0], 3), np.float64)
-    groups = list(integrator.sample_groups(spec, spp, s_launch, 0,
-                                           chunk_group))
+    groups = list(integrator.sample_groups(spec, spp, s_launch))
     for s0, sl, g in groups:
         out = integrator._render_chunks(sc.data, spec, pix % spec.width,
                                         pix // spec.width, s0, sl, g, seed,
@@ -166,26 +164,27 @@ def _small(path, w, h):
     (CORNELL, 32),      # 1-sample chunks over two pixel tiles
     (SHOWCASE, 512),    # fan-out, 4 lens samples a primary sample
 ])
-def test_image_loop_sum_equals_the_host_fold(path, max_lanes):
+def test_image_loop_sum_equals_the_host_fold(path, max_lanes, monkeypatch):
     """The device-resident float64 sum (``_accumulate``, then one
     ``_fetch``) gives the host fold's image to the bit, over three groups
     or more, in float64."""
     sc = _small(path, 8, 8)
-    want, n_groups = _host_fold(sc, 3, 5, max_lanes, 1)
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 1)
+    want, n_groups = _host_fold(sc, 3, 5, max_lanes)
     assert n_groups >= 3
     got = integrator._image_loop(sc, seed=3, spp=5, max_lanes=max_lanes,
-                                 progress=None, checkpoint=None,
-                                 chunk_group=1)
+                                 progress=None, checkpoint=None)
     assert got.dtype == np.float64 and got.shape == (8, 8, 3)
     assert np.array_equal(got, want)
 
 
-def test_resumed_render_equals_the_uninterrupted_one(tmp_path):
+def test_resumed_render_equals_the_uninterrupted_one(tmp_path, monkeypatch):
     """A render killed after its first checkpointed group and resumed
     from the file gives the uninterrupted render's image to the bit."""
     sc = _small(CORNELL, 8, 8)
     ck = str(tmp_path / "state.npz")
-    kw = dict(seed=4, spp=5, max_lanes=128, chunk_group=1)
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 1)
+    kw = dict(seed=4, spp=5, max_lanes=128)
     full = integrator._image_loop(sc, progress=None, checkpoint=None, **kw)
 
     class Stop(Exception):
@@ -262,7 +261,7 @@ def test_group_bound_scales_with_wavefront_widest(scene, monkeypatch):
     assert s_launch == 16
     work = 512 * 512 * s_launch * jax_int._wavefront_widest(spec)
     cap = max(min(32, (1 << 28) // work), 1)
-    assert cap == integrator._group_cap(spec, s_launch, 32)
+    assert cap == integrator._group_cap(spec, s_launch)
     assert calls[0][1] == min(cap, 64 // s_launch)
     assert sum(sl * g for sl, g in calls) == 64
     if scene == "materials_showcase.txt":

@@ -334,7 +334,7 @@ def test_image_loop_sizes_large_scenes_like_small_ones():
         shape_type=(0,) * 1006, mat_type=(1,) * 1006)
     assert megakernel.is_large(spec)
     assert _s_p_launch(spec, 4, 1 << 22) == (4, 1024 * 1024)
-    assert _group_cap(spec, 4, 32) == 32
+    assert _group_cap(spec, 4) == 32
 
 
 def test_render_image_large_scene_cpu():

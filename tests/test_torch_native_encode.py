@@ -2,10 +2,11 @@
 equal ``color.to_srgb``'s and the JAX package's native encoder's on every
 kind of float32 the table can split (each bucket's ends, the thresholds
 and their neighbours, zeros, subnormals, infinities, NaNs of both signs
-and a sweep of the bit patterns); its BMP writer gives the Python
-writer's file; where the library cannot be built, or its table fails the
-build check, the functions give None or False and the callers fall back
-to ``color.to_srgb``."""
+and a sweep of the bit patterns); the CLI's file, encoded through
+``bmp.encode_srgb``, is the Python writer's; where the library cannot be
+built, or its table fails the build check, the encoder gives None and
+``bmp.encode_srgb`` falls back to ``color.to_srgb`` with the same
+bytes."""
 
 import os
 import shutil
@@ -79,14 +80,18 @@ def test_bytes_equal_to_python_and_jax(values):
 @needs_compiler
 @pytest.mark.parametrize("w,h", [(13, 7), (1, 1), (801, 3)])
 def test_bmp_equals_python_writer(tmp_path, w, h):
+    """The CLI's bytes (``bmp.header`` and ``bmp.encode_rows`` of
+    ``bmp.encode_srgb``, the native encoder here) are the file the Python
+    writer makes of ``color.to_srgb``'s bytes."""
     rng = np.random.RandomState(w)
     img = (rng.rand(h, w, 3) * 1.4 - 0.1).astype(np.float32)
     img.flat[::5] = np.nan
     img.flat[1::7] = np.inf
-    ours, py = tmp_path / "native.bmp", tmp_path / "python.bmp"
-    assert native.write_bmp_native(str(ours), img)
+    assert native.available()
+    ours = bmp.header(w, h) + bmp.encode_rows(bmp.encode_srgb(img)).tobytes()
+    py = tmp_path / "python.bmp"
     bmp.write_bmp(str(py), color.to_srgb(torch.from_numpy(img)).numpy())
-    assert ours.read_bytes() == py.read_bytes()
+    assert ours == py.read_bytes()
 
 
 def _forget(monkeypatch):
@@ -126,11 +131,18 @@ def test_no_library_falls_back(monkeypatch, tmp_path, fault):
     else:
         monkeypatch.setattr(native, "CXX_FLAGS",
                             native.CXX_FLAGS + ("-no-such-flag",))
-    img = np.full((2, 3, 3), 0.5, np.float32)
+    img = np.random.RandomState(3).uniform(-0.2, 1.3, (2, 3, 3))
+    img.flat[::4] = np.nan
     assert not native.available()
     assert native.encode_srgb_native(img) is None
-    assert native.write_bmp_native(str(tmp_path / "out.bmp"), img) is False
-    assert not (tmp_path / "out.bmp").exists()
+    want = color.to_srgb(torch.from_numpy(
+        np.clip(img, 0.0, None).astype(np.float32))).numpy()
+    calls, to_srgb = [], color.to_srgb
+    monkeypatch.setattr(color, "to_srgb",
+                        lambda x: calls.append(x.dtype) or to_srgb(x))
+    got = bmp.encode_srgb(img)
+    assert calls == [torch.float32]
+    assert got.dtype == np.uint8 and np.array_equal(got, want)
 
 
 @needs_compiler

@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from raytrace_tpu_torch import color, optim
 from raytrace_tpu_torch.io import native
 from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
+from raytrace_tpu_torch.parallel import multihost
 from raytrace_tpu_torch.parallel.mesh import Mesh
 from raytrace_tpu_torch.render import integrator, megakernel
 from raytrace_tpu_torch.scene.builder import load_scene_file
@@ -85,7 +86,8 @@ def test_kernel_range_and_grad_psum():
 
 def test_cli_profile_writes_a_trace(tmp_path):
     """``--profile DIR`` on ``--device cpu``: the same BMP as without it,
-    and a Chrome trace in DIR whose ranges name the render phases."""
+    and a Chrome trace in DIR whose ranges name the render phases, the
+    image loop's steps and the encode."""
     common = [CORNELL, "--width", "8", "--height", "8", "--spp", "2", "-q",
               "--device", "cpu"]
     r = _run([*common, "-o", str(tmp_path / "p.bmp"), "--profile",
@@ -99,7 +101,8 @@ def test_cli_profile_writes_a_trace(tmp_path):
     names = {e["name"] for e in trace["traceEvents"]
              if e.get("cat") == "user_annotation"}
     assert PHASES <= names
-    assert {"image_loop", "issue", "fetch", "accumulate", "progress"} <= names
+    assert {"image_loop", "issue", "fetch", "accumulate", "progress",
+            "srgb_encode"} <= names
 
 
 def test_span_without_a_profiler_records_nothing(monkeypatch):
@@ -126,12 +129,12 @@ def _cornell16():
 
 
 def _render(sc, checkpoint=None):
-    """Two groups of two 2-sample chunks and a ragged 1-sample tail, with
-    a progress call a group, and a checkpoint a group where a path is
-    given."""
+    """Two groups of two 2-sample chunks and a ragged 1-sample tail (with
+    ``CHUNK_GROUP`` 2), with a progress call a group, and a checkpoint a
+    group where a path is given."""
     return integrator._image_loop(sc, seed=5, spp=9, max_lanes=512,
                                   progress=lambda f: None,
-                                  checkpoint=checkpoint, chunk_group=2)
+                                  checkpoint=checkpoint)
 
 
 @pytest.mark.parametrize("checkpointed", [True, False])
@@ -144,6 +147,7 @@ def test_image_loop_records_its_spans(tmp_path, monkeypatch, checkpointed):
     the float64 image's bytes; each ``sample_pixels`` call's phases lie
     inside its group's ``issue``; the image is the same to the bit."""
     sc = _cornell16()
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 2)
 
     def path(name):
         return str(tmp_path / name) if checkpointed else None
@@ -193,6 +197,31 @@ def test_image_loop_records_its_spans(tmp_path, monkeypatch, checkpointed):
     # two renders of two groups of two chunks and a one-chunk tail: each
     # chunk's sample_pixels call made inside its group's issue
     assert calls == [["image_loop", "issue"]] * 10
+
+
+def test_band_records_the_loop_spans(monkeypatch):
+    """``render_rows_multihost`` on one CPU rank goes through the image
+    loop: one ``image_loop`` holding each group's ``issue``,
+    ``accumulate`` and ``progress`` and the one ``fetch`` of the band's
+    float64 bytes, and its band is the whole image to the bit."""
+    sc = _cornell16()
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 2)
+    plain = _render(sc)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        row_lo, row_hi, band = multihost.render_rows_multihost(
+            sc, seed=5, spp=9, mesh=Mesh(torch.device("cpu")),
+            max_lanes=512, progress=lambda f: None)
+    assert (row_lo, row_hi) == (0, 16)
+    assert np.array_equal(band, plain)
+    recs = profiling.recorded()
+    by_id = {r.id: r for r in recs}
+    assert [r.name for r in recs if r.parent is None] == ["image_loop"]
+    loop = [r for r in recs if r.name in LOOP]
+    assert [r.name for r in loop] == ["issue", "accumulate",
+                                      "progress"] * 3 + ["fetch"]
+    assert all(by_id[r.parent].name == "image_loop" for r in loop)
+    assert loop[-1].counts == {"bytes": 16 * 16 * 3 * 8}
 
 
 def test_encoders_record_srgb_encode():

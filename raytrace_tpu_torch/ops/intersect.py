@@ -4,10 +4,11 @@ scene.rs:244-250, raytrace.rs:43-50).
 PyTorch counterpart of :mod:`raytrace_tpu.ops.intersect`, in its two
 regimes.  Up to ``LARGE_SCENE_THRESHOLD`` live objects: a running
 minimum over the objects in scene order.  Above it: a scan of the
-unified primitive table (:func:`_packed_tables`; spheres, then planes,
-in chunks of 32 rows), by the plain PyTorch scan.  Either way the
-winner's row is one indexed load from the per-object table; shadow rays
-ask only whether any object is hit in range.  While a ring context is
+unified primitive table (:func:`scene_tables`; spheres, then planes, in
+chunks of 32 rows, the spheres grouped into compact chunks), by the
+plain PyTorch scan.  Either way the winner's row is one indexed load
+from the per-object table; shadow rays ask only whether any object is
+hit in range.  While a ring context is
 installed (:func:`set_ring_ctx`, by an object-sharded render of
 :mod:`raytrace_tpu_torch.parallel.ring`), both queries go round the
 ring of object shards instead, whose steps are the CUDA scan kernel on
@@ -221,10 +222,68 @@ def per_scene_cache(fn):
     return cached
 
 
+def _median_splits(centres: np.ndarray) -> np.ndarray:
+    """A permutation of ``centres`` (S, 3) whose runs of
+    ``intersect_scan.OBJ_CHUNK`` are compact groups: recursive median
+    splits, each on the axis of widest spread, in a stable sort along it
+    with the higher side first (measured: 4-6% fewer chunks entered on the
+    sphere fields than the lower side first), the first side taking the
+    multiple of 32 nearest to half, so that every group is whole but the
+    last."""
+    ck = intersect_scan.OBJ_CHUNK
+    parts = []
+
+    def split(idx):
+        if len(idx) <= ck:
+            parts.append(idx)
+            return
+        pts = centres[idx]
+        axis = int(np.argmax(pts.max(axis=0) - pts.min(axis=0)))
+        idx = idx[np.argsort(-pts[:, axis], kind="stable")]
+        k = ck * max(1, (len(idx) + ck) // (2 * ck))
+        split(idx[:k])
+        split(idx[k:])
+
+    split(np.arange(len(centres)))
+    return np.concatenate(parts)
+
+
+def compact_order(centres: np.ndarray, radii: np.ndarray) -> np.ndarray:
+    """The order of a large scene's sphere rows in the fold's table: the
+    median splits of :func:`_median_splits`, with the spheres larger than
+    the median chunk's bounding sphere (a field's dome) split apart and
+    put last, where they would otherwise stretch the bound of every chunk
+    they joined and bend the splits around them."""
+    order = _median_splits(centres)
+    ck = intersect_scan.OBJ_CHUNK
+    if len(order) <= ck:
+        return order
+    bound = [np.max(np.linalg.norm(centres[g] - centres[g].mean(axis=0),
+                                   axis=1) + radii[g])
+             for g in np.split(order, range(ck, len(order), ck))]
+    big = radii > np.median(bound)
+    if not big.any():
+        return order
+    rest, out = np.nonzero(~big)[0], np.nonzero(big)[0]
+    return np.concatenate([rest[_median_splits(centres[rest])],
+                           out[_median_splits(centres[out])]])
+
+
 @per_scene_cache
 def scene_tables(data: SceneData, spec: SceneSpec) -> SceneTables:
-    """The large regime's tables of a scene (cached per scene)."""
+    """The large regime's tables of a scene (cached per scene):
+    :func:`_packed_tables` with the sphere rows and their ids reordered by
+    :func:`compact_order` of the spheres, so that a chunk's bounding
+    sphere is small and a ray enters few; the pad rows stay at the end of
+    the sphere partition.  The fold's minimum of ``(t, id)`` does not
+    depend on the order of the rows, so neither does any result."""
     table, n_sph_pad, ids = _packed_tables(data, spec)
+    n_sph = len(_typed_geometry(spec)[0])
+    perm = np.arange(table.shape[0])
+    sph = table[:n_sph].detach().cpu().numpy()
+    perm[:n_sph] = compact_order(sph[:, :3], sph[:, 3])
+    perm = torch.from_numpy(perm).to(table.device)
+    table, ids = table[perm], ids[perm]
     n_chunks = table.shape[0] // intersect_scan.OBJ_CHUNK
     bounds = intersect_scan._chunk_bounds(table, n_sph_pad, n_chunks)
     return SceneTables(table, ids, n_sph_pad, bounds,

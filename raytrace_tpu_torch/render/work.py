@@ -1,9 +1,11 @@
 """What a launch's paths need of the render kernels, counted by walking
 the plain version: live nodes per lane and per warp, skybox lookups, and
 for a large scene the sphere chunks that the rays enter, per lane and as
-the union over a warp.  ``utils/flops.py`` makes the kernels' bounds from
-these counts, and ``chip_smoke.py`` prints them beside the kernels'
-times; nothing on the render path calls this module.
+the union over a warp, under the scene-order chunks that the bounds count
+and under the compact chunks that the kernels fold.  ``utils/flops.py``
+makes the kernels' bounds from these counts, and ``chip_smoke.py`` prints
+them beside the kernels' times; nothing on the render path calls this
+module.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import numpy as np
 import torch
 
 from raytrace_tpu_torch.ops import intersect_scan
-from raytrace_tpu_torch.ops.intersect import closest_hit, scene_tables
+from raytrace_tpu_torch.ops.intersect import (_packed_tables, closest_hit,
+                                              scene_tables)
 from raytrace_tpu_torch.ops.vec import V3
 from raytrace_tpu_torch.render import megakernel
 from raytrace_tpu_torch.render.integrator import (_dfs_schedule, primary_rays,
@@ -56,7 +59,14 @@ def path_work(data: SceneData, spec: SceneSpec, lanes, seed: int) -> dict:
       ``last_hits`` those of them at the last depth, which add their
       ambient color and nothing else;
     * ``chunks``: for a large scene, sphere chunks entered per lane, summed
-      over its live nodes (the others are culled); else 0;
+      over its live nodes (the others are culled), with the chunks in scene
+      order (:func:`raytrace_tpu_torch.ops.intersect._packed_tables`, the
+      JAX package's table, which the bounds and the benchmark count); else
+      0;
+    * ``fold_chunks``: the same under the chunks that the kernels fold,
+      :func:`raytrace_tpu_torch.ops.intersect.scene_tables`' compact ones;
+      ``fold_chunks / chunks`` is the share of the scene-order work that
+      the fold still does;
     * ``by_depth``: for a large scene, per depth of the tree ``(live lanes
       per lane, chunks a live lane enters, chunks in the union over a
       warp's live lanes)``, the union taken among the lanes at the same
@@ -112,7 +122,8 @@ def _live_work(data: SceneData, spec: SceneSpec, entry, n: int):
         entry = tuple(torch.cat(parts) for parts in zip(*virt))
         lane = lane.repeat(len(virt))
     return per_lane, {"misses": misses, "hits": hits,
-                      "last_hits": last_hits, "chunks": 0, "by_depth": {}}
+                      "last_hits": last_hits, "chunks": 0, "fold_chunks": 0,
+                      "by_depth": {}}
 
 
 def _tree_work(data: SceneData, spec: SceneSpec, entry, n: int):
@@ -121,11 +132,14 @@ def _tree_work(data: SceneData, spec: SceneSpec, entry, n: int):
     chunks each live ray enters and their union over a warp's lanes
     there.  Returns the live nodes per lane and the summed counts."""
     m, levels, _, cap = tree_loop_stack(spec)
+    table, n_sph_pad, ids = _packed_tables(data, spec)
+    bounds = intersect_scan._chunk_bounds(
+        table, n_sph_pad, table.shape[0] // intersect_scan.OBJ_CHUNK)
     tb = scene_tables(data, spec)
     stack = [None] * cap
     stack[0] = entry
     per_lane = torch.zeros(n, dtype=torch.int64, device=entry[0].device)
-    chunks = misses = hits = last_hits = 0
+    chunks = fold_chunks = misses = hits = last_hits = 0
     depth_live = [0] * levels
     depth_chunks = [0] * levels
     depth_union = [0] * levels
@@ -143,9 +157,13 @@ def _tree_work(data: SceneData, spec: SceneSpec, entry, n: int):
             last_hits += int(hit.sum())
         if spec.bg_type == BG_SKYBOX:
             misses += int((live & ~hit).sum())
+        ray = (V3(*e[0:3]), V3(*e[3:6]))
         mask = intersect_scan.scan_hit_reference(
-            tb.table, tb.ids, tb.n_sph_pad, V3(*e[0:3]), V3(*e[3:6]),
-            tb.bounds, return_mask=True)[3] & live[:, None]
+            table, ids, n_sph_pad, *ray, bounds,
+            return_mask=True)[3] & live[:, None]
+        fold_chunks += int(intersect_scan.scan_hit_reference(
+            tb.table, tb.ids, tb.n_sph_pad, *ray, tb.bounds,
+            return_entered=True)[3][live].sum())
         entered = int(mask.sum())
         chunks += entered
         depth_chunks[depth] += entered
@@ -165,4 +183,4 @@ def _tree_work(data: SceneData, spec: SceneSpec, entry, n: int):
                 for d in range(levels) if depth_live[d]}
     return per_lane, {"misses": misses, "hits": hits,
                       "last_hits": last_hits, "chunks": chunks,
-                      "by_depth": by_depth}
+                      "fold_chunks": fold_chunks, "by_depth": by_depth}

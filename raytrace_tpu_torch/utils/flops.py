@@ -6,7 +6,10 @@ the JAX package's traced programs.  Here the counts are made by hand from
 the device functions of ``csrc/render_common.cuh``, per object test, per
 table row and per part of a lane's path, and a launch's work
 (``render/work.py::path_work``: live nodes, hits, misses, chunks entered)
-multiplies them.  The peaks are the card's published ones
+multiplies them.  The chunks entered are counted in scene order (the JAX
+package's table), not in the compact chunks that the kernels fold
+(``path_work``'s ``fold_chunks``), so a bound stays the work that the
+scene-order fold needs.  The peaks are the card's published ones
 (:func:`raytrace_tpu_torch.utils.gpu_info.peaks`); every function takes
 them and defaults to the H100 SXM's.  ``chip_smoke.py`` prints these
 bounds beside the kernels' times; nothing on the render path calls this

@@ -79,7 +79,8 @@ def test_fold_buffer_layout(mix):
     """Rows, ids and bounds lie behind one another as the kernels read
     them; a sphere row carries float32(r) * float32(r), the bits the plain
     scan squares, and -inf on pad rows; plane rows, ids and bounds are the
-    tables' own; the centers are the JAX package's table's."""
+    tables' own; the centers are the JAX package's table's, in the rows
+    that the ids name."""
     ts = make_sphere_field(100, mix_materials=mix, device="cpu")
     tb = scene_tables(ts.data, ts.spec)
     buf, rows, ids, bounds = _fold_parts(tb)
@@ -104,10 +105,16 @@ def test_fold_buffer_layout(mix):
         rows[:n_sph, 3][real],
         (tb.table[:n_sph, 3] * tb.table[:n_sph, 3]).numpy()[real])
     assert np.isneginf(rows[:n_sph, 3][~real]).all() and (~real).sum() == 27
-    want_table, want_pad, _ = jax_packed_tables(
+    want_table, want_pad, want_ids = jax_packed_tables(
         *(lambda s: (s.data, s.spec))(jax_field(100, mix_materials=mix)))
     assert want_pad == n_sph
-    np.testing.assert_array_equal(rows[:, :3], np.asarray(want_table)[:, :3])
+    want_table, want_ids = np.asarray(want_table), np.asarray(want_ids)
+    row_of = {g: k for k, g in enumerate(want_ids) if g >= 0}
+    got_ids = tb.ids.numpy()
+    src = [row_of[g] for g in got_ids[got_ids >= 0]]
+    np.testing.assert_array_equal(rows[got_ids >= 0, :3], want_table[src, :3])
+    np.testing.assert_array_equal(rows[got_ids < 0, :3],
+                                  want_table[want_ids < 0, :3])
 
 
 def test_fold_buffer_masks_what_the_plain_scan_rejects():
@@ -447,7 +454,7 @@ def test_live_work_matches_path_work(scene):
         "most": int(per_lane.max()),
         "misses": misses / 256 if "sky" in scene else 0.0,
         "hits": hits / 256, "last_hits": last_hits / 256, "chunks": 0.0,
-        "by_depth": {}}
+        "fold_chunks": 0.0, "by_depth": {}}
     assert got["visits"] > 2 and (got["misses"] > 0) == ("sky" in scene)
 
 
@@ -458,12 +465,19 @@ def test_field_work_counters_match_brute_force(mix):
     the kernel does; the
     chunks it enters, summed per lane and per depth, and their union over
     each 32 consecutive lanes at the same position of the tree, equal
-    path_work's counters."""
+    path_work's counters: ``chunks`` and ``by_depth`` under the scene-order
+    table (``_packed_tables`` with its ``_chunk_bounds``), ``fold_chunks``
+    under the compact one that the kernels fold (``scene_tables``)."""
     sc = make_sphere_field(64, mix_materials=mix, device="cpu")
     assert len(sc.spec.live_objects()) == 70
     spec = dataclasses.replace(sc.spec, width=16, height=16)
-    tb = scene_tables(sc.data, spec)
+    compact = scene_tables(sc.data, spec)
+    table, n_sph_pad, ids = intersect._packed_tables(sc.data, spec)
+    scene_order = intersect_scan._chunk_bounds(table, n_sph_pad,
+                                               table.shape[0] // 32)
+    tb = compact._replace(table=table, ids=ids, bounds=scene_order)
     _, rows, _, bounds = _fold_parts(tb)
+    _, fold_rows, _, fold_bounds = _fold_parts(compact)
     n_sph_chunks = tb.n_sph_pad // 32
     n = 64 if mix else 256
     pix = torch.arange(n, dtype=torch.int64) * (256 // n)
@@ -473,6 +487,7 @@ def test_field_work_counters_match_brute_force(mix):
     visits = np.zeros(n, np.int64)
     live = np.zeros(levels, np.int64)
     chunks = np.zeros(levels, np.int64)
+    fold_chunks = 0
     for i in range(n):
         _, nodes = _walk_live_only(sc.data, spec, [t[i:i + 1] for t in lanes],
                                    9)
@@ -481,11 +496,15 @@ def test_field_work_counters_match_brute_force(mix):
             live[depth] += 1
             chunks[depth] += len(_chunks_entered(
                 rows, bounds, n_sph_chunks, _make_ray(ray[:3], ray[3:])))
+            fold_chunks += len(_chunks_entered(
+                fold_rows, fold_bounds, n_sph_chunks,
+                _make_ray(ray[:3], ray[3:])))
     got = work.path_work(sc.data, spec, lanes, 9)
     assert got["visits"] == visits.mean()
     assert got["warp_visits"] == visits.reshape(-1, 32).max(axis=1).mean()
     assert got["most"] == visits.max()
     assert got["chunks"] == chunks.sum() / n and got["chunks"] > 1
+    assert got["fold_chunks"] == fold_chunks / n and got["fold_chunks"] > 1
     for d, (share, per_lane, union) in got["by_depth"].items():
         assert share == live[d] / n and per_lane == chunks[d] / live[d]
         assert per_lane <= union <= min(32 * per_lane, n_sph_chunks)

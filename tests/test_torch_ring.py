@@ -84,7 +84,9 @@ def test_ring_empty_miss_rays(tmp_path):
 
 def test_shard_geometry_matches_jax():
     """The shards' rows and ids are the JAX package's, and at k = 1 the
-    dense scan's table."""
+    dense scan's table in scene order (``_packed_tables``; the dense
+    scan's own, ``scene_tables``, groups the spheres into compact
+    chunks)."""
     ts = make_sphere_field(100, device="cpu", dtype=torch.float64)
     js = jax_field(100, dtype=jnp.float64)
     for k in (1, 3, 4):
@@ -94,10 +96,10 @@ def test_shard_geometry_matches_jax():
         np.testing.assert_array_equal(tables.numpy(), np.asarray(jtables))
         np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     dense = intersect.scene_tables(ts.data, ts.spec)
+    table, n_sph_pad, dense_ids = intersect._packed_tables(ts.data, ts.spec)
     tables, ids, n_sph = ring.shard_geometry(ts.data, ts.spec, 1)
-    assert n_sph == dense.n_sph_pad
-    assert torch.equal(tables[0], dense.table) and torch.equal(ids[0],
-                                                               dense.ids)
+    assert n_sph == n_sph_pad == dense.n_sph_pad
+    assert torch.equal(tables[0], table) and torch.equal(ids[0], dense_ids)
     mats = ring.shard_object_table(dense.rows, 4)
     assert mats.shape == (4, 27, 22)
     assert torch.equal(mats.reshape(-1, 22)[:106], dense.rows)

@@ -105,13 +105,16 @@ def launch_counts(spec: SceneSpec, n: int) -> dict:
     """What the wrapper's span of a render launch of ``n`` lanes counts
     while a profiler records: ``lanes``, and for the tree kernel its
     instance, ``stack`` (one of ``TREE_STACK_CAPS``, or ``TREE_SLAB``),
-    and ``large`` (1 where it folds a large scene's table, else 0)."""
+    ``large`` (1 where it folds a large scene's table, else 0), ``lights``
+    (the scene's lights) and ``lens`` (the camera's lens samples, of
+    which a launch's lanes take every one)."""
     if kernel_for(spec) != KERNEL_TREE:
         return {"lanes": n}
     from raytrace_tpu_torch.render.integrator import tree_loop_stack
 
     return {"lanes": n, "stack": tree_instance(tree_loop_stack(spec)[3]),
-            "large": int(is_large(spec))}
+            "large": int(is_large(spec)), "lights": spec.n_lights,
+            "lens": spec.cam_samples}
 
 
 def scene_shared_bytes(spec: SceneSpec) -> int:

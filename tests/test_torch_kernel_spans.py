@@ -1,9 +1,10 @@
 """What the render kernels' wrapper spans count: ``kernel_forward`` keeps
 its counts with its span's record while a profiler records and keeps no
 record otherwise (on the CPU, with a stand-in kernel); a render launch
-counts its lanes, and a tree kernel's launch also its stack instance and
-whether it folds a large scene's table (``megakernel.launch_counts``); on
-the card each launch's span carries them."""
+counts its lanes, and a tree kernel's launch also its stack instance,
+whether it folds a large scene's table, the scene's lights and the
+camera's lens samples (``megakernel.launch_counts``); on the card each
+launch's span carries them."""
 
 import numpy as np
 import pytest
@@ -21,6 +22,29 @@ from conftest import repo_path
 CORNELL = str(repo_path("examples", "cornell_indirect.txt"))
 SHOWCASE = str(repo_path("examples", "materials_showcase.txt"))
 COUNTS = {"lanes": 6, "stack": 8, "large": 1}
+# a Phong mirror floor and a Phong sphere under a point and a directional
+# light, seen through a depth-of-field camera of 2 lens samples: linear
+LIT_MIRROR = """{
+  objects: [
+    { bounds: Plane { point: (0, -1, 0) normal: (0, 1, 0) }
+      material: PhongMaterial { diffuse: rgb(0.6,0.5,0.4)
+        specular: rgb(0.3,0.3,0.3) exponent: 8
+        ambient: rgb(0.05,0.05,0.05) } }
+    { bounds: Sphere { center: (0, 0, -4) radius: 1 }
+      material: PhongMaterial { diffuse: rgb(0.8,0.3,0.2)
+        specular: rgb(0.4,0.4,0.4) exponent: 16 ambient: rgb(0,0,0) } }
+  ]
+  lights: [
+    { model: PointLight { location: (2, 3, -1) } color: rgb(1.2,1.1,1.0) }
+    { model: DirectionalLight { direction: (0, -1, -0.2) }
+      color: rgb(0.3, 0.3, 0.35) }
+  ]
+  camera: DepthOfFieldCamera new(
+    new((0,0,0), (0,0,-1), (0,1,0), 2),
+    4.0, 0.05, 2)
+  background: SolidColorBackground { color: rgb(0.1, 0.12, 0.15) }
+  options: { width: 32 height: 32 antialias: 2 }
+}"""
 
 
 def _twice(t):
@@ -51,17 +75,38 @@ def _field(mix: bool, device="cpu"):
 @pytest.mark.parametrize("case, want", [
     ("cornell", {"lanes": 96}),
     ("field", {"lanes": 96}),
-    ("showcase", {"lanes": 96, "stack": 8, "large": 0}),
-    ("mix", {"lanes": 96, "stack": 8, "large": 1}),
+    ("lit_mirror", {"lanes": 96}),
+    ("showcase", {"lanes": 96, "stack": 8, "large": 0, "lights": 3,
+                  "lens": 4}),
+    ("mix", {"lanes": 96, "stack": 8, "large": 1, "lights": 0, "lens": 1}),
 ])
 def test_launch_counts(case, want):
     """K1's launches count their lanes; K3's also the stack instance of a
-    6-level binary tree (6 entries: the 8-entry instance) and ``large``."""
-    spec = {"cornell": lambda: load_scene_file(CORNELL, device="cpu"),
-            "showcase": lambda: load_scene_file(SHOWCASE, device="cpu"),
-            "field": lambda: _field(False),
-            "mix": lambda: _field(True)}[case]().spec
-    assert megakernel.launch_counts(spec, 96) == want
+    6-level binary tree (6 entries: the 8-entry instance), ``large``, the
+    scene's lights and the camera's lens samples."""
+    assert megakernel.launch_counts(_scene(case).spec, 96) == want
+
+
+def test_tree_counts_name_the_lit_instance():
+    """A tree launch's counts tell the showcase's instance (three lights,
+    four lens samples, the small scene) from the mixed field's (no light,
+    a pinhole camera, the fold), while a linear launch under lights and a
+    depth-of-field camera counts its lanes alone, the key it had."""
+    lit, mix = (megakernel.launch_counts(_scene(c).spec, 96)
+                for c in ("showcase", "mix"))
+    assert {k for k in lit if lit[k] != mix[k]} == {"large", "lights",
+                                                    "lens"}
+    assert set(megakernel.launch_counts(_scene("lit_mirror").spec, 96)) == {
+        "lanes"}
+
+
+def _scene(case, device="cpu"):
+    return {"cornell": lambda: load_scene_file(CORNELL, device=device),
+            "showcase": lambda: load_scene_file(SHOWCASE, device=device),
+            "lit_mirror": lambda: build_scene(dsl.parse(LIT_MIRROR),
+                                              device=device),
+            "field": lambda: _field(False, device),
+            "mix": lambda: _field(True, device)}[case]()
 
 
 @pytest.fixture
@@ -72,13 +117,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cornell", "mix"])
+@pytest.mark.parametrize("case", ["cornell", "mix", "showcase"])
 def test_render_launch_records_its_counts(cuda_device, case):
-    """One launch of K1 (cornell) or of K3's large instance (the mixed
-    1,006-object field) under the profiler: one wrapper span, counting the
-    launch's lanes, and for K3 the 8-entry stack and ``large``."""
-    sc = (load_scene_file(CORNELL, device=cuda_device) if case == "cornell"
-          else _field(True, cuda_device))
+    """One launch of K1 (cornell), of K3's large instance (the mixed
+    1,006-object field) or of its small one (the showcase) under the
+    profiler: one wrapper span, counting the launch's lanes, and for K3
+    the 8-entry stack, ``large``, the lights and the lens samples."""
+    sc = _scene(case, cuda_device)
     rs = np.random.RandomState(4)
     n = 8192
     lanes = [torch.from_numpy(a.astype(np.int64)).to(cuda_device) for a in (
@@ -91,6 +136,8 @@ def test_render_launch_records_its_counts(cuda_device, case):
         torch.cuda.synchronize()
     name = megakernel.kernel_for(sc.spec)
     spans = [r for r in profiling.recorded()[before:] if r.name == name]
-    want = ({"lanes": n} if case == "cornell"
-            else {"lanes": n, "stack": 8, "large": 1})
+    tree = {"lanes": n, "stack": 8}
+    want = {"cornell": {"lanes": n},
+            "mix": dict(tree, large=1, lights=0, lens=1),
+            "showcase": dict(tree, large=0, lights=3, lens=4)}[case]
     assert [r.counts for r in spans] == [want]

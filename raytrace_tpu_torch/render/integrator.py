@@ -13,7 +13,8 @@ plain PyTorch versions of the two CUDA kernels behind
 The image loop (:func:`_image_loop`) is the one loop of every render
 path: the whole image on one device, its pixels sharded over a mesh's
 ranks, or one rank's band of rows.  It sums the launch groups into a
-float64 image on the scene's device and fetches it once a render; it
+float64 image on the scene's device and fetches it once a render, keeping
+one group queued on the device ahead of the one it waits for; it
 checkpoints that sum after every launch group where asked, and refuses to
 resume a checkpoint written for another render config.
 """
@@ -39,7 +40,7 @@ from raytrace_tpu_torch.render import megakernel
 from raytrace_tpu_torch.scene.schema import Scene, SceneData, SceneSpec
 from raytrace_tpu_torch.utils.profiling import (ACCUMULATE, CHECKPOINT, FETCH,
                                                 IMAGE_LOOP, ISSUE, PROGRESS,
-                                                RAYGEN, annotate, span)
+                                                RAYGEN, WAIT, annotate, span)
 
 
 def radiance_linear_v(data: SceneData, spec: SceneSpec, ro: V3, rd: V3,
@@ -409,17 +410,18 @@ def _is_transient(err: BaseException) -> bool:
     return not any(m in msg for m in _PERMANENT_MARKERS)
 
 
-def _retry_launch(fn, *args, retries: int = 2):
+def _retry_launch(fn, *args, retries: int = 2, wait: bool = True):
     """Run a render launch, retrying transient runtime failures.  A
     launch is a pure function of (scene, pixel/sample identities), so a
-    re-issue is safe.  The result stays on its device, but its work is
-    waited for inside the guarded region (the profiler span ``issue``),
-    so asynchronous device failures surface here."""
+    re-issue is safe.  The result stays on its device; with ``wait`` its
+    work is waited for inside the guarded region (the profiler span
+    ``issue``), so asynchronous device failures surface here, else they
+    surface where the caller waits (:func:`_lookahead`)."""
     for attempt in range(retries + 1):
         try:
             with span(ISSUE):
                 out = fn(*args)
-                if out.device.type == "cuda":
+                if wait and out.device.type == "cuda":
                     torch.cuda.current_stream(out.device).synchronize()
             return out
         except RuntimeError as e:
@@ -428,6 +430,55 @@ def _retry_launch(fn, *args, retries: int = 2):
             print(f"[raytrace_tpu_torch] launch failed (attempt "
                   f"{attempt + 1}/{retries + 1}); retrying", file=sys.stderr)
             time.sleep(0.5 * (attempt + 1))
+
+
+def _mark(out: torch.Tensor):
+    """An event recorded on ``out``'s stream after the work queued so far,
+    or None on the CPU, where that work is done."""
+    if out.device.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+    return done
+
+
+def _wait(done) -> None:
+    """Block the host until the work before the event ``done`` (from
+    :func:`_mark`) has finished; at once where it is None."""
+    if done is not None:
+        done.synchronize()
+
+
+def _lookahead(n: int, issue, finish) -> int:
+    """Groups ``0..n-1`` with one queued ahead: group k+1 is issued
+    (``issue(k)`` returns the group's result without waiting for it)
+    before the host waits for group k (the span ``wait``, counting in
+    ``ahead`` the groups queued behind it), then ``finish(k, out)`` adds
+    group k in.  Returns ``n``, or the group to go on from in order after
+    a transient failure at a wait: the groups in flight are dropped, and
+    nothing from that group on has been added.  A permanent failure
+    raises."""
+    def queue(k):
+        out = issue(k)
+        return out, _mark(out)
+
+    out, done = queue(0)
+    for k in range(n):
+        nxt = queue(k + 1) if k + 1 < n else None
+        try:
+            with span(WAIT, ahead=int(nxt is not None)):
+                _wait(done)
+        except RuntimeError as e:
+            if not _is_transient(e):
+                raise
+            print(f"[raytrace_tpu_torch] launch group {k} failed; redoing "
+                  f"it in order", file=sys.stderr)
+            time.sleep(0.5)
+            return k
+        finish(k, out)
+        if nxt is not None:
+            out, done = nxt
+    return n
 
 
 def _accumulate(acc: torch.Tensor, out: torch.Tensor, weight: float):
@@ -531,11 +582,20 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                 max_lanes: int, progress, checkpoint: str | None,
                 mesh=None, rows: tuple[int, int] | None = None) -> np.ndarray:
     """Host loop over groups of sample chunks.  Each group's mean is
-    added into a float64 image on the scene's device, which is fetched to
-    the host once, at the end; where a ``checkpoint`` path is given it is
-    also fetched and saved after every group, so a killed render resumes
-    at the last group boundary.  ``progress`` gets the completed fraction
-    in [0, 1], once a group, after the group's work has finished.
+    added into a float64 image on the scene's device, in group order,
+    which is fetched to the host once, at the end; where a ``checkpoint``
+    path is given it is also fetched and saved after every group, so a
+    killed render resumes at the last group boundary.  ``progress`` gets
+    the completed fraction in [0, 1], once a group, after the group's work
+    has finished.
+
+    A render of several groups with neither a checkpoint nor a mesh keeps
+    one group queued ahead (:func:`_lookahead`): group k+1 is issued
+    before the host waits for group k, so the device runs it while the
+    host adds group k in and calls ``progress``.  A checkpointed render
+    saves the groups finished, and a sharded one waits in its gather, so
+    both issue a group after the last one has finished, as does a render
+    of one group, which has nothing to overlap.
 
     With a ``mesh``, the pixels are sharded over its ranks
     (:func:`_render_group`): every rank then holds the whole image, and
@@ -546,9 +606,10 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
     returns ``(hi - lo, W, 3)`` and takes no checkpoint.
 
     While a profiler records, the loop is the span ``image_loop``, with
-    each group's ``issue`` (:func:`_retry_launch`), ``accumulate``,
-    ``progress``, and ``fetch`` and ``checkpoint`` where a path is given,
-    inside it, and the last ``fetch``."""
+    each group's ``issue`` (:func:`_retry_launch`), its ``wait`` where a
+    group is queued ahead, ``accumulate``, ``progress``, and ``fetch``
+    and ``checkpoint`` where a path is given, inside it, and the last
+    ``fetch``."""
     data, spec = scene.data, scene.spec
     w, h = spec.width, spec.height
     lo, hi = rows if rows is not None else (0, h)
@@ -566,10 +627,16 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
         px, py = pix % w, pix // w
         if hi > h:
             py.clamp_(max=h - 1)
-        for s0, sl, g in sample_groups(spec, aa, s_launch, s_done):
+        groups = list(sample_groups(spec, aa, s_launch, s_done))
+
+        def issue(k, wait=False):
+            s0, sl, g = groups[k]
+            return _retry_launch(_render_group, mesh, data, spec, px, py, s0,
+                                 sl, g, seed, p_launch, wait=wait)
+
+        def finish(k, out):
+            s0, sl, g = groups[k]
             n_s = g * sl
-            out = _retry_launch(_render_group, mesh, data, spec, px, py, s0,
-                                sl, g, seed, p_launch)
             _accumulate(acc, out, n_s / aa)
             if progress is not None:
                 with span(PROGRESS):
@@ -580,6 +647,12 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                     _save_checkpoint(checkpoint, image=image,
                                      s_done=s0 + n_s, width=w, height=h,
                                      aa=aa, seed=seed)
+
+        k0 = 0
+        if checkpoint is None and mesh is None and len(groups) > 1:
+            k0 = _lookahead(len(groups), issue, finish)
+        for k in range(k0, len(groups)):
+            finish(k, issue(k, wait=True))
         image = _fetch(acc)
     return image.reshape(hi - lo, w, 3)
 

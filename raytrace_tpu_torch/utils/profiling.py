@@ -14,10 +14,10 @@ close a range on every call whether or not anything records.  The CLI's
 While a profiler records, each span is also kept in memory
 (:func:`recorded`): its name, its parent (the span open around it on the
 same thread), its start and end in ``time.time_ns()``, and what it
-counted (a fetch's ``bytes``).  torch.profiler converts its host and
-device records to the same Unix-epoch clock, relative to the recording's
-start, so a reader of the trace can put the program's spans beside the
-device's records once it knows that start.
+counted (a fetch's ``bytes``, a wait's ``ahead``).  torch.profiler
+converts its host and device records to the same Unix-epoch clock,
+relative to the recording's start, so a reader of the trace can put the
+program's spans beside the device's records once it knows that start.
 """
 
 from __future__ import annotations
@@ -37,9 +37,10 @@ from torch.profiler import record_function
 # the image loop's (render/integrator.py) and the encoders'
 # (io/native.py, color.py)
 RANGES = (RAYGEN, INTERSECT, SHADE, BACKGROUND, GRAD_PSUM, IMAGE_LOOP, ISSUE,
-          FETCH, ACCUMULATE, PROGRESS, CHECKPOINT, SRGB_ENCODE) = (
+          WAIT, FETCH, ACCUMULATE, PROGRESS, CHECKPOINT, SRGB_ENCODE) = (
     "raygen", "intersect", "shade", "background", "grad_psum", "image_loop",
-    "issue", "fetch", "accumulate", "progress", "checkpoint", "srgb_encode")
+    "issue", "wait", "fetch", "accumulate", "progress", "checkpoint",
+    "srgb_encode")
 
 
 @dataclasses.dataclass(slots=True)

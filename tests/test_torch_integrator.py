@@ -238,6 +238,142 @@ def test_retry_launch_transient_vs_permanent(monkeypatch):
         assert len(calls) == 1
 
 
+def _synchronous(n, issue, finish):
+    """In place of ``integrator._lookahead``: no group queued ahead, every
+    group issued after the last one has finished, as a checkpointed
+    render's are."""
+    return 0
+
+
+def _spied(monkeypatch, events):
+    """``sample_pixels`` noting each call's first sample id in ``events``,
+    and a progress callback noting its fraction there."""
+    inner = integrator.sample_pixels
+
+    def spy(data, spec, px, py, sample_ids, seed, radiance=None):
+        events.append(("sample", int(sample_ids[0])))
+        return inner(data, spec, px, py, sample_ids, seed, radiance)
+
+    monkeypatch.setattr(integrator, "sample_pixels", spy)
+    return lambda frac: events.append(("progress", frac))
+
+
+@pytest.mark.parametrize("spp,checkpointed", [
+    (2, False),         # one group: nothing to queue ahead
+    (4, False),         # two groups
+    (6, False),         # three groups
+    (5, False),         # two groups and a ragged 1-sample tail
+    (5, True),          # checkpointed: the groups one after another
+])
+def test_next_group_is_issued_before_the_wait(tmp_path, monkeypatch, spp,
+                                              checkpointed):
+    """Without a checkpoint, group k+1's ``sample_pixels`` calls come
+    before group k's progress call, and group k+2's after it: one group
+    queued ahead.  A checkpointed render calls progress before it issues
+    the next group, and a render killed there resumes to the same bits.
+    Every image is the synchronous order's to the bit."""
+    sc = _small(CORNELL, 8, 8)
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 1)
+    kw = dict(seed=6, spp=spp, max_lanes=128)
+    s_launch, _ = integrator._s_p_launch(sc.spec, spp, 128)
+    groups = list(integrator.sample_groups(sc.spec, spp, s_launch))
+    assert len(groups) == {2: 1, 4: 2, 6: 3, 5: 3}[spp]
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "_lookahead", _synchronous)
+        want = integrator._image_loop(sc, progress=None, checkpoint=None,
+                                      **kw)
+    events = []
+    progress = _spied(monkeypatch, events)
+    ck = str(tmp_path / "state.npz") if checkpointed else None
+    got = integrator._image_loop(sc, progress=progress, checkpoint=ck, **kw)
+    assert np.array_equal(got, want)
+
+    def group_of(s):
+        return next(k for k, (s0, sl, g) in enumerate(groups)
+                    if s0 <= s < s0 + sl * g)
+
+    issued = [group_of(s) for kind, s in events if kind == "sample"]
+    assert issued == sorted(issued) and set(issued) == set(range(len(groups)))
+    # where each group's first sample_pixels call and its progress call
+    # fall among the events
+    first, done = {}, []
+    for i, (kind, x) in enumerate(events):
+        if kind == "progress":
+            done.append(i)
+        else:
+            first.setdefault(group_of(x), i)
+    assert [x for kind, x in events if kind == "progress"] == [
+        (s0 + sl * g) / spp for s0, sl, g in groups]
+    for k in range(len(groups) - 1):
+        assert (first[k + 1] < done[k]) == (not checkpointed)
+        if k + 2 < len(groups):
+            assert done[k] < first[k + 2]
+    if checkpointed:
+        class Stop(Exception):
+            pass
+
+        def stop_in_second(frac):
+            if frac > 0.5:
+                raise Stop
+
+        ck2 = str(tmp_path / "killed.npz")
+        with pytest.raises(Stop):
+            integrator._image_loop(sc, progress=stop_in_second,
+                                   checkpoint=ck2, **kw)
+        resumed = integrator._image_loop(sc, progress=None, checkpoint=ck2,
+                                         **kw)
+        assert np.array_equal(resumed, want)
+
+
+@pytest.mark.parametrize("transient", [True, False])
+def test_fault_at_a_groups_wait(monkeypatch, transient):
+    """A transient failure surfacing at group 1's wait drops the groups in
+    flight and redoes group 1 on in order: each group added once, the
+    image the synchronous order's to the bit.  A permanent one raises at
+    that wait, with no group issued again."""
+    monkeypatch.setattr(integrator.time, "sleep", lambda s: None)
+    sc = _small(CORNELL, 8, 8)
+    monkeypatch.setattr(integrator, "CHUNK_GROUP", 1)
+    kw = dict(seed=7, spp=6, max_lanes=128, checkpoint=None)
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "_lookahead", _synchronous)
+        want = integrator._image_loop(sc, progress=None, **kw)
+    events, waits, added = [], [], []
+    progress = _spied(monkeypatch, events)
+    err = RuntimeError("transient device hiccup" if transient else
+                       "CUDA error: an illegal memory access was "
+                       "encountered")
+
+    def wait(done):
+        waits.append(1)
+        if len(waits) == 2:
+            raise err
+
+    inner = integrator._accumulate
+
+    def accumulate(acc, out, weight):
+        added.append(weight)
+        inner(acc, out, weight)
+
+    monkeypatch.setattr(integrator, "_wait", wait)
+    monkeypatch.setattr(integrator, "_accumulate", accumulate)
+    if not transient:
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            integrator._image_loop(sc, progress=progress, **kw)
+        # groups 0 and 1 issued, group 2 queued behind group 1's wait; no
+        # group issued twice, only group 0 added
+        assert [s for kind, s in events if kind == "sample"] == [0, 2, 4]
+        assert len(waits) == 2 and added == [2 / 6]
+        return
+    got = integrator._image_loop(sc, progress=progress, **kw)
+    assert np.array_equal(got, want)
+    # group 1 and the queued group 2 issued again, in order; three adds
+    assert [s for kind, s in events if kind == "sample"] == [0, 2, 4, 2, 4]
+    assert added == [2 / 6] * 3
+    assert [x for kind, x in events if kind == "progress"] == [
+        2 / 6, 4 / 6, 6 / 6]
+
+
 @pytest.mark.parametrize("scene", ["cornell_indirect.txt",
                                    "materials_showcase.txt"])
 def test_group_bound_scales_with_wavefront_widest(scene, monkeypatch):

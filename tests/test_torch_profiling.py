@@ -30,9 +30,14 @@ CORNELL = str(repo_path("examples", "cornell_indirect.txt"))
 SHOWCASE = str(repo_path("examples", "materials_showcase.txt"))
 PHASES = {"raygen", "intersect", "shade", "background"}
 # the image loop's spans, each under its parent's name
-LOOP = {"issue": "image_loop", "fetch": "image_loop",
+LOOP = {"issue": "image_loop", "wait": "image_loop", "fetch": "image_loop",
         "accumulate": "image_loop", "progress": "image_loop",
         "checkpoint": "image_loop"}
+# the spans of three groups issued one ahead of the host's wait, each
+# wait counting the groups queued behind it, and the one fetch a render
+AHEAD = (["issue", "issue", "wait", "accumulate", "progress", "issue", "wait",
+          "accumulate", "progress", "wait", "accumulate", "progress",
+          "fetch"], [1, 1, 0])
 
 
 def _ranges(prof) -> set:
@@ -141,11 +146,14 @@ def _render(sc, checkpoint=None):
 def test_image_loop_records_its_spans(tmp_path, monkeypatch, checkpointed):
     """Under torch.profiler, two renders record the image loop's spans,
     each under its parent, all of a render under one ``image_loop`` of its
-    own: a group's ``issue``, ``accumulate`` and ``progress``, then, where
-    a checkpoint is written, a ``fetch`` of the float64 sum and the
-    ``checkpoint``; and one last ``fetch`` a render.  Every fetch counts
-    the float64 image's bytes; each ``sample_pixels`` call's phases lie
-    inside its group's ``issue``; the image is the same to the bit."""
+    own.  Where a checkpoint is written, a group's ``issue``,
+    ``accumulate``, ``progress``, a ``fetch`` of the float64 sum and the
+    ``checkpoint``, one group after another; without one, the next
+    group's ``issue`` before each group's ``wait`` (``ahead`` 1, the last
+    0), ``accumulate`` and ``progress``.  Then one last ``fetch`` a
+    render.  Every fetch counts the float64 image's bytes; each
+    ``sample_pixels`` call's phases lie inside its group's ``issue``; the
+    image is the same to the bit."""
     sc = _cornell16()
     monkeypatch.setattr(integrator, "CHUNK_GROUP", 2)
 
@@ -186,12 +194,17 @@ def test_image_loop_records_its_spans(tmp_path, monkeypatch, checkpointed):
                 assert up.name == LOOP[r.name], r
             if r.name in PHASES:
                 assert up.name == "issue", r
-    group = (["issue", "accumulate", "progress"]
-             + (["fetch", "checkpoint"] if checkpointed else []))
+    group = ["issue", "accumulate", "progress", "fetch", "checkpoint"]
     for root in roots:
         mine = [r for r in recs if outermost(r) is root]
-        assert [r.name for r in mine if r.name in LOOP] == group * 3 + [
-            "fetch"]
+        if checkpointed:
+            assert [r.name for r in mine if r.name in LOOP] == group * 3 + [
+                "fetch"]
+            assert not [r for r in mine if r.name == "wait"]
+        else:
+            assert [r.name for r in mine if r.name in LOOP] == AHEAD[0]
+            assert [r.counts for r in mine if r.name == "wait"] == [
+                {"ahead": a} for a in AHEAD[1]]
         assert [r.counts for r in mine if r.name == "fetch"] == [
             {"bytes": 16 * 16 * 3 * 8}] * (4 if checkpointed else 1)
     # two renders of two groups of two chunks and a one-chunk tail: each
@@ -201,9 +214,10 @@ def test_image_loop_records_its_spans(tmp_path, monkeypatch, checkpointed):
 
 def test_band_records_the_loop_spans(monkeypatch):
     """``render_rows_multihost`` on one CPU rank goes through the image
-    loop: one ``image_loop`` holding each group's ``issue``,
-    ``accumulate`` and ``progress`` and the one ``fetch`` of the band's
-    float64 bytes, and its band is the whole image to the bit."""
+    loop: one ``image_loop`` holding each group's ``issue``, the next
+    group's issued before its ``wait``, its ``accumulate`` and
+    ``progress``, and the one ``fetch`` of the band's float64 bytes, and
+    its band is the whole image to the bit."""
     sc = _cornell16()
     monkeypatch.setattr(integrator, "CHUNK_GROUP", 2)
     plain = _render(sc)
@@ -218,8 +232,9 @@ def test_band_records_the_loop_spans(monkeypatch):
     by_id = {r.id: r for r in recs}
     assert [r.name for r in recs if r.parent is None] == ["image_loop"]
     loop = [r for r in recs if r.name in LOOP]
-    assert [r.name for r in loop] == ["issue", "accumulate",
-                                      "progress"] * 3 + ["fetch"]
+    assert [r.name for r in loop] == AHEAD[0]
+    assert [r.counts for r in loop if r.name == "wait"] == [
+        {"ahead": a} for a in AHEAD[1]]
     assert all(by_id[r.parent].name == "image_loop" for r in loop)
     assert loop[-1].counts == {"bytes": 16 * 16 * 3 * 8}
 

@@ -103,18 +103,19 @@ def tree_instance(cap: int) -> int:
 
 def launch_counts(spec: SceneSpec, n: int) -> dict:
     """What the wrapper's span of a render launch of ``n`` lanes counts
-    while a profiler records: ``lanes``, and for the tree kernel its
-    instance, ``stack`` (one of ``TREE_STACK_CAPS``, or ``TREE_SLAB``),
-    ``large`` (1 where it folds a large scene's table, else 0), ``lights``
-    (the scene's lights) and ``lens`` (the camera's lens samples, of
-    which a launch's lanes take every one)."""
+    while a profiler records, for the linear and the tree kernel alike:
+    ``lanes``, and the instance the scene takes, ``large`` (1 where it
+    folds a large scene's table, else 0), ``lights`` (the scene's lights)
+    and ``lens`` (the camera's lens samples, of which a launch's lanes
+    take every one); for the tree kernel also ``stack`` (one of
+    ``TREE_STACK_CAPS``, or ``TREE_SLAB``)."""
+    counts = {"lanes": n, "large": int(is_large(spec)),
+              "lights": spec.n_lights, "lens": spec.cam_samples}
     if kernel_for(spec) != KERNEL_TREE:
-        return {"lanes": n}
+        return counts
     from raytrace_tpu_torch.render.integrator import tree_loop_stack
 
-    return {"lanes": n, "stack": tree_instance(tree_loop_stack(spec)[3]),
-            "large": int(is_large(spec)), "lights": spec.n_lights,
-            "lens": spec.cam_samples}
+    return dict(counts, stack=tree_instance(tree_loop_stack(spec)[3]))
 
 
 def scene_shared_bytes(spec: SceneSpec) -> int:

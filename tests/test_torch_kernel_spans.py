@@ -1,10 +1,10 @@
 """What the render kernels' wrapper spans count: ``kernel_forward`` keeps
 its counts with its span's record while a profiler records and keeps no
-record otherwise (on the CPU, with a stand-in kernel); a render launch
-counts its lanes, and a tree kernel's launch also its stack instance,
-whether it folds a large scene's table, the scene's lights and the
-camera's lens samples (``megakernel.launch_counts``); on the card each
-launch's span carries them."""
+record otherwise (on the CPU, with a stand-in kernel); a render launch of
+either kernel counts its lanes, whether it folds a large scene's table,
+the scene's lights and the camera's lens samples, and a tree kernel's
+launch also its stack instance (``megakernel.launch_counts``); on the
+card each launch's span carries them."""
 
 import numpy as np
 import pytest
@@ -22,6 +22,7 @@ from conftest import repo_path
 CORNELL = str(repo_path("examples", "cornell_indirect.txt"))
 SHOWCASE = str(repo_path("examples", "materials_showcase.txt"))
 COUNTS = {"lanes": 6, "stack": 8, "large": 1}
+LINEAR_COUNTS = {"lanes": 6, "large": 0, "lights": 2, "lens": 2}
 # a Phong mirror floor and a Phong sphere under a point and a directional
 # light, seen through a depth-of-field camera of 2 lens samples: linear
 LIT_MIRROR = """{
@@ -51,20 +52,26 @@ def _twice(t):
     return (t * 2.0,)
 
 
-def test_kernel_forward_keeps_its_counts_while_recording():
+def _keeps_its_counts(name, counts):
     x = torch.arange(6.0)
     before = len(profiling.recorded())
-    out, = kernel_forward(_twice, _twice, x, name="megakernel_tree",
-                          **COUNTS)
+    out, = kernel_forward(_twice, _twice, x, name=name, **counts)
     assert torch.equal(out, x * 2.0)
     assert len(profiling.recorded()) == before
     with profile(activities=[ProfilerActivity.CPU]):
-        out, = kernel_forward(_twice, _twice, x, name="megakernel_tree",
-                              **COUNTS)
+        out, = kernel_forward(_twice, _twice, x, name=name, **counts)
     new = profiling.recorded()[before:]
-    assert [(r.name, r.counts) for r in new] == [("megakernel_tree",
-                                                  COUNTS)]
+    assert [(r.name, r.counts) for r in new] == [(name, counts)]
     assert new[0].end_ns is not None and torch.equal(out, x * 2.0)
+
+
+def test_kernel_forward_keeps_its_counts_while_recording():
+    _keeps_its_counts("megakernel_tree", COUNTS)
+
+
+def test_kernel_forward_keeps_a_linear_launchs_counts():
+    """A K1 launch's span keeps its instance's counts as a tree one's."""
+    _keeps_its_counts("megakernel_linear", LINEAR_COUNTS)
 
 
 def _field(mix: bool, device="cpu"):
@@ -73,31 +80,37 @@ def _field(mix: bool, device="cpu"):
 
 
 @pytest.mark.parametrize("case, want", [
-    ("cornell", {"lanes": 96}),
-    ("field", {"lanes": 96}),
-    ("lit_mirror", {"lanes": 96}),
+    ("cornell", {"lanes": 96, "large": 0, "lights": 0, "lens": 1}),
+    ("field", {"lanes": 96, "large": 1, "lights": 0, "lens": 1}),
+    ("lit_mirror", {"lanes": 96, "large": 0, "lights": 2, "lens": 2}),
     ("showcase", {"lanes": 96, "stack": 8, "large": 0, "lights": 3,
                   "lens": 4}),
     ("mix", {"lanes": 96, "stack": 8, "large": 1, "lights": 0, "lens": 1}),
 ])
 def test_launch_counts(case, want):
-    """K1's launches count their lanes; K3's also the stack instance of a
-    6-level binary tree (6 entries: the 8-entry instance), ``large``, the
-    scene's lights and the camera's lens samples."""
+    """Every launch counts its lanes, ``large``, the scene's lights and the
+    camera's lens samples; K3's also the stack instance of a 6-level
+    binary tree (6 entries: the 8-entry instance)."""
     assert megakernel.launch_counts(_scene(case).spec, 96) == want
 
 
 def test_tree_counts_name_the_lit_instance():
     """A tree launch's counts tell the showcase's instance (three lights,
     four lens samples, the small scene) from the mixed field's (no light,
-    a pinhole camera, the fold), while a linear launch under lights and a
-    depth-of-field camera counts its lanes alone, the key it had."""
+    a pinhole camera, the fold), and a linear launch's tell the lit
+    mirror's instance (two lights, two lens samples) from the cornell
+    box's (no light, a pinhole camera) by the same keys, without a
+    stack."""
     lit, mix = (megakernel.launch_counts(_scene(c).spec, 96)
                 for c in ("showcase", "mix"))
     assert {k for k in lit if lit[k] != mix[k]} == {"large", "lights",
                                                     "lens"}
-    assert set(megakernel.launch_counts(_scene("lit_mirror").spec, 96)) == {
-        "lanes"}
+    mirror, cornell = (megakernel.launch_counts(_scene(c).spec, 96)
+                       for c in ("lit_mirror", "cornell"))
+    assert set(mirror) == set(cornell) == {"lanes", "large", "lights",
+                                           "lens"}
+    assert {k for k in mirror if mirror[k] != cornell[k]} == {"lights",
+                                                              "lens"}
 
 
 def _scene(case, device="cpu"):
@@ -117,12 +130,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cornell", "mix", "showcase"])
+@pytest.mark.parametrize("case", ["cornell", "lit_mirror", "mix",
+                                  "showcase"])
 def test_render_launch_records_its_counts(cuda_device, case):
-    """One launch of K1 (cornell), of K3's large instance (the mixed
-    1,006-object field) or of its small one (the showcase) under the
-    profiler: one wrapper span, counting the launch's lanes, and for K3
-    the 8-entry stack, ``large``, the lights and the lens samples."""
+    """One launch of K1 (cornell), of its lit instance (the lit mirror), of
+    K3's large instance (the mixed 1,006-object field) or of its small one
+    (the showcase) under the profiler: one wrapper span, counting the
+    launch's lanes, ``large``, the lights and the lens samples, and for K3
+    the 8-entry stack."""
     sc = _scene(case, cuda_device)
     rs = np.random.RandomState(4)
     n = 8192
@@ -137,7 +152,8 @@ def test_render_launch_records_its_counts(cuda_device, case):
     name = megakernel.kernel_for(sc.spec)
     spans = [r for r in profiling.recorded()[before:] if r.name == name]
     tree = {"lanes": n, "stack": 8}
-    want = {"cornell": {"lanes": n},
+    want = {"cornell": {"lanes": n, "large": 0, "lights": 0, "lens": 1},
+            "lit_mirror": {"lanes": n, "large": 0, "lights": 2, "lens": 2},
             "mix": dict(tree, large=1, lights=0, lens=1),
             "showcase": dict(tree, large=0, lights=3, lens=4)}[case]
     assert [r.counts for r in spans] == [want]

@@ -479,8 +479,8 @@ def sky_coherent_directions(sky, device) -> torch.Tensor:
     are neighbours on a face, as a render's misses out of an open box."""
     from raytrace_tpu_torch.render.integrator import primary_rays
 
-    lanes, _ = cli_launch_lanes(sky.spec, device)
-    _, rd, _, _ = primary_rays(sky.data, sky.spec, *lanes, SEED)
+    launch, _ = cli_launch_lanes(sky.spec, device)
+    _, rd, _, _ = primary_rays(sky.data, sky.spec, *launch.expand(), SEED)
     return torch.stack(list(rd), dim=1).contiguous()
 
 
@@ -710,17 +710,23 @@ def pixel_lanes(width, n_pix, spp, cam_samples, device):
                     cam_samples)
 
 
-def cli_launch_lanes(spec, device):
-    """The lanes of the CLI's first launch of a scene at its own settings:
-    every pixel, the first aa samples that fit the CLI's lane budget, each
-    with every lens sample.  Returns (lanes, aa samples per launch)."""
+def cli_launch_lanes(spec, device, every: int = 1):
+    """The CLI's first launch of a scene at its own settings, as the image
+    loop hands it to the kernels: a ``megakernel.LaunchLanes`` of every
+    ``every``-th pixel (int32 ids), the first aa samples that fit the
+    CLI's lane budget and every lens sample.  Returns (the launch, aa
+    samples per launch)."""
     from raytrace_tpu_torch.render.integrator import _s_p_launch
+    from raytrace_tpu_torch.render.megakernel import LaunchLanes
 
     s_launch, p_launch = _s_p_launch(spec, spec.antialias, 1 << 22)
     if p_launch != spec.width * spec.height:
         raise AssertionError("the image no longer fits one launch")
-    return pixel_lanes(spec.width, p_launch, s_launch, spec.cam_samples,
-                       device), s_launch
+    pix = torch.arange(0, p_launch, every, dtype=torch.int32, device=device)
+    return LaunchLanes(pix % spec.width, pix // spec.width,
+                       torch.arange(s_launch, dtype=torch.int32,
+                                    device=device),
+                       spec.cam_samples), s_launch
 
 
 def compare_scan(got, want, quiet: bool = False) -> dict:
@@ -1732,12 +1738,12 @@ def main() -> int:
     scene = load_scene_file(SCENE, device=device)
     data, spec = scene.data, scene.spec
     rand_lanes = random_lanes(spec, 65536, SEED, device)
-    main_lanes = pixel_lanes(spec.width, spec.width * spec.height, 16, 1,
-                             device)
+    main_launch, s_main = cli_launch_lanes(spec, device)
     print(f"[3, {at()}] " "kernel vs plain on cornell_indirect, then on a "
           "scene of exact ties:")
     for name, lanes in (("random cornell lanes", rand_lanes),
-                        ("the CLI's launch, 512x512 x 16 spp", main_lanes)):
+                        (f"the CLI's launch, {spec.width}x{spec.height} x "
+                         f"{s_main} spp", (main_launch,))):
         stats = check_kernel(megakernel, k_lin, data, spec, lanes, SEED, name)
         max_err[k_lin] = max(max_err[k_lin], stats["max_abs_err"])
 
@@ -1863,10 +1869,15 @@ def main() -> int:
     lit = build_scene(dsl.parse(LIT_MIRROR), device=device)
     print(f"[6, {at()}] " "kernel vs plain on the lit mirror scene (point and "
           "directional lights, Phong mirror, depth of field):")
-    stats = check_kernel(megakernel, k_lin, lit.data, lit.spec,
-                         random_lanes(lit.spec, 65536, SEED, device), SEED,
-                         "65,536 random lanes")
-    max_err[k_lin] = max(max_err[k_lin], stats["max_abs_err"])
+    lit_launch, s_lit = cli_launch_lanes(lit.spec, device)
+    for name, lanes in (("65,536 random lanes",
+                         random_lanes(lit.spec, 65536, SEED, device)),
+                        (f"the CLI's launch, {lit.spec.width}x"
+                         f"{lit.spec.height} x {s_lit} aa x "
+                         f"{lit.spec.cam_samples} lens", (lit_launch,))):
+        stats = check_kernel(megakernel, k_lin, lit.data, lit.spec, lanes,
+                             SEED, name)
+        max_err[k_lin] = max(max_err[k_lin], stats["max_abs_err"])
 
     # ---- phase 7: the tree kernel vs plain version ----
     show = load_scene_file(SHOWCASE, device=device)
@@ -1899,16 +1910,23 @@ def main() -> int:
 
     # ---- phase 8: the showcase through the CLI at its own settings ----
     s = show.spec
-    lanes, s_launch = cli_launch_lanes(s, device)
-    show_launch_lanes = [t.to(torch.int32) for t in lanes]
+    show_launch, s_launch = cli_launch_lanes(s, device)
+    show_launch_lanes = [t.to(torch.int32) for t in show_launch.expand()]
     print(f"[8, {at()}] "
           f"the CLI's launch, {s.width}x{s.height} x {s_launch} aa x "
           f"{s.cam_samples} lens samples:")
     t0 = time.perf_counter()
-    stats = check_kernel(megakernel, k_tree, show.data, s, lanes, SEED,
-                         "the CLI's launch")
+    stats = check_kernel(megakernel, k_tree, show.data, s, (show_launch,),
+                         SEED, "the CLI's launch")
     print(f"    ({time.perf_counter() - t0:.2f} s)")
     max_err[k_tree] = max(max_err[k_tree], stats["max_abs_err"])
+    # the slab decodes a factored launch too: every 8th pixel of it
+    slab_launch, _ = cli_launch_lanes(s, device, every=8)
+    with forced_slab(megakernel):
+        stats = check_kernel(megakernel, k_tree, show.data, s,
+                             (slab_launch,), SEED,
+                             "the CLI's launch, every 8th pixel, the slab form")
+    max_err[k_tree_slab] = max(max_err[k_tree_slab], stats["max_abs_err"])
     done, wall, launches, size = cli_render(cli, megakernel, k_tree, SHOWCASE,
                                             [], s)
     tree_launches = launches[k_tree]
@@ -1957,8 +1975,7 @@ def main() -> int:
             n_cli = show_launch_lanes[0].shape[0]
 
             def kernel_cli():
-                megakernel.radiance_lanes(sc.data, sc.spec,
-                                          *show_launch_lanes, 0)
+                megakernel.radiance_lanes(sc.data, sc.spec, show_launch, 0)
 
             cli_ms = [ms_per_launch(kernel_cli, 3, k_reps) for _ in range(2)]
             work = path_work(sc.data, sc.spec, show_launch_lanes, 0)
@@ -2082,15 +2099,15 @@ def main() -> int:
             sc = load_scene_file(path, device=device)
             if len(sc.spec.live_objects()) != 1006:
                 raise AssertionError("the field file lost objects")
-            lanes, s_launch = cli_launch_lanes(sc.spec, device)
-            if mix:  # the plain DFS takes 37 s on the whole launch
-                lanes = [t[::8] for t in lanes]
+            # the plain DFS takes 37 s on the whole launch
+            launch, s_launch = cli_launch_lanes(sc.spec, device,
+                                                every=8 if mix else 1)
             t0 = time.perf_counter()
             stats = check_kernel(
-                megakernel, kname, sc.data, sc.spec, lanes, SEED,
+                megakernel, kname, sc.data, sc.spec, (launch,), SEED,
                 f"{label} field, the CLI's launch, {sc.spec.width}x"
                 f"{sc.spec.height} x {s_launch} aa"
-                + (", every 8th lane" if mix else ""))
+                + (", every 8th pixel" if mix else ""))
             print(f"    ({time.perf_counter() - t0:.2f} s)")
             max_err[row] = max(max_err[row], stats["max_abs_err"])
             done, wall, launches, size = cli_render(cli, megakernel, kname,
@@ -2354,7 +2371,8 @@ def main() -> int:
         """Of the primary rays that miss, the share whose two largest
         components lie within 1e-6 relative: a last-bit difference in
         the direction can send such a ray to another face."""
-        ro, rd, _, _ = primary_rays(data, spec, *lanes, seed)
+        ro, rd, _, _ = primary_rays(data, spec,
+                                    *megakernel.lane_args((*lanes, seed)))
         miss = ~closest_hit(data, spec, ro, rd).hit
         a = torch.stack(list(rd)).abs().sort(dim=0).values
         near = (a[2] - a[1]) <= 1e-6 * a[2]
@@ -2372,15 +2390,14 @@ def main() -> int:
         sc = sky_scenes[name][1]
         if megakernel.is_large(sc.spec) != name.startswith("field"):
             raise AssertionError(f"{name}: wrong regime")
-        launch_lanes, s_launch = cli_launch_lanes(sc.spec, device)
-        launch_lanes = [t[::every] for t in launch_lanes]
+        launch, s_launch = cli_launch_lanes(sc.spec, device, every=every)
         for label, lanes in (
                 ("65,536 random lanes",
                  random_lanes(sc.spec, 65536, SEED, device)),
                 (f"the CLI's launch, {sc.spec.width}x{sc.spec.height} x "
                  f"{s_launch} aa x {sc.spec.cam_samples} lens"
-                 + (f", every {every}th lane" if every > 1 else ""),
-                 launch_lanes)):
+                 + (f", every {every}th pixel" if every > 1 else ""),
+                 (launch,))):
             t0 = time.perf_counter()
             stats = check_kernel(megakernel, kname, sc.data, sc.spec, lanes,
                                  SEED, f"{name} under the sky, {label}")

@@ -21,9 +21,11 @@
 // What bounds it on an H100: the issue of its instructions, some thousands
 // a lane (the object tests of every node, the shading, the RNG's integer
 // hashes), and the latency that its warps in flight hide; memory traffic is
-// 16 B in (four 32-bit lane ids) and 12 B out per lane.  All ray state stays
-// in registers for the whole chain, so registers decide the blocks an SM
-// holds: the object loops stay rolled, each row carries the constant of its
+// 12 B out per lane, and in its ids: 16 B a lane from four lane arrays, or,
+// in a render launch's factored form, 8 B a pixel and 4 a sample, which
+// the pixel's lanes share (lane_id of render_common.cuh).  All ray state
+// stays in registers for the whole chain, so registers decide the blocks an
+// SM holds: the object loops stay rolled, each row carries the constant of its
 // test (a sphere's r * r, a plane's p.n) so that no lane recomputes it, the
 // two key hashes of a lane share their common prefix, one sincosf serves
 // the indirect sample, and the launch bounds keep the lit instances at 72
@@ -77,10 +79,11 @@ __global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
                                   linear_min_blocks(LIT, LARGE))
 megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                   const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                  const float* __restrict__ scene, const void* __restrict__ fold,
-                  int n_sph_chunks, int n_chunks, Sky sky, int n_obj, int n_light,
-                  int max_depth, int has_reflect, int has_refract, int n_indirect, int dof,
-                  uint32_t seed, float* __restrict__ out, long long n) {
+                  uint32_t samples, uint32_t lens, const float* __restrict__ scene,
+                  const void* __restrict__ fold, int n_sph_chunks, int n_chunks, Sky sky,
+                  int n_obj, int n_light, int max_depth, int has_reflect, int has_refract,
+                  int n_indirect, int dof, uint32_t seed, float* __restrict__ out,
+                  long long n) {
   extern __shared__ float4 smem[];
   float* s = (float*)smem;
   const void* fold_at = fold;
@@ -97,8 +100,8 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
   const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene,
                  make_tables(fold_at, n_sph_chunks, n_chunks), sky};
 
-  Node e = primary_ray<LARGE != 0>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed,
-                                   LIT && dof);
+  const LaneId id = lane_id(Lanes{pix, piy, aa, cam, samples, lens}, lane);
+  Node e = primary_ray<LARGE != 0>(s, id.px, id.py, id.aa, id.cam, seed, LIT && dof);
   float accx = 0.0f, accy = 0.0f, accz = 0.0f;
   bool walking = true;
   for (int depth = 0; depth <= max_depth + 1; ++depth) {
@@ -136,10 +139,10 @@ megakernel_linear(const uint32_t* __restrict__ pix, const uint32_t* __restrict__
 
 template <bool LIT, int LARGE, bool SKY>
 int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const uint32_t* cam,
-           const float* scene, const void* fold, int n_sph_chunks, int n_chunks,
-           const Sky& sky, int n_obj, int n_light, int max_depth, int has_reflect,
-           int has_refract, int n_indirect, int dof, uint32_t seed, float* out, long long n,
-           cudaStream_t stream) {
+           uint32_t samples, uint32_t lens, const float* scene, const void* fold,
+           int n_sph_chunks, int n_chunks, const Sky& sky, int n_obj, int n_light,
+           int max_depth, int has_reflect, int has_refract, int n_indirect, int dof,
+           uint32_t seed, float* out, long long n, cudaStream_t stream) {
   const int threads = LARGE != 0 ? LARGE_THREADS : THREADS;
   const long long blocks = (n + threads - 1) / threads;
   const size_t smem = scene_bytes(LARGE != 0 ? 0 : n_obj, n_light)
@@ -148,8 +151,8 @@ int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const u
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   megakernel_linear<LIT, LARGE, SKY><<<(unsigned)blocks, threads, smem, stream>>>(
-      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj, n_light,
-      max_depth, has_reflect, has_refract, n_indirect, dof, seed, out, n);
+      pix, piy, aa, cam, samples, lens, scene, fold, n_sph_chunks, n_chunks, sky, n_obj,
+      n_light, max_depth, has_reflect, has_refract, n_indirect, dof, seed, out, n);
   return (int)cudaGetLastError();
 }
 
@@ -158,7 +161,11 @@ int launch(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa, const u
 extern "C" {
 
 // Launches on `stream`; allocates nothing.  `out` holds 3 * n floats
-// (x, then y, then z).  Returns the launch's cudaError_t.  `dof` is 1
+// (x, then y, then z).  The lanes are n words in each of pix, piy, aa and
+// cam where `lens` is 0, else a render launch in factored form (Lanes of
+// render_common.cuh): n = P * samples * lens lanes of the P pixels of pix
+// and piy, the `samples` sample ids of aa and `lens` lens samples, with cam
+// unused.  Returns the launch's cudaError_t.  `dof` is 1
 // for the depth-of-field camera.  Scenes with no light, no reflect or
 // refract slot and a pinhole camera take the instance without their code.
 // n_chunks > 0 selects the large instances: `fold` is then the scene's fold
@@ -170,7 +177,8 @@ extern "C" {
 // device memory), with `face_hw` 14 ints in host memory (hmax, wmax, then
 // each face's own height and width).
 int rt_megakernel_linear(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
-                         const uint32_t* cam, const float* scene, const void* fold,
+                         const uint32_t* cam, uint32_t samples, uint32_t lens,
+                         const float* scene, const void* fold,
                          int n_sph_chunks, int n_chunks, int fold_shared,
                          const float* sky_quads, const int* face_hw, int n_obj, int n_light,
                          int max_depth, int has_reflect, int has_refract, int n_indirect,
@@ -184,7 +192,7 @@ int rt_megakernel_linear(const uint32_t* pix, const uint32_t* piy, const uint32_
                       ? (lit ? RT_PICK(true, true) : RT_PICK(false, true))
                       : (lit ? RT_PICK(true, false) : RT_PICK(false, false));
 #undef RT_PICK
-  return fn(pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, sky, n_obj,
+  return fn(pix, piy, aa, cam, samples, lens, scene, fold, n_sph_chunks, n_chunks, sky, n_obj,
             n_light, max_depth, has_reflect, has_refract, n_indirect, dof, seed, out, n,
             (cudaStream_t)stream);
 }

@@ -33,15 +33,17 @@
 // What bounds it on an H100: instruction throughput in the node body (FP32 and
 // the special-function units, as in the linear kernel), times the largest
 // number of live nodes among a warp's 32 lanes, since a warp runs until
-// its last lane's stack is empty; memory traffic is 16 B in and 12 B out
-// per lane.  On the showcase 3.9 of the 63 nodes of a lane's tree are live,
-// and a walk that popped all 63 spent its time on dead entries: 18 words of
-// local-memory traffic per pop, and a node body whenever any lane of the
-// warp was live at that position of the tree.  Here a dead subtree is never
-// pushed, popped or initialised, the stack pointer is the thread's own, and
-// a warp iterates over the live nodes of its busiest lane.  Threads of a
-// warp sit at different depths of their trees; the node body's only
-// depth-dependent branch is the ambient return at the last level.
+// its last lane's stack is empty; memory traffic is 12 B out per lane and
+// in its ids 16 B, or 8 B a pixel and 4 a sample in a render launch's
+// factored form (lane_id of render_common.cuh).  On the showcase 3.9 of
+// the 63 nodes of a lane's tree are live, and a walk that popped all 63
+// spent its time on dead entries: 18 words of local-memory traffic per
+// pop, and a node body whenever any lane of the warp was live at that
+// position of the tree.  Here a dead subtree is never pushed, popped or
+// initialised, the stack pointer is the thread's own, and a warp iterates
+// over the live nodes of its busiest lane.  Threads of a warp sit at
+// different depths of their trees; the node body's only depth-dependent
+// branch is the ambient return at the last level.
 //
 // The stack holds entries of 13 words (ray 6, significance, throughput 3,
 // two key words, depth) and never more than (levels - 1)(m - 1) of them,
@@ -113,15 +115,13 @@ constexpr int tree_min_blocks(int cap, int large) {
 // start together and the folds of a large scene find all their peers
 template <int LARGE, bool SKY, class Stack>
 __device__ __forceinline__ void walk_lane(const Scene& sc, const float* s, Stack& stack,
-                                          unsigned warp, long long lane,
-                                          const uint32_t* __restrict__ pix,
-                                          const uint32_t* __restrict__ piy,
-                                          const uint32_t* __restrict__ aa,
-                                          const uint32_t* __restrict__ cam, int dof, int m,
-                                          uint32_t seed, float* __restrict__ out, long long n) {
+                                          unsigned warp, long long lane, const Lanes& ids,
+                                          int dof, int m, uint32_t seed,
+                                          float* __restrict__ out, long long n) {
   const bool direct = sc.slots() <= m;  // slot j is child j
   int sp = 0;
-  Node e = primary_ray<LARGE != 0>(s, pix[lane], piy[lane], aa[lane], cam[lane], seed, dof);
+  const LaneId id = lane_id(ids, lane);
+  Node e = primary_ray<LARGE != 0>(s, id.px, id.py, id.aa, id.cam, seed, dof);
   int depth = 0;
   float accx = 0.0f, accy = 0.0f, accz = 0.0f;
   bool walking = true;
@@ -148,9 +148,10 @@ __global__ void __launch_bounds__(LARGE != 0 ? LARGE_THREADS : THREADS,
                                   tree_min_blocks(CAP, LARGE))
 megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ piy,
                 const uint32_t* __restrict__ aa, const uint32_t* __restrict__ cam,
-                const float* __restrict__ scene, const void* __restrict__ fold, int n_sph_chunks,
-                int n_chunks, Sky sky, int n_obj, int n_light, int max_depth,
-                int has_reflect, int has_refract, int n_indirect, int dof, int m,
+                uint32_t samples, uint32_t lens, const float* __restrict__ scene,
+                const void* __restrict__ fold, int n_sph_chunks, int n_chunks, Sky sky,
+                int n_obj, int n_light, int max_depth, int has_reflect, int has_refract,
+                int n_indirect, int dof, int m,
                 uint32_t* __restrict__ slab, unsigned long long* __restrict__ next,
                 uint32_t seed, float* __restrict__ out, long long n) {
   extern __shared__ float4 smem[];
@@ -167,11 +168,12 @@ megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ p
   const Scene sc{s, n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, scene,
                  make_tables(fold_at, n_sph_chunks, n_chunks), sky};
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const Lanes ids{pix, piy, aa, cam, samples, lens};
   if constexpr (CAP > 0) {
     const unsigned warp = __ballot_sync(0xFFFFFFFFu, tid < n);
     if (tid >= n) return;
     LocalStack<CAP> stack;
-    walk_lane<LARGE, SKY>(sc, s, stack, warp, tid, pix, piy, aa, cam, dof, m, seed, out, n);
+    walk_lane<LARGE, SKY>(sc, s, stack, warp, tid, ids, dof, m, seed, out, n);
   } else {
     SlabStack stack{slab + tid, (long long)gridDim.x * blockDim.x};
     // lanes are taken as the warps come free: a lane's tree can hold
@@ -186,7 +188,7 @@ megakernel_tree(const uint32_t* __restrict__ pix, const uint32_t* __restrict__ p
       const long long lane = (long long)first + lid;
       const unsigned warp = __ballot_sync(0xFFFFFFFFu, lane < n);
       if (lane < n)
-        walk_lane<LARGE, SKY>(sc, s, stack, warp, lane, pix, piy, aa, cam, dof, m, seed, out, n);
+        walk_lane<LARGE, SKY>(sc, s, stack, warp, lane, ids, dof, m, seed, out, n);
     }
   }
 }
@@ -237,8 +239,9 @@ int large_mode(int n_chunks, int fold_shared) {
 extern "C" {
 
 // Launches on `stream`; allocates nothing.  `out` holds 3 * n floats
-// (x, then y, then z).  `dof` is 1 for the depth-of-field camera, `m` the
-// most children of a node.  `stack_cap` is the entries of a thread's
+// (x, then y, then z), of the lanes that pix, piy, aa, cam, `samples`
+// and `lens` give as rt_megakernel_linear takes them.  `dof` is 1 for the
+// depth-of-field camera, `m` the most children of a node.  `stack_cap` is the entries of a thread's
 // stack: with a null `slab`, the local-memory instance of that many
 // (render/megakernel.py::tree_instance: 8, 16, 32, 64, 128 or 256); with a
 // slab, the slab instance, the slab holding stack_cap * 13 words for each
@@ -252,10 +255,11 @@ extern "C" {
 // non-null `sky_quads` the skybox instances, with `fold`, `fold_shared`,
 // `scene`, `sky_quads` and `face_hw` as rt_megakernel_linear takes them.
 int rt_megakernel_tree(const uint32_t* pix, const uint32_t* piy, const uint32_t* aa,
-                       const uint32_t* cam, const float* scene, const void* fold,
-                       int n_sph_chunks, int n_chunks, int fold_shared, const float* sky_quads,
-                       const int* face_hw, int n_obj, int n_light, int max_depth,
-                       int has_reflect, int has_refract, int n_indirect, int dof, int m,
+                       const uint32_t* cam, uint32_t samples, uint32_t lens,
+                       const float* scene, const void* fold, int n_sph_chunks, int n_chunks,
+                       int fold_shared, const float* sky_quads, const int* face_hw,
+                       int n_obj, int n_light, int max_depth, int has_reflect,
+                       int has_refract, int n_indirect, int dof, int m,
                        int stack_cap, uint32_t* slab, long long slab_threads,
                        unsigned long long* next, uint32_t seed, float* out, long long n,
                        void* stream) {
@@ -276,7 +280,8 @@ int rt_megakernel_tree(const uint32_t* pix, const uint32_t* piy, const uint32_t*
     err = cudaMemsetAsync(next, 0, sizeof(*next), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      pix, piy, aa, cam, scene, fold, n_sph_chunks, n_chunks, make_sky(sky_quads, face_hw),
+      pix, piy, aa, cam, samples, lens, scene, fold, n_sph_chunks, n_chunks,
+      make_sky(sky_quads, face_hw),
       n_obj, n_light, max_depth, has_reflect, has_refract, n_indirect, dof, m, slab, next, seed,
       out, n);
   return (int)cudaGetLastError();

@@ -331,6 +331,30 @@ __device__ __forceinline__ float dot_(float ax, float ay, float az, float bx, fl
   return add_<RN>(add_<RN>(mul_<RN>(ax, bx), mul_<RN>(ay, by)), mul_<RN>(az, bz));
 }
 
+// ---- a lane's identity (render/megakernel.py::_launch): a word a lane in
+// each of four arrays (lens 0), or a render launch in factored form, P
+// pixels (px, py) by S sample ids (aa) by `lens` lens samples, of which lane
+// i is pixel i / (S lens), sample (i / lens) % S and lens sample i % lens
+// (integrator.lane_ids' order; cam unused; fewer than 2^32 lanes)
+struct Lanes {
+  const uint32_t* px;
+  const uint32_t* py;
+  const uint32_t* aa;
+  const uint32_t* cam;
+  uint32_t samples, lens;
+};
+
+struct LaneId {
+  uint32_t px, py, aa, cam;
+};
+
+__device__ __forceinline__ LaneId lane_id(const Lanes& l, long long lane) {
+  if (l.lens == 0) return {__ldg(l.px + lane), __ldg(l.py + lane), __ldg(l.aa + lane),
+                           __ldg(l.cam + lane)};
+  const uint32_t i = (uint32_t)lane, q = i / l.lens, p = q / l.samples;
+  return {__ldg(l.px + p), __ldg(l.py + p), __ldg(l.aa + (q - p * l.samples)), i - q * l.lens};
+}
+
 // ---- primary ray (integrator.primary_rays, cameras.project); `dof` for
 // the depth-of-field camera
 template <bool RN>

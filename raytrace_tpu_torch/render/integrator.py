@@ -292,12 +292,19 @@ def sample_pixels(data: SceneData, spec: SceneSpec, px, py, sample_ids,
     default :func:`raytrace_tpu_torch.render.megakernel.radiance_lanes`:
     on CUDA tensors a kernel, for every float32 scene whatever its DFS
     stack (a float64 scene raises there, naming its ROADMAP item), on CPU
-    tensors the kernels' plain version, for every scene.  The benchmark
-    passes ``megakernel.radiance_lanes_split`` to time a large scene's
-    split path, and ``megakernel.radiance_lanes_reference`` to hold the
-    kernels to their plain version."""
-    lanes = lane_ids(px, py, sample_ids, spec.cam_samples)
-    rad = (radiance or megakernel.radiance_lanes)(data, spec, *lanes, seed)
+    tensors the kernels' plain version, for every scene.  The default
+    takes the launch's lanes in factored form (``megakernel.LaunchLanes``:
+    a kernel decodes them, where it runs); a ``radiance`` given takes the
+    four tensors of :func:`lane_ids`.  The benchmark passes
+    ``megakernel.radiance_lanes_split`` to time a large scene's split path,
+    and ``megakernel.radiance_lanes_reference`` to hold the kernels to
+    their plain version."""
+    if radiance is None:
+        rad = megakernel.radiance_lanes(data, spec, megakernel.LaunchLanes(
+            px, py, sample_ids, spec.cam_samples), seed)
+    else:
+        rad = radiance(data, spec,
+                       *lane_ids(px, py, sample_ids, spec.cam_samples), seed)
     # each channel's samples of a pixel are contiguous: one mean for the
     # three channels
     return torch.stack(tuple(rad)).reshape(3, px.shape[0], -1).mean(
@@ -317,6 +324,13 @@ def lane_ids(px, py, sample_ids, cam_samples: int):
     return ids.reshape(4, -1).unbind(0)
 
 
+def id_dtype(top: int) -> torch.dtype:
+    """The dtype of integer ids below ``top``: int32 where they fit, as
+    every pixel and sample id of a render does, else int64.  Both give the
+    same 32-bit words (``rng.as_words``, the kernels' ``uint32_t``)."""
+    return torch.int32 if top <= 1 << 31 else torch.int64
+
+
 def _render_chunks(data: SceneData, spec: SceneSpec, px, py, s0: int,
                    s_launch: int, n_chunks: int, seed: int,
                    p_launch: int) -> torch.Tensor:
@@ -329,8 +343,9 @@ def _render_chunks(data: SceneData, spec: SceneSpec, px, py, s0: int,
         tile = torch.zeros((pxt.shape[0], 3), dtype=data.dtype,
                            device=px.device)
         for i in range(n_chunks):
-            sids = torch.arange(s0 + i * s_launch, s0 + (i + 1) * s_launch,
-                                dtype=torch.int64, device=px.device)
+            top = s0 + (i + 1) * s_launch
+            sids = torch.arange(top - s_launch, top, dtype=id_dtype(top),
+                                device=px.device)
             tile = tile + sample_pixels(data, spec, pxt, pyt, sids, seed)
         out[off:off + p_launch] = tile / n_chunks
     return out
@@ -622,7 +637,7 @@ def _image_loop(scene: Scene, *, seed: int, spp: int | None,
                                     data.device, mesh)
         writer = checkpoint is not None and (mesh is None or mesh.rank == 0)
 
-        pix = torch.arange(lo * w, hi * w, dtype=torch.int64,
+        pix = torch.arange(lo * w, hi * w, dtype=id_dtype(hi * w),
                            device=data.device)
         px, py = pix % w, pix // w
         if hi > h:

@@ -3,7 +3,10 @@
 PyTorch counterpart of :mod:`raytrace_tpu.render.megakernel` for scenes
 of any object count in float32, with a solid background or a skybox.
 :func:`radiance_lanes` takes per-lane integer identities (pixel x, pixel
-y, antialias sample, lens sample) and returns their radiance.  On CUDA
+y, antialias sample, lens sample) and returns their radiance: four (N,)
+tensors, or a render launch's lanes in factored form, a
+:class:`LaunchLanes` of pixels, samples and lens samples, which each
+thread of a kernel decodes into its own lane.  On CUDA
 tensors it launches a hand-written kernel or raises: linear scenes
 (``children_per_ray <= 1``) go to ``csrc/megakernel_linear.cu``, fan-out
 scenes to ``csrc/megakernel_tree.cu``, one thread per lane each.  Above
@@ -108,7 +111,9 @@ def launch_counts(spec: SceneSpec, n: int) -> dict:
     folds a large scene's table, else 0), ``lights`` (the scene's lights)
     and ``lens`` (the camera's lens samples, of which a launch's lanes
     take every one); for the tree kernel also ``stack`` (one of
-    ``TREE_STACK_CAPS``, or ``TREE_SLAB``)."""
+    ``TREE_STACK_CAPS``, or ``TREE_SLAB``).  :func:`radiance_lanes` adds
+    ``factored``: 1 where the kernel decodes the launch's lanes from a
+    :class:`LaunchLanes`, 0 where it reads four lane tensors."""
     counts = {"lanes": n, "large": int(is_large(spec)),
               "lights": spec.n_lights, "lens": spec.cam_samples}
     if kernel_for(spec) != KERNEL_TREE:
@@ -141,23 +146,81 @@ def usable(data: SceneData, spec: SceneSpec) -> bool:
     return unsupported_reason(data, spec) is None
 
 
-def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
-                   seed: int) -> V3:
-    """Radiance of each lane, given (N,) integer identity tensors on the
-    scene's device.  Returns a V3 of (N,) tensors of the scene's dtype,
-    differentiable in every float leaf of the scene.  CPU tensors take the
-    plain version whatever the scene; CUDA tensors a kernel (the ring
-    instances while a ring context is installed, forward only: they raise
-    ``NotImplementedError`` where a gradient is wanted, ROADMAP item 13),
-    or ``NotImplementedError`` for a scene outside :func:`usable`."""
-    device = pix.device
-    for t in (pix, piy, aa, cam):
-        if t.device != device or t.shape != pix.shape or t.ndim != 1:
-            raise ValueError("lane ids must be (N,) tensors on one device")
+@dataclasses.dataclass(frozen=True)
+class LaunchLanes:
+    """A render launch's lanes in factored form: every (pixel, sample,
+    lens sample) of the (P,) pixels ``px``, ``py``, the (S,) ``sample_ids``
+    and ``cam_samples`` C lens samples, N = P S C lanes, lane i being pixel
+    i // (S C), sample (i // C) % S and lens sample i % C
+    (:func:`raytrace_tpu_torch.render.integrator.lane_ids`' order)."""
+    px: torch.Tensor
+    py: torch.Tensor
+    sample_ids: torch.Tensor
+    cam_samples: int
+
+    def __post_init__(self):
+        p, s = self.px, self.sample_ids
+        if (p.ndim != 1 or self.py.shape != p.shape or s.ndim != 1
+                or self.py.device != p.device or s.device != p.device):
+            raise ValueError("a launch's pixels and sample ids must be "
+                             "(P,) and (S,) tensors on one device")
+        if self.cam_samples < 1:
+            raise ValueError(f"{self.cam_samples} lens samples")
+
+    @property
+    def device(self) -> torch.device:
+        return self.px.device
+
+    @property
+    def n(self) -> int:
+        return self.px.shape[0] * self.sample_ids.shape[0] * self.cam_samples
+
+    def expand(self) -> tuple:
+        """The four (N,) identity tensors of these lanes."""
+        from raytrace_tpu_torch.render.integrator import lane_ids
+
+        return lane_ids(self.px, self.py, self.sample_ids, self.cam_samples)
+
+
+def lane_args(lanes: tuple) -> tuple:
+    """``(pix, piy, aa, cam, seed)`` of a call's ``lanes`` in either form
+    that :func:`radiance_lanes` takes: the four (N,) tensors as they come,
+    a :class:`LaunchLanes` expanded."""
+    if len(lanes) == 2 and isinstance(lanes[0], LaunchLanes):
+        return (*lanes[0].expand(), lanes[1])
+    if len(lanes) != 5:
+        raise TypeError("lanes are (pix, piy, aa, cam, seed) or "
+                        "(LaunchLanes, seed)")
+    return lanes
+
+
+def radiance_lanes(data: SceneData, spec: SceneSpec, *lanes) -> V3:
+    """Radiance of each lane on the scene's device, the lanes given as
+    ``(pix, piy, aa, cam, seed)``, four (N,) integer identity tensors, or
+    as ``(LaunchLanes, seed)``.  Returns a V3 of (N,) tensors of the
+    scene's dtype, differentiable in every float leaf of the scene.  CPU
+    tensors take the plain version whatever the scene; CUDA tensors a
+    kernel (the ring instances while a ring context is installed, forward
+    only: they raise ``NotImplementedError`` where a gradient is wanted,
+    ROADMAP item 13), or ``NotImplementedError`` for a scene outside
+    :func:`usable`.  A :class:`LaunchLanes` reaches the kernel as it is,
+    each thread decoding its own lane, where no ring context is installed
+    and no leaf of the scene wants a gradient; everywhere else it is
+    expanded into the four tensors first."""
+    factored = isinstance(lanes[0], LaunchLanes)
+    if factored:
+        device = lanes[0].device
+    else:
+        pix = lanes[0]
+        device = pix.device
+        for t in lanes[:4]:
+            if t.device != device or t.shape != pix.shape or t.ndim != 1:
+                raise ValueError("lane ids must be (N,) tensors on one "
+                                 "device")
     if data.device != device:
         raise ValueError(f"scene on {data.device}, lanes on {device}")
     if device.type == "cpu":
-        return radiance_lanes_reference(data, spec, pix, piy, aa, cam, seed)
+        return radiance_lanes_reference(data, spec, *lanes)
     if device.type == "cuda":
         reason = unsupported_reason(data, spec)
         if reason is not None:
@@ -167,17 +230,22 @@ def radiance_lanes(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
             # here, before the kernel's forward turns grad mode off
             from raytrace_tpu_torch.parallel.ring import refuse_grad
             refuse_grad(ctx, data)
+        if factored and (ctx is not None or torch.is_grad_enabled() and any(
+                getattr(data, f.name).requires_grad
+                for f in dataclasses.fields(data))):
+            lanes, factored = lane_args(lanes), False
+        n = lanes[0].n if factored else lanes[0].shape[0]
         fwd, name, counts = (
-            (_launch, kernel_for(spec), launch_counts(spec, pix.shape[0]))
+            (_launch, kernel_for(spec),
+             dict(launch_counts(spec, n), factored=int(factored)))
             if ctx is None
-            else (radiance_lanes_ring, KERNEL_RING, {"lanes": pix.shape[0]}))
+            else (radiance_lanes_ring, KERNEL_RING, {"lanes": n}))
         # the kernel forward; backward through the plain version, under the
         # ring context of the forward pass
         leaves = [getattr(data, f.name) for f in dataclasses.fields(data)]
         return V3(*kernel_forward(
-            lambda *ls: fwd(SceneData(*ls), spec, pix, piy, aa, cam, seed),
-            lambda *ls: _reference_under(ctx, SceneData(*ls), spec, pix, piy,
-                                         aa, cam, seed),
+            lambda *ls: fwd(SceneData(*ls), spec, *lanes),
+            lambda *ls: _reference_under(ctx, SceneData(*ls), spec, *lanes),
             *leaves, name=name, **counts))
     raise ValueError(f"no megakernel for device {device}")
 
@@ -206,18 +274,19 @@ def radiance_lanes_ring(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
     return ring_radiance(ctx, data, spec, pix, piy, aa, cam, seed)
 
 
-def radiance_lanes_reference(data: SceneData, spec: SceneSpec, pix, piy, aa,
-                             cam, seed: int) -> V3:
-    """The plain PyTorch version of the kernels, on any device: the
-    linear chain or the DFS, as :func:`kernel_for` picks the kernel.  A
-    large scene goes through the plain scan of its table and launches no
-    kernel (unless a ring context is installed: its queries then go round
-    the ring, whose steps are the scan kernel on CUDA tensors)."""
+def radiance_lanes_reference(data: SceneData, spec: SceneSpec,
+                             *lanes) -> V3:
+    """The plain PyTorch version of the kernels, on any device, on lanes
+    in either form that :func:`radiance_lanes` takes: the linear chain or
+    the DFS, as :func:`kernel_for` picks the kernel.  A large scene goes
+    through the plain scan of its table and launches no kernel (unless a
+    ring context is installed: its queries then go round the ring, whose
+    steps are the scan kernel on CUDA tensors)."""
     from raytrace_tpu_torch.render.integrator import (primary_rays,
                                                       radiance_linear_v,
                                                       radiance_tree_loop_v)
 
-    ro, rd, k1, k2 = primary_rays(data, spec, pix, piy, aa, cam, seed)
+    ro, rd, k1, k2 = primary_rays(data, spec, *lane_args(lanes))
     fn = (radiance_linear_v if kernel_for(spec) == KERNEL_LINEAR
           else radiance_tree_loop_v)
     return fn(data, spec, ro, rd, k1, k2)
@@ -309,10 +378,12 @@ def pack_header(data: SceneData, spec: SceneSpec) -> torch.Tensor:
 _scene_buffer = per_scene_cache(pack_scene)
 
 
-# lane ids, scene buffer, fold buffer; sphere chunks, chunks, fold in
-# shared memory; packed sky faces, face sizes; objects, lights, max_depth,
-# reflect, refract, indirect, dof
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+# lane ids, their samples and lens samples (0, 0: four words a lane);
+# scene buffer, fold buffer; sphere chunks, chunks, fold in shared memory;
+# packed sky faces, face sizes; objects, lights, max_depth, reflect,
+# refract, indirect, dof
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_uint32] * 2
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7)
 
 
@@ -383,21 +454,41 @@ def tree_slab(lib, cap: int, n: int, n_obj: int, n_light: int, tables,
             threads.value)
 
 
-def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
-            seed: int) -> V3:
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """Integer ids as the 32-bit words that the kernels read as uint32_t:
+    an int32 tensor as it is, another's low 32 bits in an int32 copy."""
+    if t.dtype == torch.int32:
+        return t.contiguous()
+    return (t.to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
+
+
+def _launch(data: SceneData, spec: SceneSpec, *lanes) -> V3:
+    """One launch of the scene's kernel on ``lanes`` in either form that
+    :func:`radiance_lanes` takes: a :class:`LaunchLanes` as its (P,)
+    pixels, (S,) sample ids and lens-sample count, which the kernel
+    decodes lane by lane, or four (N,) tensors, a word each a lane."""
     from raytrace_tpu_torch.render.integrator import tree_loop_stack
 
-    device = pix.device
-    n = pix.shape[0]
+    if isinstance(lanes[0], LaunchLanes):
+        launch, seed = lanes
+        n = launch.n
+        if n > 0xFFFFFFFF:
+            raise ValueError(f"{n} lanes: a factored launch decodes 32-bit "
+                             f"lane indices")
+        ids = [_words(t) for t in (launch.px, launch.py, launch.sample_ids)]
+        ids.append(None)
+        factors = [launch.sample_ids.shape[0], launch.cam_samples]
+    else:
+        pix, piy, aa, cam, seed = lanes
+        n = pix.shape[0]
+        ids = [_words(t) for t in (pix, piy, aa, cam)]
+        factors = [0, 0]
+    device = data.device
     out = torch.empty((3, n), dtype=torch.float32, device=device)
     if n == 0:
         return V3(out[0], out[1], out[2])
     name = kernel_for(spec)
     lib = _lib(name)
-    # 32-bit lane words, which the kernel reads as uint32_t
-    ids = [t.contiguous() if t.dtype == torch.int32
-           else (t.to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
-           for t in (pix, piy, aa, cam)]
     scene = _scene_buffer(data, spec)
     large = is_large(spec)
     if large:
@@ -425,7 +516,8 @@ def _launch(data: SceneData, spec: SceneSpec, pix, piy, aa, cam,
         sky = [quads.data_ptr(), face_hw]
     else:
         sky = [None, None]
-    args = [*(t.data_ptr() for t in ids), scene.data_ptr(), *tables, *sky,
+    args = [*(None if t is None else t.data_ptr() for t in ids), *factors,
+            scene.data_ptr(), *tables, *sky,
             n_obj, spec.n_lights, spec.max_depth,
             int(spec.has_reflect), int(spec.has_refract), spec.n_indirect,
             int(spec.cam_type == CAM_DEPTH_OF_FIELD)]

@@ -3,8 +3,13 @@ its counts with its span's record while a profiler records and keeps no
 record otherwise (on the CPU, with a stand-in kernel); a render launch of
 either kernel counts its lanes, whether it folds a large scene's table,
 the scene's lights and the camera's lens samples, and a tree kernel's
-launch also its stack instance (``megakernel.launch_counts``); on the
-card each launch's span carries them."""
+launch also its stack instance (``megakernel.launch_counts``), and
+whether the kernel decoded the launch's lanes from their factored form
+(``factored``); on the card each launch's span carries them: 1 on the
+image loop's launches, 0 on four lane tensors and where a gradient is
+wanted."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -12,7 +17,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from raytrace_tpu_torch.ops.kernel_grad import kernel_forward
-from raytrace_tpu_torch.render import megakernel
+from raytrace_tpu_torch.render import integrator, megakernel
+from raytrace_tpu_torch.render.megakernel import LaunchLanes
 from raytrace_tpu_torch.scene import dsl, procedural
 from raytrace_tpu_torch.scene.builder import build_scene, load_scene_file
 from raytrace_tpu_torch.utils import profiling
@@ -156,4 +162,62 @@ def test_render_launch_records_its_counts(cuda_device, case):
             "lit_mirror": {"lanes": n, "large": 0, "lights": 2, "lens": 2},
             "mix": dict(tree, large=1, lights=0, lens=1),
             "showcase": dict(tree, large=0, lights=3, lens=4)}[case]
-    assert [r.counts for r in spans] == [want]
+    assert [r.counts for r in spans] == [dict(want, factored=0)]
+
+
+def _recorded_launches(name, fn):
+    before = len(profiling.recorded())
+    with profile(activities=profiling.trace_activities(
+            torch.device("cuda", 0))):
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [r for r in profiling.recorded()[before:] if r.name == name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cornell", "lit_mirror", "mix",
+                                  "showcase"])
+def test_image_loop_launches_count_factored(cuda_device, case):
+    """Every launch of a render counts ``factored`` 1, its lanes the
+    launch's pixels x samples x lens samples (all the render's lanes
+    together) and its instance as a four-tensor launch of the scene
+    counts it."""
+    sc = _scene(case, cuda_device)
+    sc = dataclasses.replace(sc, spec=dataclasses.replace(
+        sc.spec, width=24, height=10))
+    name = megakernel.kernel_for(sc.spec)
+    integrator.render_image(sc, seed=1, spp=4, max_lanes=256)   # builds
+    before = megakernel.LAUNCHES[name]
+    _, spans = _recorded_launches(name, lambda: integrator.render_image(
+        sc, seed=1, spp=4, max_lanes=256))
+    assert len(spans) == megakernel.LAUNCHES[name] - before > 1
+    assert {r.counts["factored"] for r in spans} == {1}
+    assert sum(r.counts["lanes"] for r in spans) == 240 * 4 * (
+        sc.spec.cam_samples)
+    for r in spans:
+        assert r.counts == dict(megakernel.launch_counts(
+            sc.spec, r.counts["lanes"]), factored=1)
+
+
+@pytest.mark.cuda
+def test_launch_that_wants_a_gradient_reads_four_tensors(cuda_device):
+    """A factored launch whose scene has a leaf that wants a gradient
+    takes the four tensors (its backward runs the plain version on them):
+    its span counts ``factored`` 0, and its radiance and gradient are the
+    four tensors' own."""
+    sc = _scene("lit_mirror", cuda_device)
+    pix = torch.arange(300, device=cuda_device)
+    launch = LaunchLanes(pix % 32, pix // 32,
+                         torch.arange(2, device=cuda_device), 2)
+    grads = []
+    for lanes in ((launch,), launch.expand()):
+        color = sc.data.bg_color.clone().requires_grad_(True)
+        data = dataclasses.replace(sc.data, bg_color=color)
+        out, spans = _recorded_launches(
+            "megakernel_linear",
+            lambda: megakernel.radiance_lanes(data, sc.spec, *lanes, 2))
+        assert [r.counts["factored"] for r in spans] == [0]
+        grads.append((torch.stack(list(out)), torch.autograd.grad(
+            out.x.sum() + out.y.sum() + out.z.sum(), color)[0]))
+    (r0, g0), (r1, g1) = grads
+    assert torch.equal(r0, r1) and torch.equal(g0, g1)

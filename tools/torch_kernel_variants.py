@@ -45,6 +45,10 @@ x 1024 cube, built from the parent's sources and from the port's in turns
 (parent, port, port, parent): each one's best time of three runs of five
 calls, and a hash of its output, which must be the same in all four (a
 change to the shared device code that leaves these kernels' bits alone).
+Both sides launch through the port's wrapper, on four lane tensors: a
+parent whose entries take no factored lanes (no ``samples`` and ``lens``
+after ``cam``) is given those words as unnamed arguments, which it
+leaves unread (``PARENT_LANE_WORDS``).
 
 The ring's two copy kernels (``--only ring [--parent DIR]``):
 ``ring_start`` and ``ring_rows`` of ``csrc/ring_shade.cu`` in each form,
@@ -821,6 +825,13 @@ def k4_variants(parent: str | None, smi: str, sass_dir: str | None) -> None:
             f"{label} {min(v):.4f}" for label, v in times[i].items() if v))
 
 
+# a parent's render entries from before the factored lanes take the four
+# words that the wrapper passes after ``cam`` (zeros on four lane tensors)
+PARENT_LANE_WORDS = ("const uint32_t* cam, const float* scene",
+                     "const uint32_t* cam, uint32_t, uint32_t, "
+                     "const float* scene")
+
+
 def fused_against_parent(parent: str, smi: str) -> None:
     """The fused render kernels and the skybox kernel from the parent's
     sources and from the port's, in turns: times and output hashes."""
@@ -857,9 +868,13 @@ def fused_against_parent(parent: str, smi: str) -> None:
                                                               dirs)
     runs = {label: [] for label in calls}
     parent_csrc = os.path.join(parent, "raytrace_tpu_torch", "csrc")
-    for form, base in (("parent", parent_csrc), ("port", OWN_CSRC),
-                       ("port", OWN_CSRC), ("parent", parent_csrc)):
-        patched_sources(base=base)
+    with open(os.path.join(parent_csrc, "megakernel_linear.cu")) as f:
+        parent_edits = ([] if "uint32_t samples" in f.read()
+                        else [PARENT_LANE_WORDS])
+    for form, base, edits in (("parent", parent_csrc, parent_edits),
+                              ("port", OWN_CSRC, []), ("port", OWN_CSRC, []),
+                              ("parent", parent_csrc, parent_edits)):
+        patched_sources(base=base, edits=edits)
         for label, fn in calls.items():
             digest = hashlib.sha256(
                 fn().cpu().numpy().tobytes()).hexdigest()[:16]
